@@ -1,0 +1,46 @@
+"""JAX params <-> the port's `state_dict`.
+
+The port's modules carry the flax names (`field.encoding.line_0_0`,
+`field.mlp_base.dense_0.kernel`, `proposal_0.MLP_0.dense_1.bias`, ...), so a
+JAX `NerfactoModel.init` tree maps onto `NerfactoModel.state_dict()` by
+joining the tree path with dots. No tensor is transposed: the port keeps
+flax's [in, out] Dense kernel layout (`factor_grid.dense_bf16` computes
+x @ kernel, and the CUDA kernel reads W0 [D, H] row by row), so the
+converter is a rename and a dtype check.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Nested dict of arrays (the JAX params tree, as numpy) -> flat
+    {dotted name: f32 tensor}."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, node: Mapping[str, Any]) -> None:
+        for key, val in node.items():
+            name = f"{prefix}{key}"
+            if isinstance(val, Mapping):
+                walk(name + ".", val)
+            else:
+                out[name] = torch.from_numpy(np.array(val, dtype=np.float32))
+
+    walk("", params)
+    return out
+
+
+def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """Flat {dotted name: tensor} -> nested dict of f32 numpy arrays."""
+    out: Dict[str, Any] = {}
+    for name, val in state_dict.items():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val.detach().cpu().float().numpy()
+    return out

@@ -1,0 +1,247 @@
+"""Neural fields: the nerfacto field and the proposal density field.
+
+Port of `signerf_tpu/models/fields.py`, factor-grid backend only (the hash
+backend raises). Parameter names follow the flax modules, so the
+`state_dict` keys are the JAX tree paths joined with dots, for example
+`field.encoding.line_0_0` and `field.mlp_base.dense_0.kernel`. Dense
+kernels keep flax's [in, out] layout.
+
+The density of both fields goes through `ops/factor_grid.fused_density_mlp`:
+the CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. The
+color head stays plain PyTorch under the same bf16 Dense contract.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from signerf_tpu_torch.ops.contraction import contract_to_unit
+from signerf_tpu_torch.ops.factor_grid import FactorGridConfig, dense_bf16, fused_density_mlp
+from signerf_tpu_torch.ops.sh import sh_encode
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp with the input clamped to [-15, 15] (the density activation)."""
+    return torch.exp(x.clamp(-15.0, 15.0))
+
+
+class Dense(nn.Module):
+    """flax `Dense(dtype=bfloat16)`: f32 params `kernel` [in, out] and
+    `bias` [out]; the forward follows `factor_grid.dense_bf16`."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_dim, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # flax lecun_normal: truncated normal on [-2, 2] std, variance 1/fan_in.
+        std = math.sqrt(1.0 / self.kernel.shape[0]) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.kernel, 0.0, std, -2 * std, 2 * std, generator=generator)
+            self.bias.zero_()
+
+    def weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.kernel, self.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_bf16(x, self.kernel, self.bias)
+
+
+class MLP(nn.Module):
+    """ReLU MLP of `num_layers` Dense layers (`dense_0`, `dense_1`, ...),
+    bf16 compute over f32 params; the output is returned as f32."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        hidden_dim: int,
+        num_layers: int,
+        out_dim: int,
+        out_activation: Optional[str] = None,
+    ):
+        super().__init__()
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        for i in range(num_layers):
+            self.add_module(f"dense_{i}", Dense(dims[i], dims[i + 1]))
+        self.num_layers = num_layers
+        self.out_activation = out_activation
+
+    def layers(self):
+        return [getattr(self, f"dense_{i}") for i in range(self.num_layers)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        *hidden, last = self.layers()
+        for layer in hidden:
+            x = layer(x).clamp_min(0.0)
+        x = last(x)
+        if self.out_activation == "sigmoid":
+            x = torch.sigmoid(x)
+        return x
+
+
+class FactorGridEncoding(nn.Module):
+    """The learned line tables `line_{lvl}_{ax}`, each [R_lvl, F]."""
+
+    def __init__(self, config: FactorGridConfig):
+        super().__init__()
+        self.config = config
+        for lvl, res in enumerate(config.resolutions):
+            for ax in range(3):
+                self.register_parameter(
+                    f"line_{lvl}_{ax}", nn.Parameter(torch.empty(res, config.features_per_level))
+                )
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for p in self.parameters():
+                p.normal_(0.0, 0.2, generator=generator)
+
+    def get_lines(self):
+        """The [level][axis] line tables, as `fused_density_mlp` takes them."""
+        return [
+            [getattr(self, f"line_{lvl}_{ax}") for ax in range(3)]
+            for lvl in range(len(self.config.resolutions))
+        ]
+
+
+def _check_factor_backend(encoding_backend: str) -> None:
+    if encoding_backend != "factor":
+        raise NotImplementedError(
+            f"encoding_backend={encoding_backend!r}: the port has the factor grid only"
+        )
+
+
+def _density_logits(
+    encoding: FactorGridEncoding, mlp: MLP, positions: torch.Tensor
+) -> torch.Tensor:
+    """positions [..., 3] world -> raw MLP outputs [..., O] through the
+    fused encode + density MLP."""
+    pos01 = contract_to_unit(positions)
+    x = pos01.reshape(-1, 3).clamp(0.0, 1.0)
+    ws = [layer.weights() for layer in mlp.layers()]
+    h = fused_density_mlp(encoding.config, encoding.get_lines(), ws, x)
+    return h.reshape(*pos01.shape[:-1], h.shape[-1])
+
+
+class NerfactoField(nn.Module):
+    """Density + color field with an appearance embedding.
+
+    `forward(positions [R, S, 3], directions [R, 3])` returns
+    {"density": [R, S], "rgb": [R, S, 3]}.
+    """
+
+    def __init__(
+        self,
+        num_images: int,
+        base_res: int = 16,
+        max_res: int = 2048,
+        hidden_dim: int = 64,
+        geo_feat_dim: int = 15,
+        hidden_dim_color: int = 64,
+        num_layers_color: int = 3,
+        appearance_embed_dim: int = 32,
+        use_appearance_embedding: bool = True,
+        sh_levels: int = 4,
+        average_init_density: float = 1.0,
+        encoding_backend: str = "factor",
+        factor_features_per_level: int = 16,
+        factor_num_levels: int = 8,
+    ):
+        super().__init__()
+        _check_factor_backend(encoding_backend)
+        self.geo_feat_dim = geo_feat_dim
+        self.sh_levels = sh_levels
+        self.average_init_density = average_init_density
+        self.appearance_embed_dim = appearance_embed_dim
+        self.use_appearance_embedding = use_appearance_embedding
+        cfg = FactorGridConfig(
+            num_levels=factor_num_levels,
+            base_res=base_res,
+            max_res=max_res,
+            features_per_level=factor_features_per_level,
+        )
+        self.encoding = FactorGridEncoding(cfg)
+        self.mlp_base = MLP(cfg.out_dim, hidden_dim, 2, 1 + geo_feat_dim)
+        head_in = sh_levels**2 + geo_feat_dim
+        if use_appearance_embedding:
+            head_in += appearance_embed_dim
+            self.appearance = nn.Module()
+            self.appearance.embedding = nn.Parameter(torch.empty(num_images, appearance_embed_dim))
+        self.mlp_head = MLP(head_in, hidden_dim_color, num_layers_color, 3, "sigmoid")
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.encoding.reset_parameters(generator)
+        for mlp in (self.mlp_base, self.mlp_head):
+            for layer in mlp.layers():
+                layer.reset_parameters(generator)
+        if self.use_appearance_embedding:
+            with torch.no_grad():
+                # Small codes keep the eval-time mean code in distribution.
+                self.appearance.embedding.normal_(0.0, 0.01, generator=generator)
+
+    def density(self, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """positions [..., 3] world -> (density [...], geo_feat [..., G])."""
+        h = _density_logits(self.encoding, self.mlp_base, positions)
+        density = self.average_init_density * trunc_exp(h[..., 0] - 1.0)
+        return density, h[..., 1:]
+
+    def forward(self, positions: torch.Tensor, directions: torch.Tensor) -> Dict[str, torch.Tensor]:
+        density, geo = self.density(positions)
+        return self.head_only(density, geo, directions)
+
+    def head_only(
+        self,
+        density: torch.Tensor,  # [R, S]
+        geo: torch.Tensor,  # [R, S, G]
+        directions: torch.Tensor,  # [R, 3]
+    ) -> Dict[str, torch.Tensor]:
+        """The color head over a precomputed (density, geo). The appearance
+        code is the mean of the per-image codes, the eval rule of nerfstudio
+        and of the JAX package."""
+        d_enc = sh_encode(directions, self.sh_levels)
+        head_in = [d_enc[..., None, :].expand(*density.shape, d_enc.shape[-1]), geo]
+        if self.use_appearance_embedding:
+            embed = self.appearance.embedding.mean(0)
+            head_in.append(embed.expand(*density.shape, self.appearance_embed_dim))
+        rgb = self.mlp_head(torch.cat(head_in, dim=-1))
+        return {"density": density, "rgb": rgb}
+
+
+class HashMLPDensityField(nn.Module):
+    """Small density-only field used as a proposal network (factor grid
+    `FactorGridEncoding_0` + 2-layer `MLP_0`)."""
+
+    def __init__(
+        self,
+        num_levels: int = 5,
+        base_res: int = 16,
+        max_res: int = 128,
+        hidden_dim: int = 16,
+        encoding_backend: str = "factor",
+        factor_features_per_level: int = 8,
+    ):
+        super().__init__()
+        _check_factor_backend(encoding_backend)
+        cfg = FactorGridConfig(
+            num_levels=num_levels,
+            base_res=base_res,
+            max_res=max_res,
+            features_per_level=factor_features_per_level,
+        )
+        self.FactorGridEncoding_0 = FactorGridEncoding(cfg)
+        self.MLP_0 = MLP(cfg.out_dim, hidden_dim, 2, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.FactorGridEncoding_0.reset_parameters(generator)
+        for layer in self.MLP_0.layers():
+            layer.reset_parameters(generator)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        """positions [..., 3] world -> density [...]."""
+        h = _density_logits(self.FactorGridEncoding_0, self.MLP_0, positions)
+        return trunc_exp(h[..., 0] - 1.0)

@@ -1,0 +1,145 @@
+"""Nerfacto model: proposal sampling, factor-grid field, volumetric rendering.
+
+Port of the forward of `signerf_tpu/models/nerfacto.py`; the losses come
+with the training slice. `NerfactoModel` is an `nn.Module` whose children
+`field`, `proposal_0` and `proposal_1` carry the JAX params tree's names.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from signerf_tpu_torch.cameras.cameras import RayBundle
+from signerf_tpu_torch.models import renderers as R
+from signerf_tpu_torch.models.fields import HashMLPDensityField, NerfactoField
+from signerf_tpu_torch.models.samplers import proposal_sample, render_weights
+
+
+@dataclasses.dataclass
+class ProposalNetArgs:
+    hidden_dim: int = 16
+    num_levels: int = 5
+    max_res: int = 128
+
+
+@dataclasses.dataclass
+class NerfactoModelConfig:
+    """The knobs of the JAX package's `NerfactoModelConfig` that the forward
+    reads, with the same names and defaults. The loss, schedule, normals and
+    hash-grid knobs come with the slices that read them."""
+
+    near_plane: float = 0.05
+    far_plane: float = 1000.0
+    background_color: str = "last_sample"
+    base_res: int = 16
+    max_res: int = 2048
+    hidden_dim: int = 64
+    hidden_dim_color: int = 64
+    appearance_embed_dim: int = 32
+    use_appearance_embedding: bool = True
+    average_init_density: float = 1.0
+    encoding_backend: str = "factor"
+    num_proposal_samples_per_ray: Tuple[int, ...] = (256, 96)
+    num_nerf_samples_per_ray: int = 48
+    num_proposal_iterations: int = 2
+    use_same_proposal_network: bool = False
+    proposal_net_args_list: Tuple[ProposalNetArgs, ...] = (
+        ProposalNetArgs(max_res=128),
+        ProposalNetArgs(max_res=256),
+    )
+    single_jitter: bool = True
+
+
+class NerfactoModel(nn.Module):
+    """Nerfacto over an explicit ray batch; parameters live in the module."""
+
+    def __init__(self, config: NerfactoModelConfig, num_train_images: int):
+        super().__init__()
+        self.config = config
+        self.num_train_images = num_train_images
+        self.field = NerfactoField(
+            num_images=num_train_images,
+            base_res=config.base_res,
+            max_res=config.max_res,
+            hidden_dim=config.hidden_dim,
+            hidden_dim_color=config.hidden_dim_color,
+            appearance_embed_dim=config.appearance_embed_dim,
+            use_appearance_embedding=config.use_appearance_embedding,
+            average_init_density=config.average_init_density,
+            encoding_backend=config.encoding_backend,
+        )
+        n_fields = 1 if config.use_same_proposal_network else config.num_proposal_iterations
+        for i in range(n_fields):
+            args = config.proposal_net_args_list[min(i, len(config.proposal_net_args_list) - 1)]
+            self.add_module(
+                f"proposal_{i}",
+                HashMLPDensityField(
+                    num_levels=args.num_levels,
+                    max_res=args.max_res,
+                    hidden_dim=args.hidden_dim,
+                    encoding_backend=config.encoding_backend,
+                ),
+            )
+
+    def reset_parameters(self, generator: torch.Generator) -> "NerfactoModel":
+        """Fresh random parameters drawn from `generator` (seeded init)."""
+        for child in self.children():
+            child.reset_parameters(generator)
+        return self
+
+    def density_fns(self):
+        cfg = self.config
+        return [
+            getattr(self, f"proposal_{0 if cfg.use_same_proposal_network else i}")
+            for i in range(cfg.num_proposal_iterations)
+        ]
+
+    def forward(
+        self,
+        ray_bundle: RayBundle,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, Any]:
+        """Forward pass over a flat ray batch [R]; `generator=None` is the
+        deterministic eval sampling."""
+        cfg = self.config
+        origins = ray_bundle.origins
+        num_rays = origins.shape[0]
+        nears = ray_bundle.nears
+        if nears is None:
+            nears = torch.full((num_rays, 1), cfg.near_plane, dtype=origins.dtype, device=origins.device)
+        fars = ray_bundle.fars
+        if fars is None:
+            fars = torch.full((num_rays, 1), cfg.far_plane, dtype=origins.dtype, device=origins.device)
+        bundle = RayBundle(
+            origins=origins,
+            directions=ray_bundle.directions,
+            pixel_area=ray_bundle.pixel_area,
+            camera_indices=ray_bundle.camera_indices,
+            nears=nears.clamp_min(cfg.near_plane),
+            fars=fars.clamp_max(cfg.far_plane),
+        )
+        samples, weights_list, samples_list = proposal_sample(
+            generator,
+            bundle,
+            self.density_fns(),
+            num_proposal_samples=cfg.num_proposal_samples_per_ray,
+            num_nerf_samples=cfg.num_nerf_samples_per_ray,
+            single_jitter=cfg.single_jitter,
+        )
+        field_out = self.field(samples.positions, bundle.directions)
+        weights = render_weights(field_out["density"], samples.deltas)
+        return {
+            "rgb": R.render_rgb(weights, field_out["rgb"], cfg.background_color),
+            "accumulation": R.render_accumulation(weights),
+            "depth": R.render_depth_median(weights, samples.starts, samples.ends),
+            "expected_depth": R.render_depth_expected(weights, samples.starts, samples.ends),
+            "weights": weights,
+            "ray_samples": samples,
+            "weights_list": weights_list,
+            "ray_samples_list": samples_list,
+            "directions": bundle.directions,
+        }

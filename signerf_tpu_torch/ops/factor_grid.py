@@ -1,0 +1,153 @@
+"""Factorized multiresolution (CP) grid encoding and its density MLP.
+
+Port of the encode + density-MLP part of `signerf_tpu/ops/factor_grid.py`.
+For level l with resolution R_l and one line table [R_l, F] per axis, each
+axis is linearly interpolated at u * (R_l - 1), the three axes are
+multiplied, and the levels are concatenated into D = L * F features. A
+2-layer MLP under the flax `Dense(dtype=bfloat16)` contract turns them into
+the field's raw outputs.
+
+Two numeric contracts live here, and the tests hold the port to both JAX
+versions:
+
+- `density_mlp_reference` is the JAX package's XLA expression, ported
+  as-is: interpolation as a [N, R] "hat" matrix product with the hat
+  weights rounded to bf16, bf16 products across the three axes.
+- `fused_density_mlp` is the contract of the CUDA kernel
+  (`ops/fused_factor_cuda.py`): a two-tap gather per level and axis from
+  bf16 tables, f32 tap weights, f32 products, features rounded to bf16 as
+  the first MLP operand. It is the Pallas TPU kernel's contract on its
+  large levels; the kernel here has no small-level special case, because
+  that split existed only for the TPU's lack of a fast gather.
+
+Both share the MLP contract (`dense_bf16`): bf16 operands, f32
+accumulation, the product rounded to bf16, a bf16 bias add, then ReLU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+Lines = Sequence[Sequence[torch.Tensor]]  # [level][axis] -> [R_l, F]
+DenseWeights = Tuple[torch.Tensor, torch.Tensor]  # (kernel [in, out], bias [out])
+
+_BF16 = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorGridConfig:
+    num_levels: int = 8
+    base_res: int = 16
+    max_res: int = 1024
+    features_per_level: int = 16
+
+    @property
+    def resolutions(self) -> Tuple[int, ...]:
+        if self.num_levels == 1:
+            return (self.base_res,)
+        g = math.exp(
+            (math.log(self.max_res) - math.log(self.base_res))
+            / (self.num_levels - 1)
+        )
+        return tuple(
+            int(round(self.base_res * g**l)) for l in range(self.num_levels)
+        )
+
+    @property
+    def out_dim(self) -> int:
+        return self.num_levels * self.features_per_level
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(_BF16).float()
+
+
+def dense_bf16(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """One flax `Dense(dtype=bfloat16)` layer, returned as bf16-valued f32.
+
+    The kernel keeps flax's [in, out] layout (no transpose anywhere). The
+    product runs in f32 over bf16-rounded operands, which is exact per term,
+    so only the summation order differs from any other f32-accumulating
+    implementation; the result is rounded to bf16 before and after the bias.
+    """
+    h = _round_bf16(_round_bf16(x) @ _round_bf16(kernel))
+    return _round_bf16(h + _round_bf16(bias))
+
+
+def mlp2_reference(feats: torch.Tensor, ws: Sequence[DenseWeights]) -> torch.Tensor:
+    """2-layer bf16 MLP (== fields.MLP(num_layers=2)): Dense, ReLU, Dense."""
+    (k0, b0), (k1, b1) = ws
+    h = dense_bf16(feats, k0, b0).clamp_min(0.0)
+    return dense_bf16(h, k1, b1)
+
+
+def hat_matrix(u: torch.Tensor, res: int, dtype: torch.dtype) -> torch.Tensor:
+    """[N] coords in [0, 1] -> [N, res] linear-interpolation rows."""
+    x = u.clamp(0.0, 1.0) * (res - 1)
+    j = torch.arange(res, dtype=x.dtype, device=x.device)
+    return (1.0 - (x[:, None] - j[None, :]).abs()).clamp_min(0.0).to(dtype)
+
+
+def _cp_level_features(x01: torch.Tensor, lines: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One level under the XLA contract: bf16 hat @ bf16 line (f32
+    accumulation, bf16 result), then the bf16 product of the three axes."""
+    res = lines[0].shape[0]
+    f = [
+        (hat_matrix(x01[:, ax], res, _BF16).float() @ _round_bf16(lines[ax])).to(_BF16)
+        for ax in range(3)
+    ]
+    return f[0] * f[1] * f[2]
+
+
+def _encode_reference(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) -> torch.Tensor:
+    """Hat-matrix CP encode over a [level][axis] line list -> [N, D] f32."""
+    feats = [
+        _cp_level_features(x01, lines[lvl]) for lvl in range(len(cfg.resolutions))
+    ]
+    return torch.cat(feats, dim=-1).float()
+
+
+def density_mlp_reference(
+    cfg: FactorGridConfig, lines: Lines, ws: Sequence[DenseWeights], x01: torch.Tensor
+) -> torch.Tensor:
+    """The JAX package's XLA encode + MLP expression: [N, O] f32."""
+    return mlp2_reference(_encode_reference(cfg, lines, x01), ws)
+
+
+def pack_tables(lines: Lines) -> torch.Tensor:
+    """The [level][axis] line tables as one flat contiguous bf16 buffer, in
+    level-major, then axis, then row order: the layout the kernel reads."""
+    return torch.cat([t.reshape(-1) for axes in lines for t in axes]).to(_BF16)
+
+
+def fused_density_mlp(
+    cfg: FactorGridConfig, lines: Lines, ws: Sequence[DenseWeights], x01: torch.Tensor
+) -> torch.Tensor:
+    """Encode + 2-layer MLP in one pass: [N, 3] pos01 in [0, 1] -> [N, O] f32.
+
+    A CUDA tensor goes to the hand-written kernel, which raises for what it
+    does not take; a CPU tensor goes to the kernel's plain PyTorch twin.
+    Nothing falls back from one to the other.
+    """
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    (k0, b0), (k1, b1) = ws
+    args = (
+        cfg.resolutions,
+        cfg.features_per_level,
+        pack_tables(lines),
+        k0.to(_BF16),
+        b0.to(_BF16),
+        k1.to(_BF16),
+        b1.to(_BF16),
+        x01,
+    )
+    if x01.device.type == "cuda":
+        return ffc.density_mlp_cuda(*args)
+    if x01.device.type == "cpu":
+        return ffc.density_mlp_plain(*args)
+    raise RuntimeError(f"fused_density_mlp: no kernel for device {x01.device}")
