@@ -152,6 +152,17 @@ class Cameras:
         cam_idx = torch.full((h, w), camera_index, dtype=torch.long, device=dev)
         return self._rays_from_pixels(cam_idx, px, py, aabb)
 
+    def generate_rays_at(
+        self, indices: torch.Tensor, aabb: Optional[torch.Tensor] = None
+    ) -> RayBundle:
+        """Rays for sampled pixels: indices [N, 3] int = (camera, y, x), at
+        the pixel centers. The train step passes no aabb, so its rays get
+        the model's near/far planes instead of the scene box."""
+        cam_idx = indices[..., 0].long()
+        py = indices[..., 1].float() + 0.5
+        px = indices[..., 2].float() + 0.5
+        return self._rays_from_pixels(cam_idx, px, py, aabb)
+
     def _rays_from_pixels(self, cam_idx, px, py, aabb) -> RayBundle:
         dirs, pixel_area = self._pixel_to_directions(cam_idx, px, py)
         origins = self.camera_to_worlds[cam_idx][..., :3, 3].expand(dirs.shape)

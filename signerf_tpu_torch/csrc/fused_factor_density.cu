@@ -29,36 +29,21 @@
 
 #include <cstdint>
 
+#include "factor_grid_common.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 8;
+using factor_grid::kMaxLevels;
+using factor_grid::load_row;
+using factor_grid::round_bf16;
+using factor_grid::tap;
+
 constexpr int kThreads = 128;
 
 struct Levels {
   int res[kMaxLevels];
   int offset[kMaxLevels][3];  // element offset of each [R_l, F] table
 };
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// One table row of F bf16 values (F * 2 bytes, a multiple of 16) -> f32.
-template <int F>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* row, float* out) {
-  const uint4* src = reinterpret_cast<const uint4*>(row);
-#pragma unroll
-  for (int v = 0; v < F / 8; ++v) {
-    const uint4 raw = __ldg(src + v);
-    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      // bf16 -> f32 is a 16-bit shift: low half first (little endian).
-      out[v * 8 + 2 * k] = __uint_as_float(words[k] << 16);
-      out[v * 8 + 2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
-    }
-  }
-}
 
 template <int F, int H, int O, int L>
 __global__ void __launch_bounds__(kThreads)
@@ -99,10 +84,9 @@ density_kernel(const float* __restrict__ coords, int n,
     for (int f = 0; f < F; ++f) feat[f] = 1.f;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float x = u[a] * static_cast<float>(res - 1);
-      // u = 1 exactly gives i = R - 2, w = 1: the last row, never past it.
-      const int i = max(0, min(static_cast<int>(floorf(x)), res - 2));
-      const float w = x - static_cast<float>(i);
+      int i;
+      float w;
+      tap(u[a], res, i, w);
       const __nv_bfloat16* row = tables + levels.offset[l][a] + i * F;
       float r0[F], r1[F];
       load_row<F>(row, r0);

@@ -1,0 +1,87 @@
+"""Eval CLI: `python -m signerf_tpu_torch.eval --data ... --load-dir ...`.
+
+Port of `signerf_tpu/eval.py`: renders every dataset camera with its own
+appearance code from a checkpoint (loaded through the restore surgery) and
+writes PSNR and SSIM against the ground-truth images as a JSON summary.
+LPIPS comes with the `signerf` method's slice (`--lpips true` raises).
+
+Flags: --data PATH, --load-dir PATH, --output PATH (default eval.json),
+--device DEV (default cuda), --model.KEY VALUE (SIGNeRFModelConfig).
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from signerf_tpu_torch import config as cfglib
+from signerf_tpu_torch.data.datamanager import SIGNeRFDataManager, SIGNeRFDataManagerConfig
+from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig
+from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, surgical_restore
+from signerf_tpu_torch.engine.train_step import make_eval_render
+from signerf_tpu_torch.models.signerf import SIGNeRFModelConfig
+from signerf_tpu_torch.ops.image_metrics import psnr, ssim
+from signerf_tpu_torch.pipeline import SURGERY_SEED, seeded_model
+from signerf_tpu_torch.render import resolve_device
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    opts = cfglib.parse_cli_overrides(argv)
+    data = Path(opts.pop("data"))
+    load_dir = opts.pop("load-dir", opts.pop("load_dir", None))
+    out_path = Path(opts.pop("output", "eval.json"))
+    if str(opts.pop("lpips", "false")).lower() in ("1", "true", "yes"):
+        raise NotImplementedError("LPIPS comes with the `signerf` method's slice of the port")
+    device = resolve_device(opts.pop("device", "cuda"))
+    unknown = [k for k in opts if not k.startswith("model.")]
+    if unknown:
+        raise ValueError(f"unknown flags: {unknown}")
+    model_cfg = cfglib.apply_overrides(
+        SIGNeRFModelConfig(use_lpips=False), {k.removeprefix("model."): v for k, v in opts.items()}
+    )
+
+    dm = SIGNeRFDataManager(
+        SIGNeRFDataManagerConfig(dataparser=SIGNeRFDataParserConfig(data=data)), device
+    )
+    model = seeded_model(model_cfg, dm.num_images, SURGERY_SEED)
+    if load_dir is not None:
+        ckpt = latest_checkpoint(Path(load_dir))
+        if ckpt is None:
+            print(f"no checkpoint under {load_dir}")
+            return 1
+        model.load_state_dict(surgical_restore(ckpt, model.state_dict()), strict=True)
+        print(f"loaded {ckpt}")
+    model = model.to(device).eval()
+
+    render = make_eval_render(model, chunk_size=8192)
+    cams = dm.cameras
+    h, w = cams.height, cams.width
+    aabb = torch.as_tensor(dm.outputs.scene_box_aabb, device=device)
+    rows = []
+    for i in range(len(cams)):
+        rb = cams.generate_rays(camera_index=i, aabb=aabb)
+        out = render(rb.reshape((h * w,)), appearance_mode="index")
+        pred = out["rgb"].reshape(h, w, 3)
+        gt = dm.images[i].float() / 255.0
+        row = {"camera": i, "psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt))}
+        rows.append(row)
+        print(f"camera {i}: psnr={row['psnr']:.2f} ssim={row['ssim']:.4f}")
+
+    summary = {
+        "num_images": len(rows),
+        "psnr": float(np.mean([r["psnr"] for r in rows])),
+        "ssim": float(np.mean([r["ssim"] for r in rows])),
+        "per_image": rows,
+    }
+    out_path.write_text(json.dumps(summary, indent=2))
+    print(f"mean psnr={summary['psnr']:.2f} ssim={summary['ssim']:.4f} -> {out_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,8 +7,9 @@ backend raises). Parameter names follow the flax modules, so the
 kernels keep flax's [in, out] layout.
 
 The density of both fields goes through `ops/factor_grid.fused_density_mlp`:
-the CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. The
-color head stays plain PyTorch under the same bf16 Dense contract.
+the CUDA kernels (K1 forward, K2 backward) for a CUDA tensor, their plain
+twins for a CPU tensor. The color head stays plain PyTorch under the same
+bf16 Dense contract.
 """
 
 from __future__ import annotations
@@ -24,9 +25,26 @@ from signerf_tpu_torch.ops.factor_grid import FactorGridConfig, dense_bf16, fuse
 from signerf_tpu_torch.ops.sh import sh_encode
 
 
+class _TruncExp(torch.autograd.Function):
+    """exp(clamp(x, -15, 15)) whose derivative is that same clamped exp
+    everywhere (instant-ngp / nerfstudio `trunc_exp`, the JAX package's
+    `custom_jvp`), so samples far outside the clamp keep learning."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(x.clamp(-15.0, 15.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     """exp with the input clamped to [-15, 15] (the density activation)."""
-    return torch.exp(x.clamp(-15.0, 15.0))
+    return _TruncExp.apply(x)
 
 
 class Dense(nn.Module):
@@ -77,7 +95,7 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         *hidden, last = self.layers()
         for layer in hidden:
-            x = layer(x).clamp_min(0.0)
+            x = torch.relu(layer(x))
         x = last(x)
         if self.out_activation == "sigmoid":
             x = torch.sigmoid(x)
@@ -190,23 +208,44 @@ class NerfactoField(nn.Module):
         density = self.average_init_density * trunc_exp(h[..., 0] - 1.0)
         return density, h[..., 1:]
 
-    def forward(self, positions: torch.Tensor, directions: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(
+        self,
+        positions: torch.Tensor,  # [R, S, 3]
+        directions: torch.Tensor,  # [R, 3]
+        camera_indices: Optional[torch.Tensor] = None,  # [R] int
+        train: bool = False,
+        appearance_mode: Optional[str] = None,  # None (auto) | index | mean | zero
+    ) -> Dict[str, torch.Tensor]:
         density, geo = self.density(positions)
-        return self.head_only(density, geo, directions)
+        return self.head_only(density, geo, directions, camera_indices, train, appearance_mode)
 
     def head_only(
         self,
         density: torch.Tensor,  # [R, S]
         geo: torch.Tensor,  # [R, S, G]
         directions: torch.Tensor,  # [R, 3]
+        camera_indices: Optional[torch.Tensor] = None,
+        train: bool = False,
+        appearance_mode: Optional[str] = None,
     ) -> Dict[str, torch.Tensor]:
-        """The color head over a precomputed (density, geo). The appearance
-        code is the mean of the per-image codes, the eval rule of nerfstudio
-        and of the JAX package."""
+        """The color head over a precomputed (density, geo).
+
+        Appearance code, as in the JAX package: "index" takes each ray's own
+        image code, "mean" the mean of the codes (nerfstudio's eval rule),
+        "zero" zeros; None means "index" when training with camera indices
+        and "mean" otherwise."""
         d_enc = sh_encode(directions, self.sh_levels)
         head_in = [d_enc[..., None, :].expand(*density.shape, d_enc.shape[-1]), geo]
         if self.use_appearance_embedding:
-            embed = self.appearance.embedding.mean(0)
+            if appearance_mode is None:
+                appearance_mode = "index" if (train and camera_indices is not None) else "mean"
+            codes = self.appearance.embedding
+            if appearance_mode == "index" and camera_indices is not None:
+                embed = codes[camera_indices.long()][..., None, :]
+            elif appearance_mode == "zero":
+                embed = codes.new_zeros(self.appearance_embed_dim)
+            else:
+                embed = codes.mean(0)
             head_in.append(embed.expand(*density.shape, self.appearance_embed_dim))
         rgb = self.mlp_head(torch.cat(head_in, dim=-1))
         return {"density": density, "rgb": rgb}

@@ -1,8 +1,10 @@
-"""Nerfacto model: proposal sampling, factor-grid field, volumetric rendering.
+"""Nerfacto model: proposal sampling, factor-grid field, volumetric
+rendering, and its training losses.
 
-Port of the forward of `signerf_tpu/models/nerfacto.py`; the losses come
-with the training slice. `NerfactoModel` is an `nn.Module` whose children
-`field`, `proposal_0` and `proposal_1` carry the JAX params tree's names.
+Port of `signerf_tpu/models/nerfacto.py` without the normals (they come
+with the `signerf` method). `NerfactoModel` is an `nn.Module` whose children
+`field`, `proposal_0` and `proposal_1` (and the parameter `camera_opt` when
+it is on) carry the JAX params tree's names.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from signerf_tpu_torch.cameras.camera_opt import apply_camera_opt, init_camera_opt
 from signerf_tpu_torch.cameras.cameras import RayBundle
+from signerf_tpu_torch.models import losses as L
 from signerf_tpu_torch.models import renderers as R
 from signerf_tpu_torch.models.fields import HashMLPDensityField, NerfactoField
 from signerf_tpu_torch.models.samplers import proposal_sample, render_weights
@@ -29,8 +33,8 @@ class ProposalNetArgs:
 @dataclasses.dataclass
 class NerfactoModelConfig:
     """The knobs of the JAX package's `NerfactoModelConfig` that the forward
-    reads, with the same names and defaults. The loss, schedule, normals and
-    hash-grid knobs come with the slices that read them."""
+    and the training losses read, with the same names and defaults. The
+    normals and hash-grid knobs come with the slices that read them."""
 
     near_plane: float = 0.05
     far_plane: float = 1000.0
@@ -52,6 +56,14 @@ class NerfactoModelConfig:
         ProposalNetArgs(max_res=256),
     )
     single_jitter: bool = True
+    proposal_update_every: int = 5
+    proposal_warmup: int = 5000
+    proposal_weights_anneal_slope: float = 10.0
+    proposal_weights_anneal_max_num_iters: int = 1000
+    predict_normals: bool = False  # True needs the `signerf` slice
+    interlevel_loss_mult: float = 1.0
+    distortion_loss_mult: float = 0.002
+    use_camera_opt: bool = False
 
 
 class NerfactoModel(nn.Module):
@@ -59,6 +71,11 @@ class NerfactoModel(nn.Module):
 
     def __init__(self, config: NerfactoModelConfig, num_train_images: int):
         super().__init__()
+        if config.predict_normals:
+            raise NotImplementedError(
+                "predict_normals=True: the normals and their losses come with the `signerf` "
+                "method's slice of the port"
+            )
         self.config = config
         self.num_train_images = num_train_images
         self.field = NerfactoField(
@@ -84,11 +101,16 @@ class NerfactoModel(nn.Module):
                     encoding_backend=config.encoding_backend,
                 ),
             )
+        if config.use_camera_opt:
+            self.camera_opt = nn.Parameter(init_camera_opt(num_train_images))
 
     def reset_parameters(self, generator: torch.Generator) -> "NerfactoModel":
         """Fresh random parameters drawn from `generator` (seeded init)."""
         for child in self.children():
             child.reset_parameters(generator)
+        if self.config.use_camera_opt:
+            with torch.no_grad():
+                self.camera_opt.zero_()
         return self
 
     def density_fns(self):
@@ -98,15 +120,31 @@ class NerfactoModel(nn.Module):
             for i in range(cfg.num_proposal_iterations)
         ]
 
+    def anneal(self, step: int) -> float:
+        """Proposal-weight annealing exponent for `step`, in [0, 1]."""
+        # f32 arithmetic, as the JAX package computes it
+        n = self.config.proposal_weights_anneal_max_num_iters
+        x = (torch.tensor(float(step)) / n).clamp(0.0, 1.0)
+        b = self.config.proposal_weights_anneal_slope
+        return float(b * x / ((b - 1.0) * x + 1.0))
+
     def forward(
         self,
         ray_bundle: RayBundle,
         generator: Optional[torch.Generator] = None,
+        train: bool = False,
+        anneal: float = 1.0,
+        appearance_mode: Optional[str] = None,  # None (auto) | index | mean | zero
     ) -> Dict[str, Any]:
         """Forward pass over a flat ray batch [R]; `generator=None` is the
-        deterministic eval sampling."""
+        deterministic sampling. Training applies the camera pose correction
+        when it is on and, by default, each ray's own appearance code."""
         cfg = self.config
         origins = ray_bundle.origins
+        directions = ray_bundle.directions
+        cam_idx = None if ray_bundle.camera_indices is None else ray_bundle.camera_indices[..., 0]
+        if cfg.use_camera_opt and train and cam_idx is not None:
+            origins, directions = apply_camera_opt(self.camera_opt, origins, directions, cam_idx)
         num_rays = origins.shape[0]
         nears = ray_bundle.nears
         if nears is None:
@@ -116,7 +154,7 @@ class NerfactoModel(nn.Module):
             fars = torch.full((num_rays, 1), cfg.far_plane, dtype=origins.dtype, device=origins.device)
         bundle = RayBundle(
             origins=origins,
-            directions=ray_bundle.directions,
+            directions=directions,
             pixel_area=ray_bundle.pixel_area,
             camera_indices=ray_bundle.camera_indices,
             nears=nears.clamp_min(cfg.near_plane),
@@ -129,8 +167,9 @@ class NerfactoModel(nn.Module):
             num_proposal_samples=cfg.num_proposal_samples_per_ray,
             num_nerf_samples=cfg.num_nerf_samples_per_ray,
             single_jitter=cfg.single_jitter,
+            anneal=anneal,
         )
-        field_out = self.field(samples.positions, bundle.directions)
+        field_out = self.field(samples.positions, directions, cam_idx, train, appearance_mode)
         weights = render_weights(field_out["density"], samples.deltas)
         return {
             "rgb": R.render_rgb(weights, field_out["rgb"], cfg.background_color),
@@ -143,3 +182,23 @@ class NerfactoModel(nn.Module):
             "ray_samples_list": samples_list,
             "directions": bundle.directions,
         }
+
+    def loss_dict(
+        self, outputs: Dict[str, Any], batch: Dict[str, torch.Tensor], train: bool = True
+    ) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        loss = {"rgb_loss": L.mse_loss(outputs["rgb"], batch["image"])}
+        if train:
+            loss["interlevel_loss"] = cfg.interlevel_loss_mult * L.interlevel_loss(
+                outputs["weights_list"],
+                outputs["ray_samples_list"],
+                outputs["weights"],
+                outputs["ray_samples"],
+            )
+            loss["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
+                outputs["weights"], outputs["ray_samples"]
+            )
+        return loss
+
+    def metrics_dict(self, outputs, batch) -> Dict[str, torch.Tensor]:
+        return {"psnr": L.psnr(outputs["rgb"], batch["image"])}

@@ -13,12 +13,14 @@ versions:
 - `density_mlp_reference` is the JAX package's XLA expression, ported
   as-is: interpolation as a [N, R] "hat" matrix product with the hat
   weights rounded to bf16, bf16 products across the three axes.
-- `fused_density_mlp` is the contract of the CUDA kernel
+- `fused_density_mlp` is the contract of the CUDA kernels
   (`ops/fused_factor_cuda.py`): a two-tap gather per level and axis from
   bf16 tables, f32 tap weights, f32 products, features rounded to bf16 as
   the first MLP operand. It is the Pallas TPU kernel's contract on its
   large levels; the kernel here has no small-level special case, because
-  that split existed only for the TPU's lack of a fast gather.
+  that split existed only for the TPU's lack of a fast gather. Its
+  backward (K2) follows the Pallas backward's rounding points and keeps
+  the product rule and the line-grad sums in f32.
 
 Both share the MLP contract (`dense_bf16`): bf16 operands, f32
 accumulation, the product rounded to bf16, a bf16 bias add, then ReLU.
@@ -81,7 +83,7 @@ def dense_bf16(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> tor
 def mlp2_reference(feats: torch.Tensor, ws: Sequence[DenseWeights]) -> torch.Tensor:
     """2-layer bf16 MLP (== fields.MLP(num_layers=2)): Dense, ReLU, Dense."""
     (k0, b0), (k1, b1) = ws
-    h = dense_bf16(feats, k0, b0).clamp_min(0.0)
+    h = torch.relu(dense_bf16(feats, k0, b0))
     return dense_bf16(h, k1, b1)
 
 
@@ -124,30 +126,69 @@ def pack_tables(lines: Lines) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for axes in lines for t in axes]).to(_BF16)
 
 
+def _kernels(device: torch.device):
+    """(forward, backward) for tensors on `device`: the CUDA kernels K1 and
+    K2 for a CUDA tensor, their plain twins for a CPU tensor. Nothing falls
+    back from one to the other."""
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    if device.type == "cuda":
+        return ffc.density_mlp_cuda, ffc.density_mlp_bwd_cuda
+    if device.type == "cpu":
+        return ffc.density_mlp_plain, ffc.density_mlp_bwd_plain
+    raise RuntimeError(f"fused_density_mlp: no kernel for device {device}")
+
+
+class _FusedDensityMLP(torch.autograd.Function):
+    """The counterpart of the JAX `custom_vjp` of `fused_density_mlp`.
+
+    Takes the f32 line tables and Dense params (so autograd hands back f32
+    grads) and packs and rounds them to bf16 inside. Saves only its inputs:
+    the backward recomputes the features, as K2 does."""
+
+    @staticmethod
+    def forward(ctx, cfg, x01, k0, b0, k1, b1, *lines):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x01, k0, b0, k1, *lines)
+        fwd, _ = _kernels(x01.device)
+        nested = [lines[3 * lvl : 3 * lvl + 3] for lvl in range(len(cfg.resolutions))]
+        return fwd(
+            cfg.resolutions, cfg.features_per_level, pack_tables(nested),
+            k0.to(_BF16), b0.to(_BF16), k1.to(_BF16), b1.to(_BF16), x01.detach(),
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        x01, k0, b0, k1, *lines = ctx.saved_tensors
+        want_x = ctx.needs_input_grad[1]
+        want_tables = any(ctx.needs_input_grad[2:])
+        _, bwd = _kernels(x01.device)
+        nested = [lines[3 * lvl : 3 * lvl + 3] for lvl in range(len(cfg.resolutions))]
+        g_tables, g_ws, g_x = bwd(
+            cfg.resolutions, cfg.features_per_level, pack_tables(nested),
+            k0.to(_BF16), b0.to(_BF16), k1.to(_BF16), x01, g.float().contiguous(),
+            tables_half=want_tables, coords_half=want_x,
+        )
+        if g_tables is None:
+            return (None, g_x, None, None, None, None, *([None] * len(lines)))
+        g_lines, offset = [], 0
+        for line in lines:
+            g_lines.append(g_tables[offset : offset + line.numel()].view(line.shape))
+            offset += line.numel()
+        return (None, g_x, *g_ws, *g_lines)
+
+
 def fused_density_mlp(
     cfg: FactorGridConfig, lines: Lines, ws: Sequence[DenseWeights], x01: torch.Tensor
 ) -> torch.Tensor:
     """Encode + 2-layer MLP in one pass: [N, 3] pos01 in [0, 1] -> [N, O] f32.
 
-    A CUDA tensor goes to the hand-written kernel, which raises for what it
-    does not take; a CPU tensor goes to the kernel's plain PyTorch twin.
-    Nothing falls back from one to the other.
+    Differentiable in the line tables, the Dense params and x01. A CUDA
+    tensor goes to the hand-written kernels (K1 forward, K2 backward), which
+    raise for what they do not take; a CPU tensor goes to their plain
+    PyTorch twins.
     """
-    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
-
     (k0, b0), (k1, b1) = ws
-    args = (
-        cfg.resolutions,
-        cfg.features_per_level,
-        pack_tables(lines),
-        k0.to(_BF16),
-        b0.to(_BF16),
-        k1.to(_BF16),
-        b1.to(_BF16),
-        x01,
-    )
-    if x01.device.type == "cuda":
-        return ffc.density_mlp_cuda(*args)
-    if x01.device.type == "cpu":
-        return ffc.density_mlp_plain(*args)
-    raise RuntimeError(f"fused_density_mlp: no kernel for device {x01.device}")
+    flat = [t for axes in lines for t in axes]
+    return _FusedDensityMLP.apply(cfg, x01, k0, b0, k1, b1, *flat)

@@ -1,25 +1,34 @@
-"""K1: the factor-grid encode + density MLP as a hand-written CUDA kernel.
+"""K1 and K2: the factor-grid encode + density MLP and its backward, as
+hand-written CUDA kernels.
 
-Replaces `fused_factor_density_tpu` in `signerf_tpu/ops/fused_factor_pallas.py`
-(the Pallas TPU kernel that the proposal fields and the base field call
-once each per ray chunk). The kernel source is `csrc/fused_factor_density.cu`;
-its header says what it computes, what bounds it on an H100 (two-row gathers
-and their latency for the proposals, FMAs for the base MLP on CUDA cores)
-and what the design does about it.
+K1 replaces `fused_factor_density_tpu` and K2 `fused_factor_density_bwd_tpu`
+in `signerf_tpu/ops/fused_factor_pallas.py` (the Pallas TPU kernels that the
+proposal fields and the base field call once each per ray chunk, and whose
+backward runs once each per training step). The sources are
+`csrc/fused_factor_density.cu` and `csrc/fused_factor_density_bwd.cu`; their
+headers say what each computes, what bounds it on an H100 and what the design
+does about it. In short, K2 recomputes K1's features per sample, takes the
+MLP VJP at the Pallas kernel's bf16 rounding points, sums dW/db per block in
+shared memory and flushes them once per block, sums the small levels' line
+grads with shared-memory atomics and the large levels' with device-memory
+atomics (so its sums are reproducible to f32 rounding, not bitwise).
 
-The TPU kernel's dense-hat block GEMM, its 9-row one-hot GEMM and its
-transposed [D, N] layout existed only because the TPU has no fast gather;
-the port keeps the function, not that schedule: each level and axis is a
-two-row gather, and the output is [N, O] row-major.
+The TPU kernels' dense-hat block GEMM, 9-row one-hot GEMM, transposed
+[D, N] layout and packed small/large grad layout existed only because the
+TPU has no fast gather or scatter; the port keeps the function, not that
+schedule: each level and axis is a two-row gather (K1) or a two-row scatter
+(K2), and the line grads come back as one f32 buffer in `pack_tables` order.
 
-Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` into
-`build/kernels/` at the repository root, at first use and again whenever
-the source's hash changes, then loaded with ctypes (plain C interface, no
-PyTorch headers, so a build takes seconds).
+Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of each
+source into its own library under `build/kernels/` at the repository root,
+both compilers started together, at first use and again whenever a source's
+hash changes; loaded with ctypes (plain C interface, no PyTorch headers, so
+a build takes seconds).
 
-`density_mlp_plain` is the kernel's plain PyTorch twin on the same packed
-inputs. `factor_grid.fused_density_mlp` takes it for CPU tensors; the tests
-and `chip_smoke.py` hold the kernel against it on the card.
+`density_mlp_plain` and `density_mlp_bwd_plain` are the kernels' plain
+PyTorch twins on the same packed inputs. `factor_grid.fused_density_mlp`
+takes them for CPU tensors; the tests and `chip_smoke.py` hold the kernels
+against them on the card.
 """
 
 from __future__ import annotations
@@ -31,30 +40,59 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from signerf_tpu_torch.ops.factor_grid import mlp2_reference
+from signerf_tpu_torch.ops.factor_grid import dense_bf16, mlp2_reference
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_factor_density.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_HEADER = _CSRC / "factor_grid_common.cuh"
+SOURCES = {
+    "fused_factor_density": _CSRC / "fused_factor_density.cu",  # K1
+    "fused_factor_density_bwd": _CSRC / "fused_factor_density_bwd.cu",  # K2
+}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# (features_per_level, hidden, out, levels) the kernel is instantiated for:
+# (features_per_level, hidden, out, levels) the kernels are instantiated for:
 # the proposal fields and the base field of `signerf_nerfacto`.
 SUPPORTED = {(8, 16, 1, 5), (16, 64, 16, 8)}
 
-# Launches of the kernel in this process; only `density_mlp_cuda` adds to it,
-# once per launch. `chip_smoke.py` resets and reads it.
-launches = 0
+# Launches in this process; only the wrappers below add to them, once per
+# launch. `chip_smoke.py` resets and reads them.
+launches = 0  # K1
+bwd_table_launches = 0  # K2, line grads and dW/db
+bwd_coords_launches = 0  # K2, coordinate grads
 # The last build's compiler output (registers, shared memory, spills).
 build_log = ""
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "fused_factor_density_forward": [
+        _P, _I,  # coords [N, 3] f32, N
+        _P, ctypes.POINTER(_I), _I,  # packed tables bf16, resolutions (host), levels
+        _I, _I, _I,  # features_per_level, hidden, out
+        _P, _P, _P, _P,  # w0 [D, H], b0 [H], w1 [H, O], b1 [O], bf16
+        _P,  # out [N, O] f32
+        _P,  # cudaStream_t
+    ],
+    "fused_factor_density_backward": [
+        _P, _P, _I,  # coords [N, 3] f32, grad_out [N, O] f32, N
+        _P, ctypes.POINTER(_I), _I,  # packed tables bf16, resolutions (host), levels
+        _I, _I, _I,  # features_per_level, hidden, out
+        _P, _P, _P,  # w0 [D, H], b0 [H], w1 [H, O], bf16
+        _P, _P, _P, _P, _P,  # grads: tables (packed), w0, b0, w1, b1, f32, zeroed
+        _P,  # grad coords [N, 3] f32
+        _I,  # mode: 0 tables, 1 coords
+        _P,  # cudaStream_t
+    ],
+}
 
 
 def nvcc_path() -> str:
@@ -65,47 +103,51 @@ def nvcc_path() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
-def library() -> ctypes.CDLL:
-    """Build (when the source changed) and load the kernel library."""
-    global _lib, build_log
+def library(name: str = "fused_factor_density") -> ctypes.CDLL:
+    """Build (the sources that changed, all compilers at once) and load the
+    kernel libraries; returns the one called `name`."""
+    global build_log
     with _lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"fused_factor_density_{digest[:16]}.so"
-        if not so.exists():
+        if not _libs:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                capture_output=True,
-                text=True,
-            )
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {_SOURCE.name}:\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.fused_factor_density_forward
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p,  # coords [N, 3] f32
-            ctypes.c_int,  # N
-            ctypes.c_void_p,  # packed tables, bf16
-            ctypes.POINTER(ctypes.c_int),  # resolutions (host)
-            ctypes.c_int,  # num_levels
-            ctypes.c_int,  # features_per_level
-            ctypes.c_int,  # hidden
-            ctypes.c_int,  # out
-            ctypes.c_void_p,  # w0 [D, H] bf16
-            ctypes.c_void_p,  # b0 [H] bf16
-            ctypes.c_void_p,  # w1 [H, O] bf16
-            ctypes.c_void_p,  # b1 [O] bf16
-            ctypes.c_void_p,  # out [N, O] f32
-            ctypes.c_void_p,  # cudaStream_t
-        ]
-        _lib = lib
-        return lib
+            targets, procs = {}, {}
+            for lib_name, src in SOURCES.items():
+                digest = hashlib.sha256(
+                    src.read_bytes() + _HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                ).hexdigest()
+                so = BUILD_DIR / f"{lib_name}_{digest[:16]}.so"
+                targets[lib_name] = so
+                if not so.exists():
+                    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                    procs[lib_name] = (
+                        subprocess.Popen(
+                            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT,
+                            text=True,
+                        ),
+                        tmp,
+                    )
+            logs, failed = [], []
+            for lib_name, (proc, tmp) in procs.items():
+                out, _ = proc.communicate()
+                logs.append(out)
+                if proc.returncode != 0:
+                    failed.append(f"{SOURCES[lib_name].name}:\n{out}")
+                else:
+                    os.replace(tmp, targets[lib_name])
+            build_log = "".join(logs)
+            if failed:
+                raise RuntimeError("nvcc failed to build " + "\n".join(failed))
+            for lib_name, so in targets.items():
+                lib = ctypes.CDLL(str(so))
+                for fn_name, argtypes in _ARGTYPES.items():
+                    if hasattr(lib, fn_name):
+                        fn = getattr(lib, fn_name)
+                        fn.restype = ctypes.c_int
+                        fn.argtypes = argtypes
+                _libs[lib_name] = lib
+        return _libs[name]
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -118,7 +160,33 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(f"{name} requires grad; the kernel is forward-only")
+        raise RuntimeError(f"{name} requires grad; call the kernel on detached tensors")
+
+
+def _check_common(resolutions, feat, tables, w0, b0, w1, x01):
+    """Device, shape and type checks shared by K1 and K2 -> (n, hidden, out)."""
+    device = x01.device
+    if device.type != "cuda":
+        raise ValueError(f"the kernels need CUDA tensors, got {device}")
+    n = x01.shape[0]
+    levels = len(resolutions)
+    hidden, out_dim = w1.shape if w1.dim() == 2 else (-1, -1)
+    if (feat, hidden, out_dim, levels) not in SUPPORTED:
+        raise ValueError(
+            f"no kernel for features_per_level={feat}, hidden={hidden}, out={out_dim}, "
+            f"levels={levels}; instantiated for {sorted(SUPPORTED)}"
+        )
+    bf16 = torch.bfloat16
+    _check("x01", x01, torch.float32, (n, 3), device)
+    _check("tables", tables, bf16, (3 * sum(resolutions) * feat,), device)
+    _check("w0", w0, bf16, (levels * feat, hidden), device)
+    _check("b0", b0, bf16, (hidden,), device)
+    _check("w1", w1, bf16, (hidden, out_dim), device)
+    if tables.data_ptr() % 16:
+        raise ValueError("tables must be 16-byte aligned for the vector loads")
+    if n >= 2**31:
+        raise ValueError(f"N={n} does not fit the kernel's int count")
+    return n, hidden, out_dim
 
 
 def density_mlp_cuda(
@@ -138,36 +206,15 @@ def density_mlp_cuda(
     not take, and when the launch fails.
     """
     global launches
-    device = x01.device
-    if device.type != "cuda":
-        raise ValueError(f"density_mlp_cuda needs CUDA tensors, got {device}")
-    n = x01.shape[0]
-    levels = len(resolutions)
-    hidden, out_dim = w1.shape if w1.dim() == 2 else (-1, -1)
-    if (feat, hidden, out_dim, levels) not in SUPPORTED:
-        raise ValueError(
-            f"no kernel for features_per_level={feat}, hidden={hidden}, out={out_dim}, "
-            f"levels={levels}; instantiated for {sorted(SUPPORTED)}"
-        )
-    bf16 = torch.bfloat16
-    _check("x01", x01, torch.float32, (n, 3), device)
-    _check("tables", tables, bf16, (3 * sum(resolutions) * feat,), device)
-    _check("w0", w0, bf16, (levels * feat, hidden), device)
-    _check("b0", b0, bf16, (hidden,), device)
-    _check("w1", w1, bf16, (hidden, out_dim), device)
-    _check("b1", b1, bf16, (out_dim,), device)
-    if tables.data_ptr() % 16:
-        raise ValueError("tables must be 16-byte aligned for the vector loads")
-    if n >= 2**31:
-        raise ValueError(f"N={n} does not fit the kernel's int count")
-
-    lib = library()
-    out = torch.empty((n, out_dim), dtype=torch.float32, device=device)
-    res = (ctypes.c_int * levels)(*resolutions)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    n, hidden, out_dim = _check_common(resolutions, feat, tables, w0, b0, w1, x01)
+    _check("b1", b1, torch.bfloat16, (out_dim,), x01.device)
+    lib = library("fused_factor_density")
+    out = torch.empty((n, out_dim), dtype=torch.float32, device=x01.device)
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    with torch.cuda.device(x01.device):
+        stream = torch.cuda.current_stream(x01.device).cuda_stream
         rc = lib.fused_factor_density_forward(
-            x01.data_ptr(), n, tables.data_ptr(), res, levels, feat, hidden, out_dim,
+            x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, hidden, out_dim,
             w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
             stream,
         )
@@ -175,6 +222,80 @@ def density_mlp_cuda(
         raise RuntimeError(f"fused_factor_density_forward failed with CUDA error {rc}")
     launches += 1
     return out
+
+
+BwdResult = Tuple[
+    Optional[torch.Tensor],
+    Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]],
+    Optional[torch.Tensor],
+]
+
+
+def density_mlp_bwd_cuda(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    w0: torch.Tensor,
+    b0: torch.Tensor,
+    w1: torch.Tensor,
+    x01: torch.Tensor,
+    g: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> BwdResult:
+    """Launch K2 on x01's stream, given the cotangent g [N, O] f32 of K1's
+    output on the same inputs (b1 does not enter the backward).
+
+    Returns (line grads as one packed f32 buffer in `pack_tables` order,
+    (dW0 [D, H], db0 [H], dW1 [H, O], db1 [O]) f32, coords grad [N, 3] f32);
+    the tables/MLP half fills the first two and the coords half the last,
+    each only when asked for (None otherwise), one launch each.
+    """
+    global bwd_table_launches, bwd_coords_launches
+    n, hidden, out_dim = _check_common(resolutions, feat, tables, w0, b0, w1, x01)
+    device = x01.device
+    _check("g", g, torch.float32, (n, out_dim), device)
+    lib = library("fused_factor_density_bwd")
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    f32 = dict(dtype=torch.float32, device=device)
+    g_tables = g_ws = g_coords = None
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        common = (
+            x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat,
+            hidden, out_dim, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+        )
+        if tables_half:
+            g_tables = torch.zeros(tables.numel(), **f32)
+            g_ws = (
+                torch.zeros(tuple(w0.shape), **f32),
+                torch.zeros(hidden, **f32),
+                torch.zeros(hidden, out_dim, **f32),
+                torch.zeros(out_dim, **f32),
+            )
+            rc = lib.fused_factor_density_backward(
+                *common, g_tables.data_ptr(), *(t.data_ptr() for t in g_ws), None, 0, stream
+            )
+            if rc != 0:
+                raise RuntimeError(f"fused_factor_density_backward (tables) failed with CUDA error {rc}")
+            bwd_table_launches += 1
+        if coords_half:
+            g_coords = torch.empty((n, 3), **f32)
+            rc = lib.fused_factor_density_backward(
+                *common, None, None, None, None, None, g_coords.data_ptr(), 1, stream
+            )
+            if rc != 0:
+                raise RuntimeError(f"fused_factor_density_backward (coords) failed with CUDA error {rc}")
+            bwd_coords_launches += 1
+    return g_tables, g_ws, g_coords
+
+
+def _taps(u: torch.Tensor, res: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's two taps of one level and axis: row i (clamped to R - 2, so
+    u = 1 reads the last row with w = 1) and weight w [N, 1]."""
+    x = u * (res - 1)
+    i = x.floor().clamp(0, res - 2)
+    return i.long(), (x - i)[:, None]
 
 
 def density_mlp_plain(
@@ -187,7 +308,7 @@ def density_mlp_plain(
     b1: torch.Tensor,
     x01: torch.Tensor,
 ) -> torch.Tensor:
-    """The kernel's contract in plain PyTorch, on the same inputs."""
+    """K1's contract in plain PyTorch, on the same inputs."""
     u = x01.clamp(0.0, 1.0)
     feats = []
     offset = 0
@@ -196,11 +317,65 @@ def density_mlp_plain(
         for ax in range(3):
             line = tables[offset : offset + res * feat].view(res, feat).float()
             offset += res * feat
-            x = u[:, ax] * (res - 1)
-            i = x.floor().clamp(0, res - 2)
-            w = (x - i)[:, None]
-            i = i.long()
+            i, w = _taps(u[:, ax], res)
             f = (1.0 - w) * line[i] + w * line[i + 1]
             prod = f if prod is None else prod * f
         feats.append(prod)
     return mlp2_reference(torch.cat(feats, dim=-1), ((w0, b0), (w1, b1)))
+
+
+def density_mlp_bwd_plain(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    w0: torch.Tensor,
+    b0: torch.Tensor,
+    w1: torch.Tensor,
+    x01: torch.Tensor,
+    g: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> BwdResult:
+    """K2's contract in plain PyTorch, on the same inputs and with the same
+    returns as `density_mlp_bwd_cuda`."""
+    u = x01.clamp(0.0, 1.0)
+    tab = tables.float()
+    levels, feats, offset = [], [], 0
+    for res in resolutions:
+        axes, prod = [], None
+        for ax in range(3):
+            line = tab[offset : offset + res * feat].view(res, feat)
+            i, w = _taps(u[:, ax], res)
+            r0, r1 = line[i], line[i + 1]
+            f = (1.0 - w) * r0 + w * r1
+            axes.append((offset, res, i, w, f, r1 - r0))
+            prod = f if prod is None else prod * f
+            offset += res * feat
+        levels.append(axes)
+        feats.append(prod)
+    rb = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    feats_b = rb(torch.cat(feats, dim=-1))
+    w0f, w1f = w0.float(), w1.float()
+    h = torch.relu(dense_bf16(feats_b, w0, b0))
+    g_o = rb(g)
+    g_h = (g_o @ w1f.T) * (h > 0)
+    g_h_b = rb(g_h)
+    g_feat = rb(g_h_b @ w0f.T)  # [N, D]
+
+    g_tables = g_ws = g_coords = None
+    if tables_half:
+        g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=tables.device)
+        g_ws = (feats_b.T @ g_h_b, g_h.sum(0), h.T @ g_o, g_o.sum(0))
+    if coords_half:
+        g_coords = torch.zeros_like(u)
+    for lvl, axes in enumerate(levels):
+        g_l = g_feat[:, lvl * feat : (lvl + 1) * feat]
+        for ax, (off, res, i, w, _, diff) in enumerate(axes):
+            G = g_l * axes[(ax + 1) % 3][4] * axes[(ax + 2) % 3][4]
+            if tables_half:
+                grad = g_tables[off : off + res * feat].view(res, feat)
+                grad.index_add_(0, i, (1.0 - w) * G)
+                grad.index_add_(0, i + 1, w * G)
+            if coords_half:
+                g_coords[:, ax] += (G * diff).sum(-1) * (res - 1)
+    return g_tables, g_ws, g_coords

@@ -5,8 +5,9 @@ cameras, or for a circle of cameras, and writes PNGs.
 
 Flags:
   --data PATH          dataset (transforms.json or its directory)
-  --load-dir PATH      checkpoint directory; the newest step-*.pt state dict
-                       in the port's format is loaded (see convert.py)
+  --load-dir PATH      checkpoint directory; the newest step-*.pt written by
+                       the port's trainer is loaded through the restore
+                       surgery (engine/checkpoints.py)
   --output PATH        output directory (default renders/)
   --arc N              render an N-camera circle instead of the dataset cameras
   --arc-radius R --arc-theta T
@@ -15,15 +16,17 @@ Flags:
   --device DEV         torch device (default cuda); `cuda` without a card raises
   --model.KEY VALUE    NerfactoModelConfig overrides
 
-Without --load-dir the weights are a seeded random init. Rays are rendered
-in chunks of 8192.
+Without --load-dir the weights are a seeded random init. With it, the
+appearance codes and camera-opt come from that init and everything else
+from the checkpoint, as in the JAX CLI. Rays are rendered in chunks of
+8192.
 """
 
 from __future__ import annotations
 
 import sys
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
@@ -32,6 +35,7 @@ from signerf_tpu_torch import config as cfglib
 from signerf_tpu_torch.cameras.cameras import Cameras
 from signerf_tpu_torch.cameras.poses import circle_poses
 from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, surgical_restore
 from signerf_tpu_torch.engine.train_step import make_eval_render
 from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 from signerf_tpu_torch.utils.images import save_array_png
@@ -47,21 +51,12 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def latest_checkpoint(directory: Path) -> Optional[Path]:
-    ckpts = sorted(Path(directory).glob("step-*.pt"))
-    return ckpts[-1] if ckpts else None
-
-
-def restore(model: NerfactoModel, path: Path) -> None:
-    """Load a state dict saved with `torch.save`. The per-image appearance
-    codes are kept from the model's own init when the checkpoint saw another
-    number of images, as the reference's restore surgery does."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    own = model.state_dict()
-    key = "field.appearance.embedding"
-    if key in own and key in state and state[key].shape != own[key].shape:
-        state[key] = own[key]
-    model.load_state_dict(state, strict=True)
+def restore(model: torch.nn.Module, path: Path) -> None:
+    """Load a `step-*.pt` checkpoint through the restore surgery: the
+    appearance codes and camera-opt stay the model's own seeded init (as
+    `surgical_restore` in the JAX package and the reference do), every other
+    tensor comes from the checkpoint."""
+    model.load_state_dict(surgical_restore(path, model.state_dict()), strict=True)
 
 
 def build_model(

@@ -1,0 +1,70 @@
+"""Train CLI: `python -m signerf_tpu_torch.train <method> --train-only True [--a.b.c value ...]`.
+
+Port of `signerf_tpu/train.py` for plain training (`--train-only True`) of
+the `signerf_nerfacto` method; the edit flow (interface, generation, hot
+swap) and the `signerf` method come with later slices and raise.
+
+Flags, as in the JAX CLI:
+  --data PATH          dataset (transforms.json or its directory)
+  --load-dir PATH      start from the newest step-*.pt there (restore surgery,
+                       step reset to 0)
+  --output-dir PATH    experiment output root (checkpoints under
+                       <output-dir>/<experiment-name>/<method>/checkpoints)
+  --train-only True    required
+  --mesh auto|none     accepted; the port trains on one device
+  --device DEV         torch device (default cuda); `cuda` without a card raises
+  --a.b.c VALUE        any SIGNeRFTrainerConfig field, e.g.
+                       --max-num-iterations 300 --pipeline.model.use-camera-opt True
+
+Checkpoints are `step-{step:09d}.pt`: a `torch.save` of {"step", "params"
+(the model's state_dict), "optimizer"}.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from signerf_tpu_torch import config as cfglib
+from signerf_tpu_torch.engine.trainer import SIGNeRFTrainer
+from signerf_tpu_torch.method_configs import METHODS
+from signerf_tpu_torch.render import resolve_device
+
+
+def _flag(opts, name: str, default: str) -> str:
+    return str(opts.pop(name, opts.pop(name.replace("-", "_"), default)))
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        print("methods:", ", ".join(METHODS))
+        return 0
+    method = argv.pop(0)
+    if method not in METHODS:
+        print(f"unknown method {method!r}; available: {', '.join(METHODS)}")
+        return 1
+    config = METHODS[method]()
+    overrides = cfglib.parse_cli_overrides(argv)
+    train_only = _flag(overrides, "train-only", "false").lower() in ("1", "true", "yes")
+    if not train_only:
+        raise NotImplementedError(
+            "only --train-only True is ported: the interface and the headless edit flow come "
+            "with the orchestration slice of the port"
+        )
+    mesh = _flag(overrides, "mesh", "auto")
+    if mesh not in ("auto", "none"):
+        raise ValueError(f"--mesh {mesh}: the port trains on one device (auto or none)")
+    device = resolve_device(_flag(overrides, "device", "cuda"))
+    if "data" in overrides:
+        overrides["pipeline.datamanager.dataparser.data"] = overrides.pop("data")
+    config = cfglib.apply_overrides(config, overrides)
+
+    trainer = SIGNeRFTrainer(config, device)
+    trainer.setup()
+    trainer.train()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

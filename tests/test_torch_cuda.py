@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: K1 against its plain twin, its input
-checks, and one model chunk through it.
+"""The port's CUDA kernels on the card: K1 and K2 against their plain twins,
+their input checks, one model chunk through K1 and one train step through
+K1 and K2.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -115,3 +116,82 @@ def test_model_chunk_launches_k1_three_times(cuda):
     assert bool(torch.isfinite(out["rgb"]).all())
     acc = out["accumulation"]
     assert float(acc.min()) >= 0.0 and float(acc.max()) <= 1.0 + 1e-5
+
+
+def rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-12))
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_k2_matches_plain_twin(cuda, name):
+    args = make_args(name, 100_003, cuda)
+    res, feat, tables, w0, b0, w1, _, x = args
+    g = torch.randn(x.shape[0], w1.shape[1], generator=torch.Generator().manual_seed(1)).to(cuda)
+    bwd_args = (res, feat, tables, w0, b0, w1, x, g)
+    t0, c0 = ffc.bwd_table_launches, ffc.bwd_coords_launches
+    got = ffc.density_mlp_bwd_cuda(*bwd_args, tables_half=True, coords_half=True)
+    torch.cuda.synchronize()
+    assert (ffc.bwd_table_launches, ffc.bwd_coords_launches) == (t0 + 1, c0 + 1)
+    want = ffc.density_mlp_bwd_plain(*bwd_args, tables_half=True, coords_half=True)
+    leaves_got = [got[0], *got[1], got[2]]
+    leaves_want = [want[0], *want[1], want[2]]
+    for a, b in zip(leaves_got, leaves_want):
+        assert a.dtype == torch.float32 and a.shape == b.shape and bool(torch.isfinite(a).all())
+        # Same contract; the kernel's atomics and FMAs sum in another order
+        # (f32): per-leaf norm-relative 1e-4 (measured under 2e-5).
+        assert rel(a, b) < 1e-4
+    only_tables = ffc.density_mlp_bwd_cuda(*bwd_args)
+    assert only_tables[2] is None and ffc.bwd_coords_launches == c0 + 1
+
+
+def test_k2_refuses_what_it_does_not_take(cuda):
+    args = make_args("proposal", 64, cuda)
+    res, feat, tables, w0, b0, w1, _, x = args
+    g = torch.zeros(64, 1, device=cuda)
+    with pytest.raises(TypeError):
+        ffc.density_mlp_bwd_cuda(res, feat, tables, w0, b0, w1, x, g.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ffc.density_mlp_bwd_cuda(res, feat, tables, w0, b0, w1, x, torch.zeros(64, 2, device=cuda)[:, :1])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ffc.density_mlp_bwd_cuda(res, feat, tables, w0, b0, w1, x, g.requires_grad_(True))
+    with pytest.raises(ValueError, match="no kernel"):
+        ffc.density_mlp_bwd_cuda(res, 4, tables, w0, b0, w1, x, torch.zeros(64, 1, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        ffc.density_mlp_bwd_cuda(res, feat, tables.cpu(), w0.cpu(), b0.cpu(), w1.cpu(), x.cpu(), g.detach().cpu())
+
+
+@pytest.mark.parametrize("camera_opt", [False, True])
+def test_train_step_launches_k1_and_k2(cuda, camera_opt):
+    """One full-width train step: K1 and K2's tables half three times (two
+    proposal fields and the base field); K2's coords half only when camera
+    opt makes the loss depend on the sample positions."""
+    from signerf_tpu_torch.cameras.cameras import Cameras
+    from signerf_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizer
+    from signerf_tpu_torch.engine.train_step import SamplerSettings, make_train_step
+    from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+
+    n_cams, hw = 2, 64
+    model = NerfactoModel(NerfactoModelConfig(use_camera_opt=camera_opt), num_train_images=n_cams)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    c2w = torch.eye(4)[:3].expand(n_cams, 3, 4).clone()
+    c2w[:, 2, 3] = 2.0
+    cams = Cameras(
+        camera_to_worlds=c2w.to(cuda), fx=torch.full((n_cams,), 50.0, device=cuda),
+        fy=torch.full((n_cams,), 50.0, device=cuda), cx=torch.full((n_cams,), hw / 2, device=cuda),
+        cy=torch.full((n_cams,), hw / 2, device=cuda), width=hw, height=hw,
+    )
+    images = torch.randint(0, 256, (n_cams, hw, hw, 3), dtype=torch.uint8, device=cuda)
+    opt = make_optimizer(OptimizersConfig(), model)
+    step = make_train_step(model, opt, cams, SamplerSettings(num_rays=512))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = (ffc.launches, ffc.bwd_table_launches, ffc.bwd_coords_launches)
+    metrics = step(0, images, None, gen)
+    torch.cuda.synchronize()
+    after = (ffc.launches, ffc.bwd_table_launches, ffc.bwd_coords_launches)
+    assert after[0] - before[0] == 3 and after[1] - before[1] == 3
+    assert after[2] - before[2] == (3 if camera_opt else 0)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    with pytest.raises(ValueError, match="generator"):  # no sampling on the host for CUDA images
+        step(1, images, None, torch.Generator().manual_seed(0))
+

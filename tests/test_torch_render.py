@@ -162,29 +162,65 @@ def test_render_cli_arc(dataset, tmp_path):
 
 
 def test_render_cli_load_dir_reproduces_in_memory(dataset, jax_model_and_params, tmp_path):
+    """A trainer checkpoint (`step-*.pt`, {"step", "params", "optimizer"})
+    rendered by the CLI equals an in-memory render of the same params with
+    the appearance codes of the CLI model's own seeded init (restore
+    surgery)."""
     from PIL import Image
 
     from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.engine.checkpoints import save_checkpoint
+    from signerf_tpu_torch.render import INIT_SEED, build_model
     from signerf_tpu_torch.utils.images import to_uint8
 
     _, params = jax_model_and_params
-    ckpt = tmp_path / "ckpt"
-    ckpt.mkdir()
-    torch.save(state_dict_from_jax(params), ckpt / "step-000000100.pt")
+    saved = state_dict_from_jax(params)
+    saved["field.appearance.embedding"] = saved["field.appearance.embedding"] + 0.5
+    ckpt = save_checkpoint(tmp_path / "ckpt", 100, saved)
+    assert ckpt.name == "step-000000100.pt"
     out = tmp_path / "loaded"
     rc = render_main(
-        ["--data", str(dataset), "--output", str(out), "--load-dir", str(ckpt),
+        ["--data", str(dataset), "--output", str(out), "--load-dir", str(ckpt.parent),
          "--device", "cpu", "--depth", "false", *SMALL_FLAGS]
     )
     assert rc == 0
     parsed = parse_transforms(SIGNeRFDataParserConfig(data=dataset))
-    frames = list(
-        render_cameras(port_model(params), parsed.cameras, torch.as_tensor(parsed.scene_box_aabb))
-    )
+    fresh = build_model(NerfactoModelConfig(**SMALL), N_CAMS, torch.device("cpu"), seed=INIT_SEED)
+    want = dict(saved)
+    want["field.appearance.embedding"] = fresh.state_dict()["field.appearance.embedding"]
+    model = NerfactoModel(NerfactoModelConfig(**SMALL), num_train_images=N_CAMS)
+    model.load_state_dict(want, strict=True)
+    frames = list(render_cameras(model.eval(), parsed.cameras, torch.as_tensor(parsed.scene_box_aabb)))
     assert len(frames) == N_CAMS
     for i, frame in enumerate(frames):
         png = np.asarray(Image.open(out / f"rgb_{i:05d}.png"))
         np.testing.assert_array_equal(png, to_uint8(frame["rgb"].numpy()))  # same code, same bytes
+
+
+def test_restore_surgery_drops_appearance_and_camera_opt(jax_model_and_params, tmp_path):
+    """`render.restore` (and `surgical_restore`) keep the model's own init
+    for the appearance codes and camera_opt, and take every other tensor
+    from the checkpoint, as the JAX CLIs do (engine/checkpoints.py:113-128)."""
+    from signerf_tpu_torch.engine.checkpoints import save_checkpoint
+    from signerf_tpu_torch.render import restore
+
+    _, params = jax_model_and_params
+    cfg = NerfactoModelConfig(**SMALL, use_camera_opt=True)
+    saved = state_dict_from_jax(params)
+    saved["field.appearance.embedding"] = saved["field.appearance.embedding"] + 0.5
+    saved["camera_opt"] = torch.full((N_CAMS, 6), 0.25)
+    ckpt = save_checkpoint(tmp_path, 7, saved)
+    model = NerfactoModel(cfg, N_CAMS).reset_parameters(torch.Generator().manual_seed(3))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    restore(model, ckpt)
+    got = model.state_dict()
+    assert sorted(got) == sorted(saved)
+    for k, v in got.items():
+        if k in ("field.appearance.embedding", "camera_opt"):
+            assert torch.equal(v, init[k]), k
+            assert not torch.equal(v, saved[k]), k
+        else:
+            assert torch.equal(v, saved[k]), k
 
 
 def test_render_cli_refuses_cuda_without_a_card(dataset, tmp_path, monkeypatch):
@@ -202,10 +238,11 @@ def test_render_cli_missing_checkpoint(dataset, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter that imports the render CLI has neither JAX,
+    """A fresh interpreter that imports the render, train and eval CLIs has neither JAX,
     flax, nor any module of the JAX package loaded."""
     code = (
-        "import sys, signerf_tpu_torch.render, signerf_tpu_torch.convert; "
+        "import sys, signerf_tpu_torch.render, signerf_tpu_torch.convert, "
+        "signerf_tpu_torch.train, signerf_tpu_torch.eval; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'signerf_tpu')); print(bad); sys.exit(1 if bad else 0)"
     )
