@@ -8,26 +8,44 @@ the result line):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions,
      image libraries present;
-  2. build K1 and K2 (signerf_tpu_torch/csrc/fused_factor_density{,_bwd}.cu),
-     both nvcc processes at once;
+  2. build K1 to K6 (signerf_tpu_torch/csrc/fused_factor_{density,
+     density_bwd,encode,grad_dot}.cu), all four nvcc processes at once, with
+     ptxas's registers, shared memory and spills per kernel;
   3. K1 against its plain PyTorch twin on the card, at the three density
      schedules, at N = 2^21 and at the sample counts of one 8192-ray render
      chunk, plus N = 257 with u in {0, 1}: error and CUDA-event times;
   4. K2 (both halves) against its plain twin at the sample counts of one
      4096-ray train step, plus N = 257: per-leaf error and times;
-  5. the render CLI at the full width of `signerf_nerfacto` on a synthetic
+  5. K3, K4 (both halves), K5 and K6 (both halves) against their plain twins
+     at one `signerf` micro-batch's base-field shapes (N = 196,608, uniform
+     and clustered coordinates) and at N = 257 with u in {0, 1}: error and
+     CUDA-event times;
+  6. the render CLI at the full width of `signerf_nerfacto` on a synthetic
      512x512 scene (--arc 2 --device cuda, seeded random weights): K1's
      launches must be 3 x chunks; the PNGs must equal a direct render's
      output; outputs finite, accumulation in [0, 1]; rays/s; then one chunk
      again with the plain twin in place of the kernel;
-  6. the train CLI (`signerf_nerfacto --train-only True --device cuda`) for
+  7. the train CLI (`signerf_nerfacto --train-only True --device cuda`) for
      300 steps at full width on the same scene: finite, falling loss; K1 and
      K2's tables half launched 3 x steps, K2's coords half never; warm
      rays/s, step times, peak memory;
-  7. a few steps with camera opt on: K2's coords half 3 x steps;
-  8. one step's gradients with both plain twins in place of K1 and K2;
-  9. the trained checkpoint through the render and eval CLIs (PSNR);
- 10. a JSON line per kernel, then {"ok": true, "device": {...}} last.
+  8. a few steps with camera opt on: K2's coords half 3 x steps;
+  9. one step's gradients with both plain twins in place of K1 and K2;
+ 10. the trained checkpoint through the render and eval CLIs (PSNR);
+ 11. the train CLI for `signerf --train-only True --device cuda` at full
+     width (16,384 rays as 16 patches of 32x32, 4 micro-batches, L1 + LPIPS
+     with random alex weights and the uncalibrated warning, normals and
+     both normals losses): finite, falling loss; K3, K5 and the tables
+     halves of K4 and K6 launched 4 x steps, K1 and K2's tables half
+     8 x steps, no coords half; warm rays/s, step times, peak memory;
+ 12. two `signerf` steps with camera opt on: the coords halves of K2, K4
+     and K6 launch;
+ 13. one `signerf` micro-batch's gradients with all six plain twins in place
+     of the kernels; finite normals; the orientation loss alone reaches the
+     line tables; a profile of warm train steps (device time per kernel);
+ 14. one full-frame eval render of the trained `signerf` model through
+     `make_eval_render`: K3 = K5 = chunks, K1 = 2 x chunks, outputs finite;
+ 15. a JSON line per kernel, then {"ok": true, "device": {...}} last.
 
 The script imports torch and the port only.
 """
@@ -79,6 +97,22 @@ CAMERA_OPT_STEPS = 4
 # deterministic sampling): per-leaf norm-relative. A flipped bf16 rounding
 # in the forward moves a resampled bin a little, which moves some grads.
 STEP_TOL = 0.05
+# The `signerf` method: 16,384 rays a step as 32x32 patches, 4 micro-batches
+# of 4096 rays x 48 base-field samples.
+SIGNERF_RAYS = 16384
+SIGNERF_MICRO = 4
+SIGNERF_SAMPLES = SIGNERF_RAYS // SIGNERF_MICRO * 48
+SIGNERF_STEPS = 300
+SIGNERF_CAMERA_OPT_STEPS = 2
+BASE_SCHEDULE = (8, 2048, 16)  # levels, max_res, F of the base field
+# K3 to K6 vs their plain twins: the same f32 formulas on the same bf16
+# tables; FMA contraction and summation order move the last bits only.
+# K3, max abs error over max|ref|: a product of three lerps differs by a few
+# ulps (~1e-6). K4, K5, K6, norm-relative per leaf: f32 sums in another
+# order, and atomics in the tables halves, as K2 (K2_TOL).
+K3_TOL = 1e-5
+K456_TOL = 1e-4
+PROFILE_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -170,7 +204,8 @@ def phase_build():
         for ln in ffc.build_log.splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln
     ]
-    print(f"phase 2 build K1 and K2 (two nvcc at once): {secs:.2f} s into {ffc.BUILD_DIR} | " + " | ".join(usage))
+    print(f"phase 2 build K1 to K6 ({len(ffc.SOURCES)} nvcc at once): {secs:.2f} s into {ffc.BUILD_DIR} | "
+          + " | ".join(usage))
 
 
 def make_case(torch, levels, max_res, feat, hidden, out, n, gen, dev):
@@ -243,6 +278,111 @@ def phase_kernel(torch) -> dict:
     return {"max_abs_err": worst, "ms": chunk_ms, "plain_ms": chunk_plain_ms}
 
 
+def encode_case(torch, n, gen, dev, clustered=False):
+    """Base-field tables, coordinates, g [N, 128] and ct [N, 3] on the card.
+    Clustered coordinates are points along rays from a ring of cameras at
+    radius 2 through the scene's centre, as the train step samples them;
+    N = 257 starts with rows on u = 0 and u = 1."""
+    from signerf_tpu_torch.ops import factor_grid as fg
+    from signerf_tpu_torch.ops.contraction import contract_to_unit
+
+    levels, max_res, feat = BASE_SCHEDULE
+    cfg = fg.FactorGridConfig(num_levels=levels, base_res=16, max_res=max_res, features_per_level=feat)
+    lines = [[torch.randn(r, feat, generator=gen) * 0.2 for _ in range(3)] for r in cfg.resolutions]
+    if clustered:
+        rays = n // 48
+        phi = torch.rand(rays, generator=gen) * 6.2832
+        origin = torch.stack([2 * torch.cos(phi), 2 * torch.sin(phi), 0.7 * torch.ones(rays)], -1)
+        target = torch.randn(rays, 3, generator=gen) * 0.3
+        d = torch.nn.functional.normalize(target - origin, dim=-1)
+        t = 1.0 + 2.0 * torch.rand(rays, 48, generator=gen).sort(-1).values
+        x = contract_to_unit(origin[:, None] + d[:, None] * t[..., None]).reshape(-1, 3)
+    else:
+        x = torch.rand(n, 3, generator=gen)
+    if n == 257:
+        x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]])
+    g = torch.randn(n, cfg.out_dim, generator=gen)
+    ct = torch.randn(n, 3, generator=gen)
+    return (cfg.resolutions, feat, fg.pack_tables(lines).to(dev), x.to(dev)), g.to(dev), ct.to(dev)
+
+
+def twin_ms(torch, kernel, plain, iters: int = 20):
+    """(kernel ms, plain ms), in turns plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, 3)
+    k1 = cuda_ms(kernel, iters)
+    k2 = cuda_ms(kernel, iters)
+    p2 = cuda_ms(plain, 3)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def phase_k3_k6(torch) -> dict:
+    """K3 to K6 against their plain twins at one signerf micro-batch's
+    base-field shapes and at N = 257."""
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    names = ["K3", "K4 tables", "K4 coords", "K5", "K6 tables", "K6 coords"]
+    result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
+    for label, n, clustered in [("uniform", SIGNERF_SAMPLES, False), ("clustered", SIGNERF_SAMPLES, True),
+                                ("boundary", 257, False)]:
+        args, g, ct = encode_case(torch, n, gen, dev, clustered)
+        calls = {
+            "K3": (lambda f: f(*args), ffc.encode_cuda, ffc.encode_plain),
+            "K4": (lambda f: f(*args, g, True, True), ffc.encode_bwd_cuda, ffc.encode_bwd_plain),
+            "K5": (lambda f: f(*args, g), ffc.grad_dot_cuda, ffc.grad_dot_plain),
+            "K6": (lambda f: f(*args, g, ct, True, True), ffc.grad_dot_bwd_cuda, ffc.grad_dot_bwd_plain),
+        }
+        line = [f"phase 5 {label} N={n}:"]
+        for k, (call, kern, plain) in calls.items():
+            got = call(kern)
+            torch.cuda.synchronize()
+            want = call(plain)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            leaves = {"K4": ["K4 tables", "K4 coords"], "K6": ["K6 tables", "grad_g", "K6 coords"]}.get(k, [k])
+            errs = []
+            for leaf, a, b in zip(leaves, got, want):
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"{leaf} {label} N={n}: non-finite output")
+                if k == "K3":
+                    err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+                    bound = K3_TOL
+                else:
+                    err, bound = rel_err(a, b), K456_TOL
+                if err > bound:
+                    fail(f"{leaf} {label} N={n}: error {err:.3g} > {bound}")
+                errs.append(f"{leaf} {err:.2e}")
+                entry = result.get(leaf, result.get("K6 tables"))
+                entry["max_abs_err"] = max(entry["max_abs_err"], float((a - b).abs().max()))
+            line.append(", ".join(errs))
+        print(" ".join(line), flush=True)
+        if n == 257:
+            continue
+        times = {
+            "K3": (lambda: ffc.encode_cuda(*args), lambda: ffc.encode_plain(*args)),
+            "K4 tables": (lambda: ffc.encode_bwd_cuda(*args, g), lambda: ffc.encode_bwd_plain(*args, g)),
+            "K4 coords": (lambda: ffc.encode_bwd_cuda(*args, g, False, True),
+                          lambda: ffc.encode_bwd_plain(*args, g, False, True)),
+            "K5": (lambda: ffc.grad_dot_cuda(*args, g), lambda: ffc.grad_dot_plain(*args, g)),
+            "K6 tables": (lambda: ffc.grad_dot_bwd_cuda(*args, g, ct), lambda: ffc.grad_dot_bwd_plain(*args, g, ct)),
+            "K6 coords": (lambda: ffc.grad_dot_bwd_cuda(*args, g, ct, False, True),
+                          lambda: ffc.grad_dot_bwd_plain(*args, g, ct, False, True)),
+        }
+        line = [f"phase 5 {label} N={n} times (kernel vs plain, ms):"]
+        for k, (kern, plain) in times.items():
+            k_ms, p_ms = twin_ms(torch, kern, plain)
+            if label == "uniform":
+                result[k]["ms"], result[k]["plain_ms"] = k_ms, p_ms
+            line.append(f"{k} {k_ms:.4f} vs {p_ms:.4f} ({p_ms / k_ms:.2f}x);")
+        print(" ".join(line), flush=True)
+        del args, g, ct
+    torch.cuda.empty_cache()
+    per_step = sum(result[k]["ms"] for k in ("K3", "K4 tables", "K5", "K6 tables")) * SIGNERF_MICRO
+    print(f"phase 5 K3 + K4 tables + K5 + K6 tables per {SIGNERF_RAYS}-ray signerf step "
+          f"({SIGNERF_MICRO} micro-batches, uniform coordinates): {per_step:.4f} ms", flush=True)
+    return result
+
+
 def write_scene(root: Path) -> Path:
     """A synthetic, multi-view consistent dataset: cameras on a ring looking
     at a sphere of radius 0.6 shaded by |hit point| / 0.6, on white (the
@@ -292,12 +432,14 @@ def phase_render(torch, card: str, data: Path, tmp: Path) -> int:
     out = tmp / "renders"
     argv = ["--data", str(data), "--output", str(out), "--arc", str(arc), "--device", "cuda"]
     torch.cuda.synchronize()
-    ffc.launches = 0
+    zero_counts(ffc)
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = ffc.launches
+    if sum(counts(ffc).values()) != launches:
+        fail(f"the render CLI launched other kernels than K1: {counts(ffc)}")
     if rc != 0:
         fail(f"render CLI returned {rc}")
     if launches != 3 * chunks:
@@ -336,7 +478,7 @@ def phase_render(torch, card: str, data: Path, tmp: Path) -> int:
             fail(f"camera {i}: no depth PNG")
     acc_mean = float(torch.stack([f["accumulation"].mean() for f in frames]).mean())
     print(
-        f"phase 5 render CLI: {arc} x {w}x{h} = {rays} rays in {chunks} chunks of {CHUNK}, "
+        f"phase 6 render CLI: {arc} x {w}x{h} = {rays} rays in {chunks} chunks of {CHUNK}, "
         f"K1 launches {launches} (= 3 x {chunks}), CLI wall {cli_s:.3f} s "
         f"({rays / cli_s:.0f} rays/s incl. start-up and PNG writes); warm render, "
         f"median of {len(frame_s)} frames {median_s * 1e3:.3f} ms = {w * h / median_s:.0f} "
@@ -359,7 +501,7 @@ def phase_render(torch, card: str, data: Path, tmp: Path) -> int:
     d_rgb = float((kern["rgb"] - plain["rgb"]).abs().max())
     d_acc = float((kern["accumulation"] - plain["accumulation"]).abs().max())
     print(
-        f"phase 5 one chunk, kernel vs plain twin: max |d rgb| {d_rgb:.3g}, "
+        f"phase 6 one chunk, kernel vs plain twin: max |d rgb| {d_rgb:.3g}, "
         f"max |d accumulation| {d_acc:.3g} (tolerance {CHUNK_TOL})"
     )
     if d_rgb > CHUNK_TOL or d_acc > CHUNK_TOL:
@@ -438,25 +580,43 @@ def phase_k2(torch) -> dict:
     return {"max_abs_err": worst_abs, **step}
 
 
-def train_argv(data: Path, out: Path, steps: int, *extra: str):
+def train_argv(method: str, data: Path, out: Path, steps: int, *extra: str):
     return [
-        "signerf_nerfacto", "--data", str(data), "--train-only", "True", "--device", "cuda",
+        method, "--data", str(data), "--train-only", "True", "--device", "cuda",
         "--max-num-iterations", str(steps), "--steps-per-save", str(steps),
         "--output-dir", str(out), *extra,
     ]
 
 
+# ffc's launch counters (fused_factor_cuda.COUNTERS order), as the JSON
+# line and the printed lines name them.
+KERNEL_NAMES = ("K1", "K2 tables", "K2 coords", "K3", "K4 tables", "K4 coords", "K5", "K6 tables", "K6 coords")
+
+
 def zero_counts(ffc) -> None:
-    ffc.launches = ffc.bwd_table_launches = ffc.bwd_coords_launches = 0
+    for name in ffc.COUNTERS:
+        setattr(ffc, name, 0)
 
 
-def counts(ffc):
-    return ffc.launches, ffc.bwd_table_launches, ffc.bwd_coords_launches
+def counts(ffc) -> dict:
+    return {k: getattr(ffc, name) for k, name in zip(KERNEL_NAMES, ffc.COUNTERS)}
 
 
-def phase_train(torch, card: str, data: Path, tmp: Path) -> dict:
-    """The train CLI at full width; per-step losses and step-end CUDA events
+def expect_counts(**per_step):
+    """The launch counts a run must show, every kernel not named at 0."""
+    return lambda steps: {k: per_step.get(k.replace(" ", "_"), 0) * steps for k in KERNEL_NAMES}
+
+
+NERFACTO_COUNTS = expect_counts(K1=3, K2_tables=3)
+SIGNERF_COUNTS = expect_counts(K1=8, K2_tables=8, K3=4, K4_tables=4, K5=4, K6_tables=4)
+
+
+def phase_train(torch, card: str, data: Path, tmp: Path, method: str, steps: int, rays: int,
+                micro: int, expected, phase: int) -> dict:
+    """The train CLI at full width; per-micro-batch losses and CUDA events
     are recorded through the train step's loss function (no host sync)."""
+    import warnings
+
     from signerf_tpu_torch import train as cli
     from signerf_tpu_torch.engine import train_step as tts
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
@@ -472,64 +632,72 @@ def phase_train(torch, card: str, data: Path, tmp: Path) -> dict:
         events.append(ev)
         return total, ld
 
-    out = tmp / "train"
+    out = tmp / method
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tts.default_loss_fn = recording_loss
     zero_counts(ffc)
     t0 = time.perf_counter()
     try:
-        rc = cli.main(train_argv(data, out, TRAIN_STEPS))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rc = cli.main(train_argv(method, data, out, steps))
     finally:
         tts.default_loss_fn = real_loss
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2t, k2c = counts(ffc)
+    got = counts(ffc)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if rc != 0:
-        fail(f"train CLI returned {rc}")
-    if (k1, k2t, k2c) != (3 * TRAIN_STEPS, 3 * TRAIN_STEPS, 0):
-        fail(f"train launches K1 {k1}, K2 tables {k2t}, K2 coords {k2c}; expected "
-             f"{3 * TRAIN_STEPS}, {3 * TRAIN_STEPS}, 0")
+        fail(f"{method} train CLI returned {rc}")
+    if got != expected(steps):
+        fail(f"{method} train launches {got}; expected {expected(steps)}")
+    uncalibrated = any("RANDOM-INIT" in str(w.message) for w in caught)
+    if method == "signerf" and not uncalibrated:
+        fail("the signerf train CLI ran random LPIPS weights without the uncalibrated warning")
     loss = torch.stack(losses).float().cpu()
-    if len(loss) != TRAIN_STEPS or not bool(torch.isfinite(loss).all()):
-        fail(f"{len(loss)} losses recorded for {TRAIN_STEPS} steps, finite: {bool(torch.isfinite(loss).all())}")
+    if len(loss) != steps * micro or not bool(torch.isfinite(loss).all()):
+        fail(f"{len(loss)} losses recorded for {steps} x {micro} micro-batches, finite: "
+             f"{bool(torch.isfinite(loss).all())}")
+    loss = loss.view(steps, micro).mean(1)
     first, last = float(loss[:20].mean()), float(loss[-20:].mean())
     if not last < first:
-        fail(f"loss did not fall: first 20 steps {first:.5f}, last 20 {last:.5f}")
-    step_ms = sorted(events[i - 1].elapsed_time(events[i]) for i in range(11, len(events)))
+        fail(f"{method}: loss did not fall: first 20 steps {first:.5f}, last 20 {last:.5f}")
+    ends = events[micro - 1 :: micro]  # each step's last micro-batch loss
+    step_ms = sorted(ends[i - 1].elapsed_time(ends[i]) for i in range(11, len(ends)))
     median = step_ms[len(step_ms) // 2]
-    ckpts = sorted((out / "experiment" / "signerf_nerfacto" / "checkpoints").glob("step-*.pt"))
-    if not ckpts or ckpts[-1].name != f"step-{TRAIN_STEPS:09d}.pt":
-        fail(f"no step-{TRAIN_STEPS:09d}.pt written: {[c.name for c in ckpts]}")
+    ckpts = sorted((out / "experiment" / method / "checkpoints").glob("step-*.pt"))
+    if not ckpts or ckpts[-1].name != f"step-{steps:09d}.pt":
+        fail(f"no step-{steps:09d}.pt written: {[c.name for c in ckpts]}")
+    launched = ", ".join(f"{k} {v}" for k, v in got.items() if v)
     print(
-        f"phase 6 train CLI: signerf_nerfacto, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at full width, "
-        f"loss {float(loss[0]):.5f} -> {float(loss[-1]):.5f} (mean of first 20 {first:.5f}, last 20 "
-        f"{last:.5f}); launches K1 {k1}, K2 tables {k2t}, K2 coords {k2c}; warm step median "
-        f"{median:.3f} ms over {len(step_ms)} steps (range {step_ms[0]:.3f} to {step_ms[-1]:.3f} ms) = "
-        f"{TRAIN_RAYS / median * 1e3:.0f} train rays/s; CLI wall {wall:.3f} s; peak memory "
-        f"{peak:.3f} GiB; on {card}",
+        f"phase {phase} train CLI: {method}, {steps} steps of {rays} rays ({micro} micro-batches) at "
+        f"full width, loss {float(loss[0]):.5f} -> {float(loss[-1]):.5f} (mean of first 20 {first:.5f}, "
+        f"last 20 {last:.5f}); launches {launched}, all others 0; uncalibrated-LPIPS warning "
+        f"{'printed' if uncalibrated else 'none'}; warm step median {median:.3f} ms over {len(step_ms)} "
+        f"steps (range {step_ms[0]:.3f} to {step_ms[-1]:.3f} ms) = {rays / median * 1e3:.0f} train rays/s; "
+        f"CLI wall {wall:.3f} s; peak memory {peak:.3f} GiB; on {card}",
         flush=True,
     )
-    return {"launches": k2t, "ckpt_dir": ckpts[-1].parent, "rays_per_s": TRAIN_RAYS / median * 1e3}
+    return {"launches": got, "ckpt_dir": ckpts[-1].parent, "rays_per_s": rays / median * 1e3}
 
 
-def phase_camera_opt(torch, data: Path, tmp: Path) -> int:
+def phase_camera_opt(torch, data: Path, tmp: Path, method: str, steps: int, expected, phase: int) -> dict:
     from signerf_tpu_torch import train as cli
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
     torch.cuda.synchronize()
     zero_counts(ffc)
-    rc = cli.main(train_argv(data, tmp / "camopt", CAMERA_OPT_STEPS, "--steps-per-call", "1",
+    rc = cli.main(train_argv(method, data, tmp / f"{method}_camopt", steps, "--steps-per-call", "1",
                              "--pipeline.model.use-camera-opt", "True"))
     torch.cuda.synchronize()
     got = counts(ffc)
-    want = (3 * CAMERA_OPT_STEPS,) * 3
-    if rc != 0 or got != want:
-        fail(f"camera-opt train: rc {rc}, launches (K1, K2 tables, K2 coords) {got}, expected {want}")
-    print(f"phase 7 train CLI with camera opt, {CAMERA_OPT_STEPS} steps: launches (K1, K2 tables, "
-          f"K2 coords) {got}", flush=True)
-    return got[2]
+    if rc != 0 or got != expected(steps):
+        fail(f"{method} camera-opt train: rc {rc}, launches {got}, expected {expected(steps)}")
+    launched = ", ".join(f"{k} {v}" for k, v in got.items() if v)
+    print(f"phase {phase} train CLI ({method}) with camera opt, {steps} steps: launches {launched}",
+          flush=True)
+    return got
 
 
 def phase_plain_step(torch, data: Path) -> None:
@@ -564,7 +732,7 @@ def phase_plain_step(torch, data: Path) -> None:
     errs = {n: rel_err(gk[n], gp[n]) for n in gk}
     worst = max(errs, key=errs.get)
     print(
-        f"phase 8 one train step, kernels vs plain twins: loss {loss_k:.6f} vs {loss_p:.6f}; worst "
+        f"phase 9 one train step, kernels vs plain twins: loss {loss_k:.6f} vs {loss_p:.6f}; worst "
         f"per-leaf norm-relative grad difference {errs[worst]:.3g} ({worst}), median "
         f"{sorted(errs.values())[len(errs) // 2]:.3g} (bound {STEP_TOL})",
         flush=True,
@@ -614,12 +782,217 @@ def phase_eval(torch, data: Path, tmp: Path, ckpt_dir: Path) -> float:
         if eval_cli.main(["--data", str(data), "--output", str(path), "--device", "cuda", *load]) != 0:
             fail(f"eval CLI failed ({name})")
         psnr[name] = _json.loads(path.read_text())["psnr"]
-    print(f"phase 9 trained checkpoint: train-view PSNR (camera 0) {train_view:.3f} dB; render CLI "
+    print(f"phase 10 trained checkpoint: train-view PSNR (camera 0) {train_view:.3f} dB; render CLI "
           f"wrote it; eval CLI PSNR over {SCENE['cameras']} cameras {psnr['trained']:.3f} dB (seeded "
           f"init {psnr['init']:.3f} dB, gain required {EVAL_GAIN_DB} dB)", flush=True)
     if not psnr["trained"] >= psnr["init"] + EVAL_GAIN_DB or train_view != train_view:
         fail("training did not raise the eval CLI's PSNR enough, or the train view is NaN")
     return psnr["trained"]
+
+
+SIX = ("density_mlp", "density_mlp_bwd", "encode", "encode_bwd", "grad_dot", "grad_dot_bwd")
+
+
+def signerf_setup(torch, data: Path, ckpt_dir: Path, use_lpips: bool = True):
+    """The `signerf` method's datamanager and its trained model on the card."""
+    import dataclasses
+
+    from signerf_tpu_torch.data.datamanager import SIGNeRFDataManager
+    from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, load_checkpoint
+    from signerf_tpu_torch.method_configs import signerf_method
+    from signerf_tpu_torch.models.signerf import SIGNeRFModel
+
+    dev = torch.device("cuda")
+    pipe = signerf_method().pipeline
+    dm = SIGNeRFDataManager(dataclasses.replace(pipe.datamanager, dataparser=dataclasses.replace(
+        pipe.datamanager.dataparser, data=data)), dev)
+    model = SIGNeRFModel(dataclasses.replace(pipe.model, use_lpips=use_lpips), dm.num_images)
+    model.load_state_dict(load_checkpoint(latest_checkpoint(ckpt_dir))["params"], strict=True)
+    return dm, model.to(dev)
+
+
+def phase_signerf_step(torch, data: Path, ckpt_dir: Path) -> None:
+    """One signerf micro-batch (4 patches of 32x32) of the trained model:
+    gradients with the six kernels vs the six plain twins, finite normals,
+    and the orientation loss's own gradient in the line tables."""
+    from signerf_tpu_torch.data.pixel_samplers import gather_pixels
+    from signerf_tpu_torch.engine.train_step import default_loss_fn
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    dm, model = signerf_setup(torch, data, ckpt_dir)
+    cams = dm.cameras
+    rays = SIGNERF_RAYS // SIGNERF_MICRO
+    # Four 32x32 patches on the sphere (its image is ~260 px across) and
+    # across its silhouette, not on the white background.
+    corners = torch.tensor([[0, 240, 240], [1, 240, 112], [2, 112, 240], [3, 360, 360]])
+    dy, dx = torch.meshgrid(torch.arange(32), torch.arange(32), indexing="ij")
+    offsets = torch.stack([torch.zeros_like(dy), dy, dx], -1).view(1, -1, 3)
+    idx = (corners[:, None] + offsets).view(-1, 3).int().to(dev)
+    rb = cams.generate_rays_at(idx)
+    batch = {"image": gather_pixels(dm.images, idx).float() / 255.0}
+
+    def grads():
+        model.zero_grad()
+        out = model(rb, None, train=True, anneal=1.0)
+        total, _ = default_loss_fn(model, out, batch)
+        total.backward()
+        g = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone() for n, p in model.named_parameters()}
+        return float(total.detach()), g, out
+
+    loss_k, gk, out = grads()
+    for key in ("normals_samples", "pred_normals_samples", "normals", "pred_normals"):
+        if not bool(torch.isfinite(out[key]).all()):
+            fail(f"signerf step: non-finite {key}")
+    kernels = {name: getattr(ffc, f"{name}_cuda") for name in SIX}
+    for name in SIX:
+        setattr(ffc, f"{name}_cuda", getattr(ffc, f"{name}_plain"))
+    try:
+        loss_p, gp, _ = grads()
+    finally:
+        for name, fn in kernels.items():
+            setattr(ffc, f"{name}_cuda", fn)
+    errs = {n: rel_err(gk[n], gp[n]) for n in gk}
+    worst = max(errs, key=errs.get)
+
+    model.zero_grad()
+    out = model(rb, None, train=True, anneal=1.0)
+    model.normals_losses(out)["orientation_loss"].backward()
+    line_grads = [p.grad for n, p in model.field.encoding.named_parameters()]
+    if any(g is None or not bool(torch.isfinite(g).all()) for g in line_grads):
+        fail("signerf step: the orientation loss gives missing or non-finite line-table gradients")
+    orient_norm = float(torch.stack([g.norm() for g in line_grads]).norm())
+    print(
+        f"phase 13 one signerf micro-batch ({rays} rays), six kernels vs six plain twins: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f}; worst per-leaf norm-relative grad difference {errs[worst]:.3g} "
+        f"({worst}), median {sorted(errs.values())[len(errs) // 2]:.3g} (bound {STEP_TOL}); normals "
+        f"finite; orientation-loss gradient in the line tables, norm {orient_norm:.4g}",
+        flush=True,
+    )
+    if errs[worst] > STEP_TOL or not abs(loss_k - loss_p) <= 1e-3 * abs(loss_p):
+        fail("kernel and plain-twin signerf steps disagree")
+    if not orient_norm > 0:
+        fail("the orientation loss does not reach the line tables")
+
+
+# Device kernels by name, for the step profile.
+PROFILE_GROUPS = [
+    ("K1", ("density_kernel",)),
+    ("K2", ("density_bwd_kernel",)),
+    ("K3", ("encode_kernel",)),
+    ("K4", ("encode_bwd_kernel",)),
+    ("K5", ("grad_dot_kernel",)),
+    ("K6", ("grad_dot_bwd_kernel",)),
+    ("LPIPS convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd", "fft")),
+]
+
+
+def phase_profile(torch, card: str, data: Path, ckpt_dir: Path) -> None:
+    """Warm signerf train steps under torch.profiler: device time per step by
+    kernel, the device's busy share of the steps' span, and LPIPS (forward
+    and backward over one step's 16 patches) timed alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from signerf_tpu_torch.engine.optimizers import make_optimizer
+    from signerf_tpu_torch.engine.train_step import make_train_step
+    from signerf_tpu_torch.method_configs import signerf_method
+    from signerf_tpu_torch.ops.lpips import lpips
+
+    dev = torch.device("cuda")
+    dm, model = signerf_setup(torch, data, ckpt_dir)
+    step = make_train_step(model, make_optimizer(signerf_method().optimizers, model), dm.cameras,
+                           dm.sampler_settings())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for i in range(2):
+        step(i, dm.images, dm.mask_indices, gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for i in range(PROFILE_STEPS):
+            step(2 + i, dm.images, dm.mask_indices, gen)
+        end.record()
+        torch.cuda.synchronize()
+    span_ms = start.elapsed_time(end) / PROFILE_STEPS
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    other = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+        name = e.name.lower()
+        for group, keys in PROFILE_GROUPS:
+            if any(k in name for k in keys):
+                groups[group] += ms
+                break
+        else:
+            other += ms
+    busy = sum(groups.values()) + other
+    if not busy > 0:
+        fail("the profiler saw no device time in the signerf steps")
+    x = (torch.rand(16, 32, 32, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1).to(dev)
+    y = (torch.rand(16, 32, 32, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1).to(dev)
+
+    def lpips_step():
+        xx = x.clone().requires_grad_(True)
+        lpips(model.lpips_params, xx, y).mean().backward()
+
+    lpips_ms = cuda_ms(lpips_step, 10)
+    parts = "; ".join(f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in groups.items())
+    print(
+        f"phase 13 profile, {PROFILE_STEPS} warm signerf steps of {SIGNERF_RAYS} rays: span "
+        f"{span_ms:.3f} ms a step, device busy {busy:.3f} ms ({busy / span_ms:.1%}, idle "
+        f"{1 - busy / span_ms:.1%}); {parts}; other kernels {other:.3f} ms ({other / busy:.1%}); "
+        f"LPIPS forward + backward over 16 patches alone {lpips_ms:.3f} ms; on {card}",
+        flush=True,
+    )
+
+
+def phase_signerf_eval(torch, data: Path, ckpt_dir: Path) -> dict:
+    """One full-frame render of the trained signerf model (normals on) through
+    make_eval_render: K3 and K5 once per chunk, K1 twice."""
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dm, model = signerf_setup(torch, data, ckpt_dir, use_lpips=False)
+    cams = dm.cameras
+    h, w = cams.height, cams.width
+    chunks = -(-(h * w) // CHUNK)
+    bundle = cams.generate_rays(camera_index=0).reshape((h * w,))
+    render = make_eval_render(model.eval(), chunk_size=CHUNK)
+    torch.cuda.synchronize()
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    out = render(bundle, appearance_mode="index")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = counts(ffc)
+    want = expect_counts(K1=2, K3=1, K5=1)(chunks)
+    if got != want:
+        fail(f"signerf eval render launches {got}, expected {want}")
+    for k, v in out.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"signerf eval render: non-finite {k}")
+    acc = out["accumulation"]
+    print(f"phase 14 signerf eval render, {w}x{h} in {chunks} chunks of {CHUNK}: launches K1 {got['K1']}, "
+          f"K3 {got['K3']}, K5 {got['K5']}, all others 0; outputs finite, accumulation "
+          f"{float(acc.min()):.4f} to {float(acc.max()):.4f}; {secs:.3f} s ({h * w / secs:.0f} rays/s, "
+          f"the first frame)", flush=True)
+    return got
+
+
+def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms"):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"signerf_tpu_torch/csrc/{source}",
+        "replaces": f"signerf_tpu/ops/fused_factor_pallas.py:{line}",
+        "launches": launches,
+        "max_abs_err": stats["max_abs_err"],
+        "ms": stats[ms_key],
+        "plain_ms": stats[plain_key],
+    }
 
 
 def main() -> int:
@@ -639,48 +1012,46 @@ def main() -> int:
     phase_build()
     k1 = phase_kernel(torch)
     k2 = phase_k2(torch)
+    k36 = phase_k3_k6(torch)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         data = write_scene(tmp / "scene")
         render_launches = phase_render(torch, card, data, tmp)
-        train = phase_train(torch, card, data, tmp)
-        coords_launches = phase_camera_opt(torch, data, tmp)
+        train = phase_train(torch, card, data, tmp, "signerf_nerfacto", TRAIN_STEPS, TRAIN_RAYS, 1,
+                            NERFACTO_COUNTS, 7)
+        camopt = phase_camera_opt(torch, data, tmp, "signerf_nerfacto", CAMERA_OPT_STEPS,
+                                  expect_counts(K1=3, K2_tables=3, K2_coords=3), 8)
         phase_plain_step(torch, data)
         phase_eval(torch, data, tmp, train["ckpt_dir"])
+        signerf = phase_train(torch, card, data, tmp, "signerf", SIGNERF_STEPS, SIGNERF_RAYS, SIGNERF_MICRO,
+                              SIGNERF_COUNTS, 11)
+        signerf_camopt = phase_camera_opt(
+            torch, data, tmp, "signerf", SIGNERF_CAMERA_OPT_STEPS,
+            expect_counts(K1=8, K2_tables=8, K2_coords=8, K3=4, K4_tables=4, K4_coords=4, K5=4,
+                          K6_tables=4, K6_coords=4), 12,
+        )
+        phase_signerf_step(torch, data, signerf["ckpt_dir"])
+        phase_profile(torch, card, data, signerf["ckpt_dir"])
+        phase_signerf_eval(torch, data, signerf["ckpt_dir"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    replaces = "signerf_tpu/ops/fused_factor_pallas.py"
+    launched = signerf["launches"]
     kernels = [
-        {
-            "name": "fused_factor_density",
-            "route": "cuda",
-            "source": "signerf_tpu_torch/csrc/fused_factor_density.cu",
-            "replaces": f"{replaces}:1475",
-            "launches": render_launches,
-            "max_abs_err": k1["max_abs_err"],
-            "ms": k1["ms"],
-            "plain_ms": k1["plain_ms"],
-        },
-        {
-            "name": "fused_factor_density_bwd (tables and MLP half)",
-            "route": "cuda",
-            "source": "signerf_tpu_torch/csrc/fused_factor_density_bwd.cu",
-            "replaces": f"{replaces}:1686",
-            "launches": train["launches"],
-            "max_abs_err": k2["max_abs_err"],
-            "ms": k2["tables"],
-            "plain_ms": k2["tables_plain"],
-        },
-        {
-            "name": "fused_factor_density_bwd (coords half)",
-            "route": "cuda",
-            "source": "signerf_tpu_torch/csrc/fused_factor_density_bwd.cu",
-            "replaces": f"{replaces}:1776",
-            "launches": coords_launches,
-            "max_abs_err": k2["max_abs_err"],
-            "ms": k2["coords"],
-            "plain_ms": k2["coords_plain"],
-        },
+        kernel_entry("fused_factor_density", "fused_factor_density.cu", 1475, render_launches, k1),
+        kernel_entry("fused_factor_density_bwd (tables and MLP half)", "fused_factor_density_bwd.cu", 1686,
+                     train["launches"]["K2 tables"], k2, "tables", "tables_plain"),
+        kernel_entry("fused_factor_density_bwd (coords half)", "fused_factor_density_bwd.cu", 1776,
+                     camopt["K2 coords"], k2, "coords", "coords_plain"),
+        kernel_entry("fused_factor_encode", "fused_factor_encode.cu", 196, launched["K3"], k36["K3"]),
+        kernel_entry("fused_factor_encode_bwd (tables half)", "fused_factor_encode.cu", 626,
+                     launched["K4 tables"], k36["K4 tables"]),
+        kernel_entry("fused_factor_encode_bwd (coords half)", "fused_factor_encode.cu", 640,
+                     signerf_camopt["K4 coords"], k36["K4 coords"]),
+        kernel_entry("fused_factor_grad_dot", "fused_factor_grad_dot.cu", 1037, launched["K5"], k36["K5"]),
+        kernel_entry("fused_factor_grad_dot_bwd (tables half and grad_g)", "fused_factor_grad_dot.cu", 1315,
+                     launched["K6 tables"], k36["K6 tables"]),
+        kernel_entry("fused_factor_grad_dot_bwd (coords half)", "fused_factor_grad_dot.cu", 1329,
+                     signerf_camopt["K6 coords"], k36["K6 coords"]),
     ]
     print(json.dumps({"kernels": kernels}))
     kind = torch.cuda.get_device_name(0)

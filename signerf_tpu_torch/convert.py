@@ -1,12 +1,16 @@
-"""JAX params <-> the port's `state_dict`.
+"""JAX params <-> the port's `state_dict`, and JAX LPIPS params -> the port's.
 
 The port's modules carry the flax names (`field.encoding.line_0_0`,
-`field.mlp_base.dense_0.kernel`, `proposal_0.MLP_0.dense_1.bias`, ...), so a
-JAX `NerfactoModel.init` tree maps onto `NerfactoModel.state_dict()` by
-joining the tree path with dots. No tensor is transposed: the port keeps
-flax's [in, out] Dense kernel layout (`factor_grid.dense_bf16` computes
-x @ kernel, and the CUDA kernel reads W0 [D, H] row by row), so the
-converter is a rename and a dtype check.
+`field.mlp_base.dense_0.kernel`, `field.mlp_pred_normals.dense_2.bias`,
+`proposal_0.MLP_0.dense_1.bias`, ...), so a JAX `NerfactoModel.init` tree
+maps onto `NerfactoModel.state_dict()` by joining the tree path with dots.
+No tensor is transposed: the port keeps flax's [in, out] Dense kernel
+layout (`factor_grid.dense_bf16` computes x @ kernel, and the CUDA kernels
+read W0 [D, H] row by row), so the converter is a rename and a dtype check.
+
+LPIPS is not part of either params tree (it is frozen): `lpips_from_jax`
+turns a JAX `LPIPSParams` (as numpy) into the port's, HWIO conv kernels to
+OIHW.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from signerf_tpu_torch.ops.lpips import LPIPSParams, from_hwio
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -44,3 +50,9 @@ def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[s
             node = node.setdefault(key, {})
         node[leaf] = val.detach().cpu().float().numpy()
     return out
+
+
+def lpips_from_jax(params: Any) -> LPIPSParams:
+    """A JAX `signerf_tpu.ops.lpips.LPIPSParams` (its arrays as numpy or
+    jax arrays) -> the port's `LPIPSParams`, f32, OIHW kernels."""
+    return from_hwio(params.convs, params.lins, params.net)

@@ -1,0 +1,285 @@
+// The factor-grid encode's spatial derivative contracted with a feature
+// cotangent (K5), and its backward (K6), for Hopper (sm_90a).
+//
+// K5 replaces the TPU kernel `fused_factor_grad_dot_tpu` and K6
+// `fused_factor_grad_dot_bwd_tpu` (its "tables" and "coords_g"
+// pallas_calls) in signerf_tpu/ops/fused_factor_pallas.py. The gradient
+// normals need only d density / d pos01, so the [N, 3, L F] derivative of
+// the features is never formed: with K1's taps (fused_factor_density.cu),
+// per sample n, level l and axis a (b, c the other two),
+//
+//   f_a = (1 - w_a) line[i_a] + w_a line[i_a + 1],  d_a = (line[i_a + 1] - line[i_a]) s_a
+//   K5:  s[n, a] = sum_l sum_F d_a f_b f_c g_l                            [N, 3]
+//
+// where s_a = R_l - 1 off the knots and 0 at an exact knot (u (R - 1) an
+// integer, u = 0 and u = 1 included): the rule of both JAX versions
+// (dhat_matrix's sign(0) = 0 and |diff| < 1; the Pallas taps). Given the
+// cotangent ct [N, 3] of s, K6 takes
+//
+//   G_hat_a  = ct_b g d_b f_c + ct_c g d_c f_b      (f_a's place in s_b, s_c)
+//   G_dhat_a = ct_a g f_b f_c                       (d_a's place in s_a)
+//   tables: dline_a[i_a]     += (1 - w_a) G_hat_a - s_a G_dhat_a
+//           dline_a[i_a + 1] +=       w_a G_hat_a + s_a G_dhat_a
+//           grad_g[n, l F + k] = sum_a ct_a d_a f_b f_c                   [N, L F]
+//   coords: du_a = sum_l sum_F G_hat_a d_a  (d d_a / du = 0 almost everywhere)
+//
+// All in f32: bf16 tables, f32 tap weights, slopes, products and sums (the
+// Pallas kernel rounds hat, dhat and its GEMM operands to bf16; that only
+// fed the TPU's matrix unit). grad_g is written by every tables launch,
+// since the base MLP's weights get their orientation-loss gradient through
+// g. The coords half is its own launch, made only when x01 needs a
+// gradient (camera optimisation), so a normal step does not pay for it;
+// the Pallas kernel bundled coords with grad_g.
+//
+// What bounds them on an H100, at the base field's schedule (8 levels,
+// F = 16, tables in L2): K5 reads g, N x 512 bytes (about 100 MB per
+// signerf micro-batch), and writes 12 bytes a sample, so it is a read of
+// g; K6's tables half reads g, writes grad_g (another 100 MB) and makes
+// 2 x 3 x 8 x 16 scattered f32 additions per sample, which bound it.
+//
+// The design is K3 and K4's (fused_factor_encode.cu): one thread per
+// (sample, level) item, item = n L + l, reading its 64 contiguous bytes of
+// g; a sample's L items are neighbouring lanes, summed with warp shuffles
+// (K5, K6 coords, no atomics); grad_g is stored cooperatively per warp
+// through shared memory; line grads of the first levels (up to 48 KB) are
+// summed with shared-memory atomics by blocks that walk over tiles and
+// flush once, the larger levels' straight into device memory.
+//
+// Determinism: K5 and the coords half are deterministic; the tables
+// half's line grads are reproducible to f32 rounding only (atomics).
+//
+// Built with nvcc into a shared library with a plain C interface and bound
+// with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "factor_grid_common.cuh"
+
+namespace {
+
+using factor_grid::interp;
+using factor_grid::Schedule;
+
+constexpr int kThreads = 128;
+constexpr int kBwdThreads = 256;
+constexpr int kSmallBytes = 48 * 1024;
+
+// One item's g row (F floats at item * F).
+template <int F>
+__device__ __forceinline__ void load_g(const float* __restrict__ grad, int64_t item, float* gv) {
+  const float4* g4 = reinterpret_cast<const float4*>(grad + item * F);
+#pragma unroll
+  for (int q = 0; q < F / 4; ++q) {
+    const float4 v = g4[q];
+    gv[4 * q] = v.x;
+    gv[4 * q + 1] = v.y;
+    gv[4 * q + 2] = v.z;
+    gv[4 * q + 3] = v.w;
+  }
+}
+
+template <int F>
+__device__ __forceinline__ void interp3(const __nv_bfloat16* __restrict__ tables, const Schedule& s,
+                                        int l, const float* __restrict__ coords, int64_t sample,
+                                        int* ia, float* wa, float* sa, float (*fa)[F], float (*da)[F]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float u = fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f);
+    interp<F, true>(tables + s.offset[l][a], u, s.res[l], ia[a], wa[a], sa[a], fa[a], da[a]);
+  }
+}
+
+template <int F, int L>
+__global__ void __launch_bounds__(kThreads)
+grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
+                const __nv_bfloat16* __restrict__ tables, Schedule s,
+                float* __restrict__ out) {  // [N, 3]
+  const int64_t n_items = static_cast<int64_t>(n) * L;
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool valid = item < n_items;
+  const int64_t sample = item / L;
+  const int l = static_cast<int>(item % L);
+  float acc[3] = {0.f, 0.f, 0.f};
+  if (valid) {
+    float fa[3][F], da[3][F], wa[3], sa[3], gv[F];
+    int ia[3];
+    interp3<F>(tables, s, l, coords, sample, ia, wa, sa, fa, da);
+    load_g<F>(grad, item, gv);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int b = (a + 1) % 3, c = (a + 2) % 3;
+#pragma unroll
+      for (int k = 0; k < F; ++k) acc[a] = fmaf(da[a][k] * fa[b][k] * fa[c][k], gv[k], acc[a]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) acc[a] = factor_grid::sum_levels<L>(acc[a]);
+  if (valid && l == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) out[sample * 3 + a] = acc[a];
+  }
+}
+
+template <int F, int L, bool kTables>
+__global__ void __launch_bounds__(kBwdThreads)
+grad_dot_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
+                    const float* __restrict__ ct, int n, const __nv_bfloat16* __restrict__ tables,
+                    Schedule s,
+                    float* __restrict__ g_tables,   // packed like `tables`
+                    float* __restrict__ g_g,        // [N, L F]
+                    float* __restrict__ g_coords) { // [N, 3]
+  static_assert(kBwdThreads % L == 0, "a thread keeps its level across tiles");
+  __shared__ __align__(16) float stage[kTables ? kBwdThreads / 32 : 1][32 * (F + 4)];
+  extern __shared__ __align__(16) float s_small[];
+  const int t = threadIdx.x;
+  if constexpr (kTables) {
+    for (int e = t; e < s.small_elems; e += kBwdThreads) s_small[e] = 0.f;
+    __syncthreads();
+  }
+  const int l = t % L;
+  const bool small = l < s.n_small;
+  const int64_t n_items = static_cast<int64_t>(n) * L;
+  const int64_t num_tiles = (n_items + kBwdThreads - 1) / kBwdThreads;
+  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t item = tile * kBwdThreads + t;
+    const bool valid = item < n_items;
+    const int64_t sample = item / L;
+    float fa[3][F], da[3][F], wa[3], sa[3], gv[F], cv[3] = {0.f, 0.f, 0.f};
+    int ia[3];
+    if (valid) {
+      interp3<F>(tables, s, l, coords, sample, ia, wa, sa, fa, da);
+      load_g<F>(grad, item, gv);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) cv[a] = ct[sample * 3 + a];
+    }
+    if constexpr (kTables) {
+      float gg[F];
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        gg[k] = valid ? cv[0] * da[0][k] * fa[1][k] * fa[2][k] + cv[1] * fa[0][k] * da[1][k] * fa[2][k] +
+                            cv[2] * fa[0][k] * fa[1][k] * da[2][k]
+                      : 0.f;
+      }
+      factor_grid::warp_store<F>(stage[t / 32], gg, g_g, item - (t & 31), n_items);
+      if (valid) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int b = (a + 1) % 3, c = (a + 2) % 3;
+          const int off = s.offset[l][a] + ia[a] * F;
+          float* dst = small ? s_small + off : g_tables + off;
+          const float w = wa[a], sl = sa[a];
+#pragma unroll
+          for (int k = 0; k < F; ++k) {
+            const float g_hat = cv[b] * gv[k] * da[b][k] * fa[c][k] + cv[c] * gv[k] * da[c][k] * fa[b][k];
+            const float g_dhat = cv[a] * gv[k] * fa[b][k] * fa[c][k];
+            atomicAdd(dst + k, (1.f - w) * g_hat - sl * g_dhat);
+            atomicAdd(dst + F + k, w * g_hat + sl * g_dhat);
+          }
+        }
+      }
+    } else {
+      float gu[3] = {0.f, 0.f, 0.f};
+      if (valid) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int b = (a + 1) % 3, c = (a + 2) % 3;
+#pragma unroll
+          for (int k = 0; k < F; ++k) {
+            const float g_hat = cv[b] * gv[k] * da[b][k] * fa[c][k] + cv[c] * gv[k] * da[c][k] * fa[b][k];
+            gu[a] = fmaf(g_hat, da[a][k], gu[a]);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
+      if (valid && l == 0) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
+      }
+    }
+  }
+  if constexpr (kTables) {
+    __syncthreads();
+    for (int e = t; e < s.small_elems; e += kBwdThreads) atomicAdd(g_tables + e, s_small[e]);
+  }
+}
+
+template <int F, int L>
+int launch_forward(const float* c, const float* g, int n, const __nv_bfloat16* t, const Schedule& s,
+                   float* out, cudaStream_t stream) {
+  const int64_t items = static_cast<int64_t>(n) * L;
+  const int blocks = static_cast<int>((items + kThreads - 1) / kThreads);
+  grad_dot_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, g, n, t, s, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int F, int L, bool kTables>
+int launch_backward(const float* c, const float* g, const float* ct, int n, const __nv_bfloat16* t,
+                    const Schedule& s, float* gt, float* gg, float* gc, cudaStream_t stream) {
+  auto kernel = grad_dot_bwd_kernel<F, L, kTables>;
+  const size_t bytes = kTables ? static_cast<size_t>(s.small_elems) * sizeof(float) : 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  if ((err = factor_grid::resident_blocks(kernel, kBwdThreads, bytes, resident)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int64_t tiles = (static_cast<int64_t>(n) * L + kBwdThreads - 1) / kBwdThreads;
+  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
+  kernel<<<grid, kBwdThreads, bytes, stream>>>(c, g, ct, n, t, s, gt, gg, gc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K5: writes s [N, 3] f32 from g [N, L F] f32. Returns 0 (cudaSuccess) on a
+// good launch, the CUDA error code otherwise, and cudaErrorInvalidValue for
+// a schedule this library does not take. `resolutions` is a host array of
+// `num_levels` ints; the tables are packed level-major, then axis, each
+// [R_l, feat] bf16 row-major.
+extern "C" int fused_factor_grad_dot_forward(const void* coords, const void* grad, int n,
+                                             const void* tables, const int* resolutions,
+                                             int num_levels, int feat, void* out, void* stream) {
+  Schedule s;
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const auto* c = static_cast<const float*>(coords);
+  const auto* g = static_cast<const float*>(grad);
+  const auto* t = static_cast<const __nv_bfloat16*>(tables);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (feat == 16 && num_levels == 8) return launch_forward<16, 8>(c, g, n, t, s, o, st);  // base field
+  return cudaErrorInvalidValue;
+}
+
+// K6, given g [N, L F] and ct [N, 3] f32. mode 0 ("tables"): adds the line
+// grads into g_tables (packed like `tables`, f32, zeroed by the caller) and
+// writes g_g [N, L F]. mode 1 ("coords"): writes g_coords [N, 3]. Returns as
+// the forward does.
+extern "C" int fused_factor_grad_dot_backward(const void* coords, const void* grad, const void* ct,
+                                              int n, const void* tables, const int* resolutions,
+                                              int num_levels, int feat, void* g_tables, void* g_g,
+                                              void* g_coords, int mode, void* stream) {
+  Schedule s;
+  if (n < 0 || (mode != 0 && mode != 1) ||
+      !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const auto* c = static_cast<const float*>(coords);
+  const auto* g = static_cast<const float*>(grad);
+  const auto* k = static_cast<const float*>(ct);
+  const auto* t = static_cast<const __nv_bfloat16*>(tables);
+  auto* gt = static_cast<float*>(g_tables);
+  auto* gg = static_cast<float*>(g_g);
+  auto* gc = static_cast<float*>(g_coords);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (feat == 16 && num_levels == 8) {  // base field
+    if (mode == 0) return launch_backward<16, 8, true>(c, g, k, n, t, s, gt, gg, gc, st);
+    return launch_backward<16, 8, false>(c, g, k, n, t, s, gt, gg, gc, st);
+  }
+  return cudaErrorInvalidValue;
+}

@@ -2,11 +2,13 @@
 
 Port of `signerf_tpu/eval.py`: renders every dataset camera with its own
 appearance code from a checkpoint (loaded through the restore surgery) and
-writes PSNR and SSIM against the ground-truth images as a JSON summary.
-LPIPS comes with the `signerf` method's slice (`--lpips true` raises).
+writes PSNR, SSIM and (with `--lpips true`) LPIPS against the ground-truth
+images as a JSON summary.
 
 Flags: --data PATH, --load-dir PATH, --output PATH (default eval.json),
---device DEV (default cuda), --model.KEY VALUE (SIGNeRFModelConfig).
+--device DEV (default cuda), --lpips true|false, --lpips-weights PATH.npz
+(without it LPIPS is a random-feature distance and a warning says so),
+--model.KEY VALUE (SIGNeRFModelConfig).
 """
 
 from __future__ import annotations
@@ -24,9 +26,11 @@ from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig
 from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, surgical_restore
 from signerf_tpu_torch.engine.train_step import make_eval_render
 from signerf_tpu_torch.models.signerf import SIGNeRFModelConfig
+from signerf_tpu_torch.ops import lpips as lp
 from signerf_tpu_torch.ops.image_metrics import psnr, ssim
 from signerf_tpu_torch.pipeline import SURGERY_SEED, seeded_model
 from signerf_tpu_torch.render import resolve_device
+from signerf_tpu_torch.utils.calibration import warn_uncalibrated
 
 
 def main(argv=None) -> int:
@@ -35,8 +39,8 @@ def main(argv=None) -> int:
     data = Path(opts.pop("data"))
     load_dir = opts.pop("load-dir", opts.pop("load_dir", None))
     out_path = Path(opts.pop("output", "eval.json"))
-    if str(opts.pop("lpips", "false")).lower() in ("1", "true", "yes"):
-        raise NotImplementedError("LPIPS comes with the `signerf` method's slice of the port")
+    use_lpips = str(opts.pop("lpips", "false")).lower() in ("1", "true", "yes")
+    lpips_weights = opts.pop("lpips-weights", opts.pop("lpips_weights", None))
     device = resolve_device(opts.pop("device", "cuda"))
     unknown = [k for k in opts if not k.startswith("model.")]
     if unknown:
@@ -58,6 +62,20 @@ def main(argv=None) -> int:
         print(f"loaded {ckpt}")
     model = model.to(device).eval()
 
+    lpips_params = None
+    if use_lpips:
+        lp.full_f32_convolutions()
+        if lpips_weights:
+            lpips_params = lp.load_weights(lpips_weights)
+        else:
+            warn_uncalibrated(
+                "LPIPS",
+                "the reported 'lpips' column is a random-feature distance, NOT calibrated LPIPS; "
+                "pass --lpips-weights PATH.npz (scripts/export_lpips_weights.py) for real numbers.",
+            )
+            lpips_params = lp.init_lpips(torch.Generator().manual_seed(0))
+        lpips_params = lpips_params.map(lambda t: t.to(device))
+
     render = make_eval_render(model, chunk_size=8192)
     cams = dm.cameras
     h, w = cams.height, cams.width
@@ -69,6 +87,9 @@ def main(argv=None) -> int:
         pred = out["rgb"].reshape(h, w, 3)
         gt = dm.images[i].float() / 255.0
         row = {"camera": i, "psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt))}
+        if lpips_params is not None:
+            with torch.inference_mode():
+                row["lpips"] = float(lp.lpips(lpips_params, pred[None] * 2.0 - 1.0, gt[None] * 2.0 - 1.0)[0])
         rows.append(row)
         print(f"camera {i}: psnr={row['psnr']:.2f} ssim={row['ssim']:.4f}")
 
@@ -78,6 +99,8 @@ def main(argv=None) -> int:
         "ssim": float(np.mean([r["ssim"] for r in rows])),
         "per_image": rows,
     }
+    if lpips_params is not None:
+        summary["lpips"] = float(np.mean([r["lpips"] for r in rows]))
     out_path.write_text(json.dumps(summary, indent=2))
     print(f"mean psnr={summary['psnr']:.2f} ssim={summary['ssim']:.4f} -> {out_path}")
     return 0

@@ -8,8 +8,11 @@ kernels keep flax's [in, out] layout.
 
 The density of both fields goes through `ops/factor_grid.fused_density_mlp`:
 the CUDA kernels (K1 forward, K2 backward) for a CUDA tensor, their plain
-twins for a CPU tensor. The color head stays plain PyTorch under the same
-bf16 Dense contract.
+twins for a CPU tensor. With gradient normals the base field's density and
+its spatial gradient come instead from `factor_density_geo_and_grad`: the
+encode (K3, K4) and the grad-dot contraction (K5, K6) on the card. The
+color, pred-normal and base MLPs outside the kernels stay plain PyTorch
+under the same bf16 Dense contract.
 """
 
 from __future__ import annotations
@@ -20,8 +23,15 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from signerf_tpu_torch.ops.contraction import contract_to_unit
-from signerf_tpu_torch.ops.factor_grid import FactorGridConfig, dense_bf16, fused_density_mlp
+from signerf_tpu_torch.ops.contraction import contract_to_unit, contract_to_unit_jacobian
+from signerf_tpu_torch.ops.factor_grid import (
+    FactorGridConfig,
+    cp_level_features_and_grad,
+    dense_bf16,
+    encode_fused,
+    fused_density_mlp,
+    grad_encode_dot,
+)
 from signerf_tpu_torch.ops.sh import sh_encode
 
 
@@ -150,7 +160,8 @@ class NerfactoField(nn.Module):
     """Density + color field with an appearance embedding.
 
     `forward(positions [R, S, 3], directions [R, 3])` returns
-    {"density": [R, S], "rgb": [R, S, 3]}.
+    {"density": [R, S], "rgb": [R, S, 3]} and, with `predict_normals`,
+    "pred_normals" [R, S, 3] from the `mlp_pred_normals` head.
     """
 
     def __init__(
@@ -169,9 +180,11 @@ class NerfactoField(nn.Module):
         encoding_backend: str = "factor",
         factor_features_per_level: int = 16,
         factor_num_levels: int = 8,
+        predict_normals: bool = False,
     ):
         super().__init__()
         _check_factor_backend(encoding_backend)
+        self.predict_normals = predict_normals
         self.geo_feat_dim = geo_feat_dim
         self.sh_levels = sh_levels
         self.average_init_density = average_init_density
@@ -191,10 +204,13 @@ class NerfactoField(nn.Module):
             self.appearance = nn.Module()
             self.appearance.embedding = nn.Parameter(torch.empty(num_images, appearance_embed_dim))
         self.mlp_head = MLP(head_in, hidden_dim_color, num_layers_color, 3, "sigmoid")
+        if predict_normals:
+            self.mlp_pred_normals = MLP(geo_feat_dim + sh_levels**2, 64, 3, 3)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.encoding.reset_parameters(generator)
-        for mlp in (self.mlp_base, self.mlp_head):
+        mlps = [self.mlp_base, self.mlp_head] + ([self.mlp_pred_normals] if self.predict_normals else [])
+        for mlp in mlps:
             for layer in mlp.layers():
                 layer.reset_parameters(generator)
         if self.use_appearance_embedding:
@@ -228,14 +244,16 @@ class NerfactoField(nn.Module):
         train: bool = False,
         appearance_mode: Optional[str] = None,
     ) -> Dict[str, torch.Tensor]:
-        """The color head over a precomputed (density, geo).
+        """The color and pred-normal heads over a precomputed (density, geo).
 
         Appearance code, as in the JAX package: "index" takes each ray's own
         image code, "mean" the mean of the codes (nerfstudio's eval rule),
         "zero" zeros; None means "index" when training with camera indices
-        and "mean" otherwise."""
+        and "mean" otherwise. Pred normals are the head's output divided by
+        max(|n|, 1e-6)."""
         d_enc = sh_encode(directions, self.sh_levels)
-        head_in = [d_enc[..., None, :].expand(*density.shape, d_enc.shape[-1]), geo]
+        d_enc = d_enc[..., None, :].expand(*density.shape, d_enc.shape[-1])
+        head_in = [d_enc, geo]
         if self.use_appearance_embedding:
             if appearance_mode is None:
                 appearance_mode = "index" if (train and camera_indices is not None) else "mean"
@@ -248,7 +266,76 @@ class NerfactoField(nn.Module):
                 embed = codes.mean(0)
             head_in.append(embed.expand(*density.shape, self.appearance_embed_dim))
         rgb = self.mlp_head(torch.cat(head_in, dim=-1))
-        return {"density": density, "rgb": rgb}
+        out = {"density": density, "rgb": rgb}
+        if self.predict_normals:
+            pn = self.mlp_pred_normals(torch.cat([geo, d_enc], dim=-1))
+            out["pred_normals"] = pn / pn.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+        return out
+
+
+def factor_density_geo_and_grad(
+    field: NerfactoField,
+    positions: torch.Tensor,  # [..., 3] world
+    differentiable_grad: bool = False,
+    xla: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(density [...], geo [..., G], d density / d x [..., 3]) with the
+    spatial gradient in closed form: no autograd through the encode, so it
+    also runs under `torch.inference_mode()`.
+
+    Port of the JAX package's function of the same name. The chain: world x
+    -> `contract_to_unit` (its Jacobian in closed form) -> the CP encode
+    -> the base MLP (2 Dense + ReLU, bf16 contract) -> `trunc_exp`. With
+    h0 the layer-0 output, the density channel's feature VJP row is
+    g = bf16((1{h0 > 0} w1[:, 0]) @ w0^T) (bf16 operands, then f32), and
+    s01 = d h1_0 / d pos01 [N, 3] is the encode's derivative contracted
+    with g; d density / d x = density * (s01 @ J) * 1{|raw| < 15}.
+
+    Two routes, one function:
+    - the kernels (default): the encode through `encode_fused` (K3, K4 on
+      the card) and s01 through `grad_encode_dot` (K5, K6); with
+      ``differentiable_grad`` False, s01 is detached whole, so its g path
+      into w0 and w1 is cut too (as the JAX fused branch does);
+    - ``xla=True``: the JAX package's XLA hat/dhat expression (bf16 hat
+      and slopes, bf16 products), the chain rule through d feat / d x and
+      the MLP's forward mode in bf16; always differentiable, as in JAX.
+    """
+    cfg = field.encoding.config
+    batch_shape = positions.shape[:-1]
+    x = positions.reshape(-1, 3)
+    pos01 = contract_to_unit(x)
+    jac = contract_to_unit_jacobian(x)  # [N, 3 (pos01 j), 3 (world i)]
+    lines = field.encoding.get_lines()
+    (w0, b0), (w1, b1) = [layer.weights() for layer in field.mlp_base.layers()]
+    if xla:
+        levels = [cp_level_features_and_grad(pos01, lines[lvl]) for lvl in range(len(cfg.resolutions))]
+        feat = torch.cat([f for f, _ in levels], dim=-1).float()
+        dfeat01 = torch.cat([d for _, d in levels], dim=-1).float()  # [N, 3, D]
+    else:
+        feat = encode_fused(cfg, lines, pos01)
+    h0 = dense_bf16(feat, w0, b0)
+    h1 = dense_bf16(torch.relu(h0), w1, b1)  # [N, 1 + G]
+    relu_mask = (h0 > 0).float()
+    w0b, w1b = w0.to(torch.bfloat16).float(), w1.to(torch.bfloat16).float()
+    if xla:
+        dfeat_x = torch.einsum("njd,nji->nid", dfeat01, jac).to(torch.bfloat16).float()
+        dh = (dfeat_x @ w0b).to(torch.bfloat16).float() * relu_mask[:, None, :]
+        dh0 = (dh @ w1b).to(torch.bfloat16)[..., 0].float()  # [N, 3]
+    else:
+        g = ((relu_mask * w1b[:, 0]) @ w0b.T).to(torch.bfloat16).float()  # [N, D]
+        s01 = grad_encode_dot(cfg, lines, pos01, g)
+        if not differentiable_grad:
+            s01 = s01.detach()
+        dh0 = torch.einsum("nj,nji->ni", s01, jac)
+    raw = h1[..., 0] - 1.0
+    density = field.average_init_density * trunc_exp(raw)
+    inside = ((raw > -15.0) & (raw < 15.0)).float()
+    ddensity = density[..., None] * dh0 * inside[..., None]
+    return (
+        density.reshape(batch_shape),
+        h1[..., 1:].reshape(*batch_shape, -1),
+        ddensity.reshape(*batch_shape, 3),
+    )
 
 
 class HashMLPDensityField(nn.Module):

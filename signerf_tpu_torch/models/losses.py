@@ -1,8 +1,9 @@
-"""NeRF training losses: interlevel (proposal), distortion and pixel losses.
+"""NeRF training losses: interlevel (proposal), distortion, normals and
+pixel losses.
 
-Port of `signerf_tpu/models/losses.py` (mipnerf360 as implemented in
-nerfstudio); the orientation and predicted-normal losses come with the
-`signerf` method. All losses work in normalized s-space on [R, S] tensors.
+Port of `signerf_tpu/models/losses.py` (mipnerf360 and Ref-NeRF as
+implemented in nerfstudio). The proposal losses work in normalized s-space
+on [R, S] tensors.
 """
 
 from __future__ import annotations
@@ -76,6 +77,24 @@ def distortion_loss(final_weights: torch.Tensor, final_samples: RaySamples) -> t
     loss_inter = (w * (w[..., None, :] * dut).sum(-1)).sum(-1)
     loss_intra = (w**2 * (t[..., 1:] - t[..., :-1])).sum(-1) / 3.0
     return (loss_inter + loss_intra).mean()
+
+
+def orientation_loss(
+    weights: torch.Tensor,  # [R, S]
+    normals: torch.Tensor,  # [R, S, 3]
+    view_dirs: torch.Tensor,  # [R, 3]
+) -> torch.Tensor:
+    """Penalize normals facing away from the camera (Ref-NeRF)."""
+    n_dot_v = (normals * -view_dirs[:, None, :]).sum(-1)  # [R, S]
+    return (weights * n_dot_v.clamp_max(0.0) ** 2).sum(-1).mean()
+
+
+def pred_normal_loss(
+    weights: torch.Tensor,  # [R, S]
+    normals: torch.Tensor,  # [R, S, 3] gradient normals, detached by the caller
+    pred_normals: torch.Tensor,  # [R, S, 3]
+) -> torch.Tensor:
+    return (weights * (1.0 - (normals * pred_normals).sum(-1))).sum(-1).mean()
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
 """Nerfacto model: proposal sampling, factor-grid field, volumetric
 rendering, and its training losses.
 
-Port of `signerf_tpu/models/nerfacto.py` without the normals (they come
-with the `signerf` method). `NerfactoModel` is an `nn.Module` whose children
-`field`, `proposal_0` and `proposal_1` (and the parameter `camera_opt` when
-it is on) carry the JAX params tree's names.
+Port of `signerf_tpu/models/nerfacto.py`, factor backend. `NerfactoModel`
+is an `nn.Module` whose children `field`, `proposal_0` and `proposal_1` (and
+the parameter `camera_opt` when it is on) carry the JAX params tree's names.
+With `predict_normals` the base field also predicts normals, and with
+`use_gradient_normals` its density and spatial gradient come from
+`fields.factor_density_geo_and_grad` (K3 to K6 on the card), whose normals
+the orientation and pred-normal losses take at the reference's detach
+points.
 """
 
 from __future__ import annotations
@@ -19,7 +23,11 @@ from signerf_tpu_torch.cameras.camera_opt import apply_camera_opt, init_camera_o
 from signerf_tpu_torch.cameras.cameras import RayBundle
 from signerf_tpu_torch.models import losses as L
 from signerf_tpu_torch.models import renderers as R
-from signerf_tpu_torch.models.fields import HashMLPDensityField, NerfactoField
+from signerf_tpu_torch.models.fields import (
+    HashMLPDensityField,
+    NerfactoField,
+    factor_density_geo_and_grad,
+)
 from signerf_tpu_torch.models.samplers import proposal_sample, render_weights
 
 
@@ -34,7 +42,7 @@ class ProposalNetArgs:
 class NerfactoModelConfig:
     """The knobs of the JAX package's `NerfactoModelConfig` that the forward
     and the training losses read, with the same names and defaults. The
-    normals and hash-grid knobs come with the slices that read them."""
+    hash-grid knobs come with the slice that reads them."""
 
     near_plane: float = 0.05
     far_plane: float = 1000.0
@@ -60,9 +68,18 @@ class NerfactoModelConfig:
     proposal_warmup: int = 5000
     proposal_weights_anneal_slope: float = 10.0
     proposal_weights_anneal_max_num_iters: int = 1000
-    predict_normals: bool = False  # True needs the `signerf` slice
+    predict_normals: bool = False
+    use_gradient_normals: bool = True  # only active when predict_normals
+    # The JAX package's deviation from nerfstudio (off by default): gradient
+    # normals detached at creation, the orientation penalty on the pred
+    # normals instead. False keeps the reference's semantics: the
+    # orientation loss takes the gradient normals undetached, the
+    # pred-normal loss detached.
+    fast_normals_losses: bool = False
     interlevel_loss_mult: float = 1.0
     distortion_loss_mult: float = 0.002
+    orientation_loss_mult: float = 0.0001
+    pred_normal_loss_mult: float = 0.001
     use_camera_opt: bool = False
 
 
@@ -71,11 +88,6 @@ class NerfactoModel(nn.Module):
 
     def __init__(self, config: NerfactoModelConfig, num_train_images: int):
         super().__init__()
-        if config.predict_normals:
-            raise NotImplementedError(
-                "predict_normals=True: the normals and their losses come with the `signerf` "
-                "method's slice of the port"
-            )
         self.config = config
         self.num_train_images = num_train_images
         self.field = NerfactoField(
@@ -88,6 +100,7 @@ class NerfactoModel(nn.Module):
             use_appearance_embedding=config.use_appearance_embedding,
             average_init_density=config.average_init_density,
             encoding_backend=config.encoding_backend,
+            predict_normals=config.predict_normals,
         )
         n_fields = 1 if config.use_same_proposal_network else config.num_proposal_iterations
         for i in range(n_fields):
@@ -169,9 +182,20 @@ class NerfactoModel(nn.Module):
             single_jitter=cfg.single_jitter,
             anneal=anneal,
         )
-        field_out = self.field(samples.positions, directions, cam_idx, train, appearance_mode)
+        grad = None
+        if cfg.predict_normals and cfg.use_gradient_normals:
+            # The density's spatial gradient in closed form, sharing the
+            # primal; the reference's orientation loss backprops through it
+            # into the field, so it stays differentiable while training.
+            density, geo, grad = factor_density_geo_and_grad(
+                self.field, samples.positions,
+                differentiable_grad=train and not cfg.fast_normals_losses,
+            )
+            field_out = self.field.head_only(density, geo, directions, cam_idx, train, appearance_mode)
+        else:
+            field_out = self.field(samples.positions, directions, cam_idx, train, appearance_mode)
         weights = render_weights(field_out["density"], samples.deltas)
-        return {
+        outputs = {
             "rgb": R.render_rgb(weights, field_out["rgb"], cfg.background_color),
             "accumulation": R.render_accumulation(weights),
             "depth": R.render_depth_median(weights, samples.starts, samples.ends),
@@ -182,6 +206,17 @@ class NerfactoModel(nn.Module):
             "ray_samples_list": samples_list,
             "directions": bundle.directions,
         }
+        if cfg.predict_normals:
+            outputs["pred_normals_samples"] = field_out["pred_normals"]
+            outputs["pred_normals"] = R.render_normals(weights, field_out["pred_normals"])
+            if grad is not None:
+                if cfg.fast_normals_losses:
+                    grad = grad.detach()
+                # sqrt(|g|^2 + eps) keeps the value finite at grad = 0
+                n = -grad / torch.sqrt((grad * grad).sum(-1, keepdim=True) + 1e-12)
+                outputs["normals_samples"] = n
+                outputs["normals"] = R.render_normals(weights, n)
+        return outputs
 
     def loss_dict(
         self, outputs: Dict[str, Any], batch: Dict[str, torch.Tensor], train: bool = True
@@ -198,7 +233,27 @@ class NerfactoModel(nn.Module):
             loss["distortion_loss"] = cfg.distortion_loss_mult * L.distortion_loss(
                 outputs["weights"], outputs["ray_samples"]
             )
+            if cfg.predict_normals and "normals_samples" in outputs:
+                loss.update(self.normals_losses(outputs))
         return loss
+
+    def normals_losses(self, outputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Orientation and pred-normal losses at the reference's detach
+        points (nerfstudio 1.0.2, inherited by SIGNeRF): both take detached
+        weights; the orientation loss takes the gradient normals undetached
+        (it trains the density field), the pred-normal loss detached (it
+        trains only the head). Under `fast_normals_losses` the gradient
+        normals were detached at creation and the orientation loss takes
+        the pred normals instead."""
+        cfg = self.config
+        w = outputs["weights"].detach()
+        orient = outputs["pred_normals_samples"] if cfg.fast_normals_losses else outputs["normals_samples"]
+        return {
+            "orientation_loss": cfg.orientation_loss_mult
+            * L.orientation_loss(w, orient, outputs["directions"]),
+            "pred_normal_loss": cfg.pred_normal_loss_mult
+            * L.pred_normal_loss(w, outputs["normals_samples"].detach(), outputs["pred_normals_samples"]),
+        }
 
     def metrics_dict(self, outputs, batch) -> Dict[str, torch.Tensor]:
         return {"psnr": L.psnr(outputs["rgb"], batch["image"])}

@@ -1,7 +1,8 @@
-"""Volumetric compositing: rgb, accumulation, median and expected depth.
+"""Volumetric compositing: rgb, accumulation, median and expected depth,
+normals.
 
 Port of `signerf_tpu/models/renderers.py` (nerfacto's RGBRenderer,
-AccumulationRenderer and DepthRenderer semantics).
+AccumulationRenderer, DepthRenderer and NormalsRenderer semantics).
 """
 
 from __future__ import annotations
@@ -52,3 +53,9 @@ def render_depth_median(
     idx = crossed.int().argmax(-1)  # first True; 0 when none
     idx = torch.where(crossed.any(-1), idx, torch.full_like(idx, mids.shape[-1] - 1))
     return mids.gather(-1, idx[..., None])
+
+
+def render_normals(weights: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
+    """Composite per-sample normals [R, S, 3] -> [R, 3], not renormalized
+    (nerfstudio's NormalsRenderer)."""
+    return (weights[..., None] * normals).sum(-2)

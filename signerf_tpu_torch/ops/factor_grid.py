@@ -1,6 +1,7 @@
-"""Factorized multiresolution (CP) grid encoding and its density MLP.
+"""Factorized multiresolution (CP) grid encoding, its spatial derivative
+and its density MLP.
 
-Port of the encode + density-MLP part of `signerf_tpu/ops/factor_grid.py`.
+Port of `signerf_tpu/ops/factor_grid.py` (CP levels; no plane terms).
 For level l with resolution R_l and one line table [R_l, F] per axis, each
 axis is linearly interpolated at u * (R_l - 1), the three axes are
 multiplied, and the levels are concatenated into D = L * F features. A
@@ -20,7 +21,13 @@ versions:
   large levels; the kernel here has no small-level special case, because
   that split existed only for the TPU's lack of a fast gather. Its
   backward (K2) follows the Pallas backward's rounding points and keeps
-  the product rule and the line-grad sums in f32.
+  the product rule and the line-grad sums in f32. `encode_fused` (K3, K4)
+  and `grad_encode_dot` (K5, K6) take the same encode contract without the
+  MLP; the derivative of an axis' value is its cell's slope times (R - 1),
+  and 0 at an exact knot, as both JAX versions take it.
+- `dhat_matrix`, `dfeat01_reference` and `cp_level_features_and_grad` port
+  the XLA expression of the spatial derivative (bf16 hat and dhat
+  matrices, bf16 products).
 
 Both share the MLP contract (`dense_bf16`): bf16 operands, f32
 accumulation, the product rounded to bf16, a bf16 bias add, then ReLU.
@@ -94,15 +101,47 @@ def hat_matrix(u: torch.Tensor, res: int, dtype: torch.dtype) -> torch.Tensor:
     return (1.0 - (x[:, None] - j[None, :]).abs()).clamp_min(0.0).to(dtype)
 
 
+def dhat_matrix(u: torch.Tensor, res: int, dtype: torch.dtype) -> torch.Tensor:
+    """d hat / du: [N] -> [N, res], -sign(x - j) (R - 1) inside each hat's
+    support. At a knot (x = u (R - 1) an integer) every entry is 0."""
+    x = u.clamp(0.0, 1.0) * (res - 1)
+    j = torch.arange(res, dtype=x.dtype, device=x.device)
+    diff = x[:, None] - j[None, :]
+    inside = (diff.abs() < 1.0).to(x.dtype)
+    return (-torch.sign(diff) * inside * (res - 1)).to(dtype)
+
+
+def _interp(mat: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
+    """bf16 [N, R] @ bf16 line, f32 accumulation, bf16 result."""
+    return (mat.float() @ _round_bf16(line)).to(_BF16)
+
+
 def _cp_level_features(x01: torch.Tensor, lines: Sequence[torch.Tensor]) -> torch.Tensor:
     """One level under the XLA contract: bf16 hat @ bf16 line (f32
     accumulation, bf16 result), then the bf16 product of the three axes."""
     res = lines[0].shape[0]
-    f = [
-        (hat_matrix(x01[:, ax], res, _BF16).float() @ _round_bf16(lines[ax])).to(_BF16)
-        for ax in range(3)
-    ]
+    f = [_interp(hat_matrix(x01[:, ax], res, _BF16), lines[ax]) for ax in range(3)]
     return f[0] * f[1] * f[2]
+
+
+def cp_level_features_and_grad(
+    x01: torch.Tensor, lines: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level under the XLA contract, with its spatial derivative:
+    (feat [N, F], d feat / d pos01 [N, 3, F]), both bf16. Per axis the
+    value is bf16 hat @ line and the slope bf16 dhat @ line; the products
+    are bf16, left to right, as the JAX expression takes them."""
+    res = lines[0].shape[0]
+    f = [_interp(hat_matrix(x01[:, ax], res, _BF16), lines[ax]) for ax in range(3)]
+    d = [_interp(dhat_matrix(x01[:, ax], res, _BF16), lines[ax]) for ax in range(3)]
+    grad = torch.stack([d[0] * f[1] * f[2], f[0] * d[1] * f[2], f[0] * f[1] * d[2]], dim=-2)
+    return f[0] * f[1] * f[2], grad
+
+
+def dfeat01_reference(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA expression for d feat / d pos01: [N, 3, D] f32."""
+    grads = [cp_level_features_and_grad(x01, lines[lvl])[1] for lvl in range(len(cfg.resolutions))]
+    return torch.cat(grads, dim=-1).float()
 
 
 def _encode_reference(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) -> torch.Tensor:
@@ -126,17 +165,30 @@ def pack_tables(lines: Lines) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for axes in lines for t in axes]).to(_BF16)
 
 
-def _kernels(device: torch.device):
-    """(forward, backward) for tensors on `device`: the CUDA kernels K1 and
-    K2 for a CUDA tensor, their plain twins for a CPU tensor. Nothing falls
-    back from one to the other."""
+def _kernel(name: str, device: torch.device):
+    """`fused_factor_cuda.<name>_cuda` (the CUDA kernel) for a CUDA tensor,
+    `<name>_plain` (its plain twin) for a CPU tensor. Nothing falls back
+    from one to the other."""
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
     if device.type == "cuda":
-        return ffc.density_mlp_cuda, ffc.density_mlp_bwd_cuda
+        return getattr(ffc, f"{name}_cuda")
     if device.type == "cpu":
-        return ffc.density_mlp_plain, ffc.density_mlp_bwd_plain
-    raise RuntimeError(f"fused_density_mlp: no kernel for device {device}")
+        return getattr(ffc, f"{name}_plain")
+    raise RuntimeError(f"{name}: no kernel for device {device}")
+
+
+def _nested(cfg: FactorGridConfig, lines: Sequence[torch.Tensor]):
+    return [lines[3 * lvl : 3 * lvl + 3] for lvl in range(len(cfg.resolutions))]
+
+
+def _unpack(g_tables: torch.Tensor, lines: Sequence[torch.Tensor]):
+    """A packed f32 line-grad buffer -> one view per line, in `lines` order."""
+    g_lines, offset = [], 0
+    for line in lines:
+        g_lines.append(g_tables[offset : offset + line.numel()].view(line.shape))
+        offset += line.numel()
+    return g_lines
 
 
 class _FusedDensityMLP(torch.autograd.Function):
@@ -150,10 +202,9 @@ class _FusedDensityMLP(torch.autograd.Function):
     def forward(ctx, cfg, x01, k0, b0, k1, b1, *lines):
         ctx.cfg = cfg
         ctx.save_for_backward(x01, k0, b0, k1, *lines)
-        fwd, _ = _kernels(x01.device)
-        nested = [lines[3 * lvl : 3 * lvl + 3] for lvl in range(len(cfg.resolutions))]
+        fwd = _kernel("density_mlp", x01.device)
         return fwd(
-            cfg.resolutions, cfg.features_per_level, pack_tables(nested),
+            cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)),
             k0.to(_BF16), b0.to(_BF16), k1.to(_BF16), b1.to(_BF16), x01.detach(),
         )
 
@@ -163,20 +214,15 @@ class _FusedDensityMLP(torch.autograd.Function):
         x01, k0, b0, k1, *lines = ctx.saved_tensors
         want_x = ctx.needs_input_grad[1]
         want_tables = any(ctx.needs_input_grad[2:])
-        _, bwd = _kernels(x01.device)
-        nested = [lines[3 * lvl : 3 * lvl + 3] for lvl in range(len(cfg.resolutions))]
+        bwd = _kernel("density_mlp_bwd", x01.device)
         g_tables, g_ws, g_x = bwd(
-            cfg.resolutions, cfg.features_per_level, pack_tables(nested),
+            cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)),
             k0.to(_BF16), b0.to(_BF16), k1.to(_BF16), x01, g.float().contiguous(),
             tables_half=want_tables, coords_half=want_x,
         )
         if g_tables is None:
             return (None, g_x, None, None, None, None, *([None] * len(lines)))
-        g_lines, offset = [], 0
-        for line in lines:
-            g_lines.append(g_tables[offset : offset + line.numel()].view(line.shape))
-            offset += line.numel()
-        return (None, g_x, *g_ws, *g_lines)
+        return (None, g_x, *g_ws, *_unpack(g_tables, lines))
 
 
 def fused_density_mlp(
@@ -192,3 +238,79 @@ def fused_density_mlp(
     (k0, b0), (k1, b1) = ws
     flat = [t for axes in lines for t in axes]
     return _FusedDensityMLP.apply(cfg, x01, k0, b0, k1, b1, *flat)
+
+
+class _EncodeFused(torch.autograd.Function):
+    """The counterpart of the JAX `custom_vjp` `_encode_fused`: K3 forward,
+    K4 backward. Takes the f32 line tables and packs and rounds them to
+    bf16 inside; saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, cfg, x01, *lines):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x01, *lines)
+        fwd = _kernel("encode", x01.device)
+        return fwd(cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)), x01.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        x01, *lines = ctx.saved_tensors
+        want_tables = any(ctx.needs_input_grad[2:])
+        bwd = _kernel("encode_bwd", x01.device)
+        g_tables, g_x = bwd(
+            cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)), x01,
+            g.float().contiguous(), tables_half=want_tables, coords_half=ctx.needs_input_grad[1],
+        )
+        g_lines = [None] * len(lines) if g_tables is None else _unpack(g_tables, lines)
+        return (None, g_x, *g_lines)
+
+
+def encode_fused(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) -> torch.Tensor:
+    """CP encode: [N, 3] pos01 in [0, 1] -> [N, D] f32 features under the
+    kernels' contract (two-tap gathers from bf16 tables, f32 tap weights
+    and products). Differentiable in the line tables and x01: K3 and K4 on
+    a CUDA tensor, their plain twins on a CPU tensor."""
+    return _EncodeFused.apply(cfg, x01, *[t for axes in lines for t in axes])
+
+
+class _GradEncodeDot(torch.autograd.Function):
+    """The counterpart of the JAX `custom_vjp` `grad_encode_dot`: K5
+    forward, K6 backward. K6's tables launch hands back the line grads and
+    grad_g together; its coords launch runs only when x01 needs a grad."""
+
+    @staticmethod
+    def forward(ctx, cfg, x01, g, *lines):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x01, g, *lines)
+        fwd = _kernel("grad_dot", x01.device)
+        return fwd(
+            cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)), x01.detach(),
+            g.detach().float().contiguous(),
+        )
+
+    @staticmethod
+    def backward(ctx, ct):
+        cfg = ctx.cfg
+        x01, g, *lines = ctx.saved_tensors
+        want_tables = any(ctx.needs_input_grad[2:])
+        bwd = _kernel("grad_dot_bwd", x01.device)
+        g_tables, g_g, g_x = bwd(
+            cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)), x01,
+            g.float().contiguous(), ct.float().contiguous(), tables_half=want_tables,
+            coords_half=ctx.needs_input_grad[1],
+        )
+        g_lines = [None] * len(lines) if g_tables is None else _unpack(g_tables, lines)
+        return (None, g_x, g_g, *g_lines)
+
+
+def grad_encode_dot(
+    cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """s[n, a] = sum_d d feat[n, d] / d pos01[n, a] * g[n, d] -> [N, 3] f32,
+    the encode's spatial derivative contracted with g [N, D] (the density
+    channel's VJP row through the base MLP), under the kernels' contract.
+    The slope is 0 at an exact knot, as both JAX versions take it.
+    Differentiable in the line tables, x01 and g: K5 and K6 on a CUDA
+    tensor, their plain twins on a CPU tensor."""
+    return _GradEncodeDot.apply(cfg, x01, g, *[t for axes in lines for t in axes])

@@ -1,17 +1,31 @@
-"""K1 and K2: the factor-grid encode + density MLP and its backward, as
-hand-written CUDA kernels.
+"""K1 to K6: the factor-grid kernels, hand-written in CUDA.
 
-K1 replaces `fused_factor_density_tpu` and K2 `fused_factor_density_bwd_tpu`
-in `signerf_tpu/ops/fused_factor_pallas.py` (the Pallas TPU kernels that the
-proposal fields and the base field call once each per ray chunk, and whose
-backward runs once each per training step). The sources are
-`csrc/fused_factor_density.cu` and `csrc/fused_factor_density_bwd.cu`; their
-headers say what each computes, what bounds it on an H100 and what the design
-does about it. In short, K2 recomputes K1's features per sample, takes the
-MLP VJP at the Pallas kernel's bf16 rounding points, sums dW/db per block in
-shared memory and flushes them once per block, sums the small levels' line
-grads with shared-memory atomics and the large levels' with device-memory
-atomics (so its sums are reproducible to f32 rounding, not bitwise).
+The Pallas TPU kernels of `signerf_tpu/ops/fused_factor_pallas.py` that
+they replace:
+
+- K1 `fused_factor_density_tpu` and K2 `fused_factor_density_bwd_tpu`: the
+  encode + density MLP and its backward (the proposal fields, and the base
+  field without normals), in `csrc/fused_factor_density.cu` and
+  `csrc/fused_factor_density_bwd.cu`;
+- K3 `fused_factor_encode_tpu` and K4 `fused_factor_encode_bwd_tpu`: the
+  encode alone and its backward (the base field with gradient normals), in
+  `csrc/fused_factor_encode.cu`;
+- K5 `fused_factor_grad_dot_tpu` and K6 `fused_factor_grad_dot_bwd_tpu`: the
+  encode's spatial derivative contracted with the density's feature
+  cotangent, and its backward (the gradient normals), in
+  `csrc/fused_factor_grad_dot.cu`.
+
+Each source's header says what it computes, what bounds it on an H100 and
+what the design does about it. In short, K2 recomputes K1's features per
+sample, takes the MLP VJP at the Pallas kernel's bf16 rounding points, sums
+dW/db per block in shared memory and flushes them once per block, sums the
+small levels' line grads with shared-memory atomics and the large levels'
+with device-memory atomics (so its sums are reproducible to f32 rounding,
+not bitwise). K3 to K6 run one thread per (sample, level), keep K1's taps
+and f32 contract, and K4 and K6 take K2's line-grad scheme. K5, K6 and the
+coords halves of K4 and K6 take the derivative of an axis' value as 0 at
+an exact knot, as both JAX versions do (K2's coords half takes the slope
+of the cell K1 reads there).
 
 The TPU kernels' dense-hat block GEMM, 9-row one-hot GEMM, transposed
 [D, N] layout and packed small/large grad layout existed only because the
@@ -21,19 +35,20 @@ schedule: each level and axis is a two-row gather (K1) or a two-row scatter
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of each
 source into its own library under `build/kernels/` at the repository root,
-both compilers started together, at first use and again whenever a source's
+all compilers started together, at first use and again whenever a source's
 hash changes; loaded with ctypes (plain C interface, no PyTorch headers, so
 a build takes seconds).
 
-`density_mlp_plain` and `density_mlp_bwd_plain` are the kernels' plain
-PyTorch twins on the same packed inputs. `factor_grid.fused_density_mlp`
-takes them for CPU tensors; the tests and `chip_smoke.py` hold the kernels
-against them on the card.
+Every kernel `<name>_cuda` has a plain PyTorch twin `<name>_plain` on the
+same packed inputs and with the same returns. `factor_grid`'s autograd
+Functions take the twins for CPU tensors; the tests and `chip_smoke.py`
+hold the kernels against them on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -51,21 +66,36 @@ _HEADER = _CSRC / "factor_grid_common.cuh"
 SOURCES = {
     "fused_factor_density": _CSRC / "fused_factor_density.cu",  # K1
     "fused_factor_density_bwd": _CSRC / "fused_factor_density_bwd.cu",  # K2
+    "fused_factor_encode": _CSRC / "fused_factor_encode.cu",  # K3, K4
+    "fused_factor_grad_dot": _CSRC / "fused_factor_grad_dot.cu",  # K5, K6
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# (features_per_level, hidden, out, levels) the kernels are instantiated for:
+# (features_per_level, hidden, out, levels) K1 and K2 are instantiated for:
 # the proposal fields and the base field of `signerf_nerfacto`.
 SUPPORTED = {(8, 16, 1, 5), (16, 64, 16, 8)}
+# (features_per_level, levels) K3 to K6 are instantiated for: the base field.
+ENCODE_SUPPORTED = {(16, 8)}
 
 # Launches in this process; only the wrappers below add to them, once per
 # launch. `chip_smoke.py` resets and reads them.
 launches = 0  # K1
 bwd_table_launches = 0  # K2, line grads and dW/db
 bwd_coords_launches = 0  # K2, coordinate grads
+encode_launches = 0  # K3
+encode_bwd_table_launches = 0  # K4, line grads
+encode_bwd_coords_launches = 0  # K4, coordinate grads
+grad_dot_launches = 0  # K5
+grad_dot_bwd_table_launches = 0  # K6, line grads and grad_g
+grad_dot_bwd_coords_launches = 0  # K6, coordinate grads
+COUNTERS = (
+    "launches", "bwd_table_launches", "bwd_coords_launches",
+    "encode_launches", "encode_bwd_table_launches", "encode_bwd_coords_launches",
+    "grad_dot_launches", "grad_dot_bwd_table_launches", "grad_dot_bwd_coords_launches",
+)
 # The last build's compiler output (registers, shared memory, spills).
 build_log = ""
 
@@ -89,6 +119,32 @@ _ARGTYPES = {
         _P, _P, _P,  # w0 [D, H], b0 [H], w1 [H, O], bf16
         _P, _P, _P, _P, _P,  # grads: tables (packed), w0, b0, w1, b1, f32, zeroed
         _P,  # grad coords [N, 3] f32
+        _I,  # mode: 0 tables, 1 coords
+        _P,  # cudaStream_t
+    ],
+    "fused_factor_encode_forward": [
+        _P, _I,  # coords [N, 3] f32, N
+        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
+        _P,  # out [N, D] f32
+        _P,  # cudaStream_t
+    ],
+    "fused_factor_encode_backward": [
+        _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, N
+        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
+        _P, _P,  # grads: tables (packed, f32, zeroed), coords [N, 3] f32
+        _I,  # mode: 0 tables, 1 coords
+        _P,  # cudaStream_t
+    ],
+    "fused_factor_grad_dot_forward": [
+        _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, N
+        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
+        _P,  # out [N, 3] f32
+        _P,  # cudaStream_t
+    ],
+    "fused_factor_grad_dot_backward": [
+        _P, _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, ct [N, 3] f32, N
+        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
+        _P, _P, _P,  # grads: tables (packed, f32, zeroed), g [N, D], coords [N, 3], f32
         _I,  # mode: 0 tables, 1 coords
         _P,  # cudaStream_t
     ],
@@ -189,6 +245,16 @@ def _check_common(resolutions, feat, tables, w0, b0, w1, x01):
     return n, hidden, out_dim
 
 
+def _launch(lib_name: str, fn_name: str, device, *args) -> None:
+    """Call `fn_name` of library `lib_name` on the current stream of
+    `device`; raise if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(library(lib_name), fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed with CUDA error {rc}")
+
+
 def density_mlp_cuda(
     resolutions: Sequence[int],
     feat: int,
@@ -208,18 +274,11 @@ def density_mlp_cuda(
     global launches
     n, hidden, out_dim = _check_common(resolutions, feat, tables, w0, b0, w1, x01)
     _check("b1", b1, torch.bfloat16, (out_dim,), x01.device)
-    lib = library("fused_factor_density")
     out = torch.empty((n, out_dim), dtype=torch.float32, device=x01.device)
     res = (ctypes.c_int * len(resolutions))(*resolutions)
-    with torch.cuda.device(x01.device):
-        stream = torch.cuda.current_stream(x01.device).cuda_stream
-        rc = lib.fused_factor_density_forward(
+    _launch("fused_factor_density", "fused_factor_density_forward", x01.device,
             x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, hidden, out_dim,
-            w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_factor_density_forward failed with CUDA error {rc}")
+            w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr())
     launches += 1
     return out
 
@@ -255,39 +314,151 @@ def density_mlp_bwd_cuda(
     n, hidden, out_dim = _check_common(resolutions, feat, tables, w0, b0, w1, x01)
     device = x01.device
     _check("g", g, torch.float32, (n, out_dim), device)
-    lib = library("fused_factor_density_bwd")
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     f32 = dict(dtype=torch.float32, device=device)
     g_tables = g_ws = g_coords = None
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        common = (
-            x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat,
-            hidden, out_dim, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+    common = (
+        x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat,
+        hidden, out_dim, w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+    )
+    if tables_half:
+        g_tables = torch.zeros(tables.numel(), **f32)
+        g_ws = (
+            torch.zeros(tuple(w0.shape), **f32),
+            torch.zeros(hidden, **f32),
+            torch.zeros(hidden, out_dim, **f32),
+            torch.zeros(out_dim, **f32),
         )
-        if tables_half:
-            g_tables = torch.zeros(tables.numel(), **f32)
-            g_ws = (
-                torch.zeros(tuple(w0.shape), **f32),
-                torch.zeros(hidden, **f32),
-                torch.zeros(hidden, out_dim, **f32),
-                torch.zeros(out_dim, **f32),
-            )
-            rc = lib.fused_factor_density_backward(
-                *common, g_tables.data_ptr(), *(t.data_ptr() for t in g_ws), None, 0, stream
-            )
-            if rc != 0:
-                raise RuntimeError(f"fused_factor_density_backward (tables) failed with CUDA error {rc}")
-            bwd_table_launches += 1
-        if coords_half:
-            g_coords = torch.empty((n, 3), **f32)
-            rc = lib.fused_factor_density_backward(
-                *common, None, None, None, None, None, g_coords.data_ptr(), 1, stream
-            )
-            if rc != 0:
-                raise RuntimeError(f"fused_factor_density_backward (coords) failed with CUDA error {rc}")
-            bwd_coords_launches += 1
+        _launch("fused_factor_density_bwd", "fused_factor_density_backward", device,
+                *common, g_tables.data_ptr(), *(t.data_ptr() for t in g_ws), None, 0)
+        bwd_table_launches += 1
+    if coords_half:
+        g_coords = torch.empty((n, 3), **f32)
+        _launch("fused_factor_density_bwd", "fused_factor_density_backward", device,
+                *common, None, None, None, None, None, g_coords.data_ptr(), 1)
+        bwd_coords_launches += 1
     return g_tables, g_ws, g_coords
+
+
+def _check_encode(resolutions, feat, tables, x01, g=None) -> int:
+    """Device, shape and type checks shared by K3 to K6 -> N."""
+    device = x01.device
+    if device.type != "cuda":
+        raise ValueError(f"the kernels need CUDA tensors, got {device}")
+    levels = len(resolutions)
+    if (feat, levels) not in ENCODE_SUPPORTED:
+        raise ValueError(
+            f"no kernel for features_per_level={feat}, levels={levels}; "
+            f"instantiated for {sorted(ENCODE_SUPPORTED)}"
+        )
+    n = x01.shape[0]
+    _check("x01", x01, torch.float32, (n, 3), device)
+    _check("tables", tables, torch.bfloat16, (3 * sum(resolutions) * feat,), device)
+    if g is not None:
+        _check("g", g, torch.float32, (n, levels * feat), device)
+    if tables.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
+        raise ValueError("tables and g must be 16-byte aligned for the vector loads")
+    if n * levels >= 2**31:
+        raise ValueError(f"N={n} x {levels} levels does not fit the kernel's int count")
+    return n
+
+
+def encode_cuda(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor
+) -> torch.Tensor:
+    """Launch K3 on x01's stream: [N, 3] f32 in [0, 1] -> feat [N, L F] f32."""
+    global encode_launches
+    n = _check_encode(resolutions, feat, tables, x01)
+    out = torch.empty((n, len(resolutions) * feat), dtype=torch.float32, device=x01.device)
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    _launch("fused_factor_encode", "fused_factor_encode_forward", x01.device,
+            x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, out.data_ptr())
+    encode_launches += 1
+    return out
+
+
+def encode_bwd_cuda(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    x01: torch.Tensor,
+    g: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch K4 on x01's stream, given the cotangent g [N, L F] f32 of K3's
+    output. Returns (line grads as one packed f32 buffer in `pack_tables`
+    order, coords grad [N, 3] f32), each only when asked for (None
+    otherwise), one launch each."""
+    global encode_bwd_table_launches, encode_bwd_coords_launches
+    n = _check_encode(resolutions, feat, tables, x01, g)
+    device = x01.device
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    common = (x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat)
+    g_tables = g_coords = None
+    if tables_half:
+        g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=device)
+        _launch("fused_factor_encode", "fused_factor_encode_backward", device,
+                *common, g_tables.data_ptr(), None, 0)
+        encode_bwd_table_launches += 1
+    if coords_half:
+        g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
+        _launch("fused_factor_encode", "fused_factor_encode_backward", device,
+                *common, None, g_coords.data_ptr(), 1)
+        encode_bwd_coords_launches += 1
+    return g_tables, g_coords
+
+
+def grad_dot_cuda(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Launch K5 on x01's stream: s[n, a] = <d feat[n] / d u_a, g[n]> -> [N, 3] f32."""
+    global grad_dot_launches
+    n = _check_encode(resolutions, feat, tables, x01, g)
+    out = torch.empty((n, 3), dtype=torch.float32, device=x01.device)
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    _launch("fused_factor_grad_dot", "fused_factor_grad_dot_forward", x01.device,
+            x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat,
+            out.data_ptr())
+    grad_dot_launches += 1
+    return out
+
+
+def grad_dot_bwd_cuda(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    x01: torch.Tensor,
+    g: torch.Tensor,
+    ct: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch K6 on x01's stream, given the cotangent ct [N, 3] f32 of K5's
+    output. Returns (line grads as one packed f32 buffer, grad_g [N, L F],
+    coords grad [N, 3]); the tables half fills the first two and the coords
+    half the last, each only when asked for (None otherwise), one launch
+    each."""
+    global grad_dot_bwd_table_launches, grad_dot_bwd_coords_launches
+    n = _check_encode(resolutions, feat, tables, x01, g)
+    device = x01.device
+    _check("ct", ct, torch.float32, (n, 3), device)
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    common = (x01.data_ptr(), g.data_ptr(), ct.data_ptr(), n, tables.data_ptr(), res,
+              len(resolutions), feat)
+    g_tables = g_g = g_coords = None
+    if tables_half:
+        g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=device)
+        g_g = torch.empty_like(g)
+        _launch("fused_factor_grad_dot", "fused_factor_grad_dot_backward", device,
+                *common, g_tables.data_ptr(), g_g.data_ptr(), None, 0)
+        grad_dot_bwd_table_launches += 1
+    if coords_half:
+        g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
+        _launch("fused_factor_grad_dot", "fused_factor_grad_dot_backward", device,
+                *common, None, None, g_coords.data_ptr(), 1)
+        grad_dot_bwd_coords_launches += 1
+    return g_tables, g_g, g_coords
 
 
 def _taps(u: torch.Tensor, res: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -308,20 +479,9 @@ def density_mlp_plain(
     b1: torch.Tensor,
     x01: torch.Tensor,
 ) -> torch.Tensor:
-    """K1's contract in plain PyTorch, on the same inputs."""
-    u = x01.clamp(0.0, 1.0)
-    feats = []
-    offset = 0
-    for res in resolutions:
-        prod = None
-        for ax in range(3):
-            line = tables[offset : offset + res * feat].view(res, feat).float()
-            offset += res * feat
-            i, w = _taps(u[:, ax], res)
-            f = (1.0 - w) * line[i] + w * line[i + 1]
-            prod = f if prod is None else prod * f
-        feats.append(prod)
-    return mlp2_reference(torch.cat(feats, dim=-1), ((w0, b0), (w1, b1)))
+    """K1's contract in plain PyTorch, on the same inputs: K3's encode, then
+    the bf16 MLP."""
+    return mlp2_reference(encode_plain(resolutions, feat, tables, x01), ((w0, b0), (w1, b1)))
 
 
 def density_mlp_bwd_plain(
@@ -379,3 +539,123 @@ def density_mlp_bwd_plain(
             if coords_half:
                 g_coords[:, ax] += (G * diff).sum(-1) * (res - 1)
     return g_tables, g_ws, g_coords
+
+
+@dataclasses.dataclass
+class _Axis:
+    """One level and axis of every sample under K1's taps: the table's
+    offset and resolution, row i, weight w and slope factor s [N, 1] (0 at
+    an exact knot, R - 1 elsewhere), value f and slope d [N, F]."""
+
+    offset: int
+    res: int
+    i: torch.Tensor
+    w: torch.Tensor
+    s: torch.Tensor
+    f: torch.Tensor
+    d: torch.Tensor
+
+
+def _axes(resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor):
+    """[level][axis] -> _Axis, in f32 from the bf16 tables."""
+    u = x01.clamp(0.0, 1.0)
+    tab = tables.float()
+    levels, offset = [], 0
+    for res in resolutions:
+        axes = []
+        for ax in range(3):
+            line = tab[offset : offset + res * feat].view(res, feat)
+            i, w = _taps(u[:, ax], res)
+            r0, r1 = line[i], line[i + 1]
+            s = torch.where((w == 0.0) | (w == 1.0), 0.0, float(res - 1))
+            axes.append(_Axis(offset, res, i, w, s, (1.0 - w) * r0 + w * r1, (r1 - r0) * s))
+            offset += res * feat
+        levels.append(axes)
+    return levels
+
+
+def _scatter(g_tables: torch.Tensor, feat: int, ax: _Axis, lo: torch.Tensor, hi: torch.Tensor) -> None:
+    """Add lo [N, F] to row i and hi to row i + 1 of one packed line grad."""
+    grad = g_tables[ax.offset : ax.offset + ax.res * feat].view(ax.res, feat)
+    grad.index_add_(0, ax.i, lo)
+    grad.index_add_(0, ax.i + 1, hi)
+
+
+def encode_plain(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor
+) -> torch.Tensor:
+    """K3's contract in plain PyTorch, on the same inputs."""
+    levels = _axes(resolutions, feat, tables, x01)
+    return torch.cat([a[0].f * a[1].f * a[2].f for a in levels], dim=-1)
+
+
+def encode_bwd_plain(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    x01: torch.Tensor,
+    g: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K4's contract in plain PyTorch, with `encode_bwd_cuda`'s returns."""
+    g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=tables.device) if tables_half else None
+    g_coords = torch.zeros((x01.shape[0], 3), dtype=torch.float32, device=x01.device) if coords_half else None
+    for lvl, axes in enumerate(_axes(resolutions, feat, tables, x01)):
+        g_l = g[:, lvl * feat : (lvl + 1) * feat]
+        for a, ax in enumerate(axes):
+            G = g_l * axes[(a + 1) % 3].f * axes[(a + 2) % 3].f
+            if tables_half:
+                _scatter(g_tables, feat, ax, (1.0 - ax.w) * G, ax.w * G)
+            if coords_half:
+                g_coords[:, a] += (G * ax.d).sum(-1)
+    return g_tables, g_coords
+
+
+def grad_dot_plain(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """K5's contract in plain PyTorch, on the same inputs."""
+    s = torch.zeros((x01.shape[0], 3), dtype=torch.float32, device=x01.device)
+    for lvl, axes in enumerate(_axes(resolutions, feat, tables, x01)):
+        g_l = g[:, lvl * feat : (lvl + 1) * feat]
+        for a, ax in enumerate(axes):
+            s[:, a] += (ax.d * axes[(a + 1) % 3].f * axes[(a + 2) % 3].f * g_l).sum(-1)
+    return s
+
+
+def grad_dot_bwd_plain(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    x01: torch.Tensor,
+    g: torch.Tensor,
+    ct: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K6's contract in plain PyTorch, with `grad_dot_bwd_cuda`'s returns."""
+    g_tables = g_g = g_coords = None
+    if tables_half:
+        g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=tables.device)
+        g_g = torch.empty_like(g)
+    if coords_half:
+        g_coords = torch.zeros((x01.shape[0], 3), dtype=torch.float32, device=x01.device)
+    c = [ct[:, a : a + 1] for a in range(3)]
+    for lvl, axes in enumerate(_axes(resolutions, feat, tables, x01)):
+        g_l = g[:, lvl * feat : (lvl + 1) * feat]
+        f = [ax.f for ax in axes]
+        d = [ax.d for ax in axes]
+        if tables_half:
+            g_g[:, lvl * feat : (lvl + 1) * feat] = (
+                c[0] * d[0] * f[1] * f[2] + c[1] * f[0] * d[1] * f[2] + c[2] * f[0] * f[1] * d[2]
+            )
+        for a, ax in enumerate(axes):
+            b, cc = (a + 1) % 3, (a + 2) % 3
+            g_hat = c[b] * g_l * d[b] * f[cc] + c[cc] * g_l * d[cc] * f[b]
+            if tables_half:
+                g_dhat = c[a] * g_l * f[b] * f[cc]
+                _scatter(g_tables, feat, ax, (1.0 - ax.w) * g_hat - ax.s * g_dhat, ax.w * g_hat + ax.s * g_dhat)
+            if coords_half:
+                g_coords[:, a] += (g_hat * d[a]).sum(-1)
+    return g_tables, g_g, g_coords

@@ -1,8 +1,9 @@
 """Train CLI: `python -m signerf_tpu_torch.train <method> --train-only True [--a.b.c value ...]`.
 
 Port of `signerf_tpu/train.py` for plain training (`--train-only True`) of
-the `signerf_nerfacto` method; the edit flow (interface, generation, hot
-swap) and the `signerf` method come with later slices and raise.
+the `signerf` and `signerf_nerfacto` methods; the edit flow (interface,
+generation, hot swap) comes with a later slice and raises. f32
+convolutions (the LPIPS loss of `signerf`) run without TF32 on the card.
 
 Flags, as in the JAX CLI:
   --data PATH          dataset (transforms.json or its directory)
@@ -27,6 +28,7 @@ import sys
 from signerf_tpu_torch import config as cfglib
 from signerf_tpu_torch.engine.trainer import SIGNeRFTrainer
 from signerf_tpu_torch.method_configs import METHODS
+from signerf_tpu_torch.ops.lpips import full_f32_convolutions
 from signerf_tpu_torch.render import resolve_device
 
 
@@ -60,6 +62,7 @@ def main(argv=None) -> int:
         overrides["pipeline.datamanager.dataparser.data"] = overrides.pop("data")
     config = cfglib.apply_overrides(config, overrides)
 
+    full_f32_convolutions()
     trainer = SIGNeRFTrainer(config, device)
     trainer.setup()
     trainer.train()

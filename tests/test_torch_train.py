@@ -11,6 +11,7 @@ Philox draw different numbers.
 """
 
 import dataclasses
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -29,11 +30,13 @@ from signerf_tpu.engine import optimizers as jopt
 from signerf_tpu.engine import train_step as jts
 from signerf_tpu.models import losses as JL
 from signerf_tpu.models.nerfacto import NerfactoModel as JModel
+from signerf_tpu.models.signerf import SIGNeRFModel as JSIGNeRFModel
+from signerf_tpu.models.signerf import SIGNeRFModelConfig as JSIGNeRFModelConfig
 from signerf_tpu.models.ray_samples import RaySamples as JRaySamples
 from signerf_tpu.ops import image_metrics as jim
 from signerf_tpu_torch.cameras import camera_opt as tco
 from signerf_tpu_torch.cameras.cameras import Cameras
-from signerf_tpu_torch.convert import jax_params_from_state_dict, state_dict_from_jax
+from signerf_tpu_torch.convert import jax_params_from_state_dict, lpips_from_jax, state_dict_from_jax
 from signerf_tpu_torch.data import datamanager as tdm
 from signerf_tpu_torch.data import pixel_samplers as tps
 from signerf_tpu_torch.engine import checkpoints as tck
@@ -41,8 +44,10 @@ from signerf_tpu_torch.engine import optimizers as topt
 from signerf_tpu_torch.engine import train_step as tts
 from signerf_tpu_torch.models import fields as tfields
 from signerf_tpu_torch.models import losses as TL
+from signerf_tpu_torch.models import nerfacto as tnerfacto
 from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig, ProposalNetArgs
 from signerf_tpu_torch.models.ray_samples import RaySamples
+from signerf_tpu_torch.models.signerf import SIGNeRFModel, SIGNeRFModelConfig
 from signerf_tpu_torch.ops import factor_grid as tfg
 from signerf_tpu_torch.ops import image_metrics as tim
 from signerf_tpu_torch.utils.images import decode_png, load_gray, load_rgb
@@ -235,6 +240,129 @@ def test_gated_step_zeroes_proposal_grads_but_steps_adam(monkeypatch):
             # Adam with m != 0: the update is lr * m_hat / (sqrt(v_hat) + eps)
             assert not torch.equal(p.detach(), before[n]), n
     assert opt.state["proposal_networks"]["count"] == 4
+
+
+# ---------------------------------------------------------------------------
+# the signerf method: normals, LPIPS, patches
+# ---------------------------------------------------------------------------
+
+PATCH = 16  # one patch is a whole 16x16 image of the scene
+SIGNERF_STEPS = 3
+
+
+def signerf_configs(fast: bool):
+    """The tiny config with the `signerf` method's losses, in both packages."""
+    knobs = dict(predict_normals=True, use_lpips=True, use_l1=True, patch_size=PATCH,
+                 fast_normals_losses=fast, **GATE)
+    j, t = tiny_config(), port_tiny_config()
+    jcfg = JSIGNeRFModelConfig(**{**{f.name: getattr(j, f.name) for f in dataclasses.fields(j)}, **knobs})
+    tcfg = SIGNeRFModelConfig(**{**{f.name: getattr(t, f.name) for f in dataclasses.fields(t)}, **knobs})
+    return jcfg, tcfg
+
+
+def run_signerf_both(monkeypatch, fast: bool):
+    """SIGNERF_STEPS steps of both train steps (2 micro-batches of one whole
+    patch each) and the first step's loss terms and gradients, from the same
+    params, LPIPS weights and pixels. The port's base field takes the XLA
+    route of `factor_density_geo_and_grad` (and its proposals the XLA
+    density), as JAX does on the CPU."""
+    jcfg, tcfg = signerf_configs(fast)
+    jmodel = JSIGNeRFModel(jcfg, num_train_images=NUM_CAMS)
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    faint_proposals(params)
+    jcams, tcams, images, _ = scene()
+    yy, xx = np.meshgrid(np.arange(PATCH), np.arange(PATCH), indexing="ij")
+    idx = np.concatenate([np.stack([np.full_like(yy, c), yy, xx], -1).reshape(-1, 3) for c in range(NUM_CAMS)])
+    idx = idx.astype(np.int32)
+    settings = dict(num_rays=len(idx), patch_size=PATCH, micro_batches=2)
+    target = images[idx[:, 0], idx[:, 1], idx[:, 2]].astype(np.float32) / 255.0
+
+    monkeypatch.setattr(jts, "_sample_indices", lambda *a, **k: jnp.asarray(idx))
+    jo = jopt.make_optimizer(jopt.OptimizersConfig(), params)
+    jfn = jts.make_train_step(DeterministicJaxModel(jmodel), jo, jcams, jts.SamplerSettings(**settings),
+                              donate=False)
+    state = jts.TrainState.create(jax.tree_util.tree_map(jnp.asarray, params), jo)
+    jmetrics = []
+    for _ in range(SIGNERF_STEPS):
+        state, m = jfn(state, jnp.asarray(images), None, jax.random.PRNGKey(0))
+        jmetrics.append({k: float(v) for k, v in m.items()})
+
+    def loss_terms(p):
+        out = jmodel.apply(p, jcams.generate_rays_at(jnp.asarray(idx)), rng=None, train=True, anneal=jmodel.anneal(0))
+        return jmodel.loss_dict(out, {"image": jnp.asarray(target)})
+
+    jterms = {k: float(v) for k, v in jax.jit(loss_terms)(params).items()}
+    jgrads = state_dict_from_jax(jax.tree_util.tree_map(
+        np.asarray, jax.jit(jax.grad(lambda p: sum(jax.tree_util.tree_leaves(loss_terms(p)))))(params)))
+
+    monkeypatch.setattr(tfields, "fused_density_mlp", tfg.density_mlp_reference)
+    monkeypatch.setattr(tnerfacto, "factor_density_geo_and_grad",
+                        functools.partial(tfields.factor_density_geo_and_grad, xla=True))
+    monkeypatch.setattr(tts, "_sample_indices", lambda *a, **k: torch.from_numpy(idx))
+    model = SIGNeRFModel(tcfg, NUM_CAMS)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    model.lpips_params = lpips_from_jax(jmodel.lpips_params)
+    out = model(tcams.generate_rays_at(torch.from_numpy(idx)), None, train=True, anneal=model.anneal(0))
+    tterms = model.loss_dict(out, {"image": torch.from_numpy(target)})
+    names, ps = zip(*model.named_parameters())
+    tgrads = dict(zip(names, torch.autograd.grad(sum(tterms.values()), ps, allow_unused=True)))
+    tterms = {k: float(v) for k, v in tterms.items()}
+    to = topt.make_optimizer(topt.OptimizersConfig(), model)
+    tfn = tts.make_train_step(model, to, tcams, tts.SamplerSettings(**settings))
+    tmetrics = [{k: float(v) for k, v in tfn(step, torch.from_numpy(images), None, None).items()}
+                for step in range(SIGNERF_STEPS)]
+    return jterms, tterms, jgrads, tgrads, jmetrics, tmetrics
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["reference_normals", "fast_normals_losses"])
+def test_signerf_train_step_matches_jax(monkeypatch, fast):
+    """All six loss terms, the first-step gradients per leaf and three train
+    steps, against the JAX package's `signerf` model on the same params,
+    LPIPS weights and pixels. With `fast_normals_losses` the gradient
+    normals are detached at creation in both packages and the orientation
+    loss takes the pred normals."""
+    jterms, tterms, jgrads, tgrads, jm, tm = run_signerf_both(monkeypatch, fast)
+    assert sorted(tterms) == sorted(jterms) == [
+        "distortion_loss", "interlevel_loss", "lpips_loss", "orientation_loss", "pred_normal_loss", "rgb_loss"]
+    for k in jterms:
+        # the same expressions and bf16 roundings, f32 sums in another
+        # order: measured up to 1.3e-5 relative (the orientation loss)
+        np.testing.assert_allclose(tterms[k], jterms[k], rtol=1e-4, atol=1e-12, err_msg=k)
+    assert sorted(tgrads) == sorted(jgrads)
+    for k in jgrads:
+        assert tgrads[k] is not None, k
+        # per-leaf norm-relative, as the nerfacto step test: measured up to
+        # 0.016 (the pred-normal head's biases)
+        assert rel(tgrads[k], jgrads[k]) < 0.05, (k, rel(tgrads[k], jgrads[k]))
+    for a, b in zip(jm, tm):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            # Measured up to 3.1e-4 relative, except the orientation loss:
+            # after an Adam step with eps = 1e-15 an element whose gradient
+            # is rounding noise moves by +-lr, and this 1e-5 penalty, fed
+            # only by normals that face away from the camera, moved by up
+            # to 0.024 (step 1 of the fast variant).
+            rtol = 0.05 if k == "orientation_loss" else 1e-2
+            np.testing.assert_allclose(b[k], a[k], rtol=rtol, atol=1e-12, err_msg=k)
+
+
+def test_signerf_orientation_loss_trains_the_line_tables():
+    """Reference semantics: the orientation loss alone reaches the line
+    tables through the undetached gradient normals (K5 and K6's twins here)
+    and leaves the pred-normal head alone. Under `fast_normals_losses` the
+    gradient normals are detached at creation and the orientation loss
+    trains the pred-normal head instead."""
+    jcams, tcams, images, idx = scene()
+    for fast in (False, True):
+        _, tcfg = signerf_configs(fast)
+        model = SIGNeRFModel(tcfg, NUM_CAMS).reset_parameters(torch.Generator().manual_seed(0))
+        out = model(tcams.generate_rays_at(torch.from_numpy(idx)), None, train=True, anneal=1.0)
+        assert out["normals_samples"].requires_grad is not fast
+        model.normals_losses(out)["orientation_loss"].backward()
+        line = model.field.encoding.line_3_0.grad
+        head = model.field.mlp_pred_normals.dense_2.kernel.grad
+        assert bool(torch.isfinite(line).all()) and float(line.abs().max()) > 0
+        assert (head is not None and float(head.abs().max()) > 0) is fast
 
 
 # ---------------------------------------------------------------------------
@@ -593,6 +721,57 @@ def test_train_cli_then_render_and_eval(tmp_path):
     assert summary["num_images"] == N_CAMS and np.isfinite(summary["psnr"]) and 0 < summary["ssim"] <= 1
 
 
+def test_signerf_train_cli_then_eval_with_lpips(tmp_path):
+    """`signerf --train-only True --device cpu` at a tiny size (16x16
+    patches, normals, random LPIPS with its warning), then the eval CLI
+    with `--lpips true`, which warns too and reports a finite LPIPS."""
+    import json
+
+    from signerf_tpu_torch import eval as eval_cli
+    from signerf_tpu_torch import train as train_cli
+
+    data = write_tiny_dataset(tmp_path / "data")
+    out = tmp_path / "out"
+    with pytest.warns(UserWarning, match="RANDOM-INIT"):
+        rc = train_cli.main(
+            ["signerf", "--data", str(data), "--train-only", "True", "--device", "cpu",
+             "--max-num-iterations", "4", "--steps-per-call", "2", "--steps-per-save", "4",
+             "--output-dir", str(out), "--pipeline.datamanager.train-num-rays-per-batch", "512",
+             "--pipeline.datamanager.patch-size", "16", "--pipeline.model.patch-size", "16",
+             *_model_flags("pipeline.model.")]
+        )
+    assert rc == 0
+    ckpt_dir = out / "experiment" / "signerf" / "checkpoints"
+    ckpt = tck.load_checkpoint(ckpt_dir / "step-000000004.pt")
+    assert any(k.startswith("field.mlp_pred_normals.") for k in ckpt["params"])
+    assert not any("lpips" in k for k in ckpt["params"])
+    with pytest.warns(UserWarning, match="RANDOM-INIT"):
+        assert eval_cli.main(["--data", str(data), "--output", str(tmp_path / "e.json"), "--load-dir",
+                              str(ckpt_dir), "--device", "cpu", "--lpips", "true",
+                              "--model.predict-normals", "True", *_model_flags("model.")]) == 0
+    summary = json.loads((tmp_path / "e.json").read_text())
+    assert np.isfinite(summary["lpips"]) and len(summary["per_image"]) == N_CAMS
+    assert all(np.isfinite(r["lpips"]) and r["lpips"] >= 0 for r in summary["per_image"])
+
+
+def test_signerf_method_hyperparameters():
+    from signerf_tpu.method_configs import signerf_method as jmethod
+    from signerf_tpu_torch.method_configs import signerf_method
+
+    j, t = jmethod(), signerf_method()
+    assert t.method_name == "signerf" and t.max_num_iterations == j.max_num_iterations == 20000
+    dm = t.pipeline.datamanager
+    assert (dm.train_num_rays_per_batch, dm.patch_size) == (16384, 32)
+    assert tdm.auto_micro_batches(16384, 32, False) == 4
+    m, jm = t.pipeline.model, j.pipeline.model
+    for k in ("predict_normals", "use_lpips", "use_l1", "patch_size", "average_init_density", "lpips_net",
+              "fast_normals_losses", "orientation_loss_mult", "pred_normal_loss_mult"):
+        assert getattr(m, k) == getattr(jm, k), k
+    for group in ("fields", "proposal_networks", "camera_opt"):
+        a, b = getattr(t.optimizers, group), getattr(j.optimizers, group)
+        assert (a.lr, a.eps, a.lr_final, a.max_steps) == (b.lr, b.eps, b.lr_final, b.max_steps), group
+
+
 def test_train_cli_refusals(tmp_path, monkeypatch):
     from signerf_tpu_torch import train as train_cli
 
@@ -600,16 +779,20 @@ def test_train_cli_refusals(tmp_path, monkeypatch):
     base = ["signerf_nerfacto", "--data", str(data), "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="train-only"):
         train_cli.main(list(base))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        train_cli.main(["signerf", "--data", str(data), "--train-only", "True", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="train-only"):
+        train_cli.main(["signerf", "--data", str(data), "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["signerf_nerfacto", "--data", str(data), "--train-only", "True"])
 
 
 def test_train_and_eval_cli_import_no_jax():
+    """Also after building the `signerf` method's model (LPIPS, normals)."""
     code = (
         "import sys, signerf_tpu_torch.train, signerf_tpu_torch.eval; "
+        "from signerf_tpu_torch.method_configs import signerf_method; "
+        "from signerf_tpu_torch.models.signerf import SIGNeRFModel; "
+        "SIGNeRFModel(signerf_method().pipeline.model, 2); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'signerf_tpu')); print(bad); sys.exit(1 if bad else 0)"
     )
