@@ -8,9 +8,9 @@ the result line):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions,
      image libraries present;
-  2. build K1 to K6 (signerf_tpu_torch/csrc/fused_factor_{density,
-     density_bwd,encode,grad_dot}.cu), all four nvcc processes at once, with
-     ptxas's registers, shared memory and spills per kernel;
+  2. build K1 to K7 (signerf_tpu_torch/csrc/fused_factor_{density,
+     density_bwd,encode,grad_dot}.cu and flash_attention.cu), all five nvcc
+     processes at once, with ptxas's registers, shared memory and spills;
   3. K1 against its plain PyTorch twin on the card, at the three density
      schedules, at N = 2^21 and at the sample counts of one 8192-ray render
      chunk, plus N = 257 with u in {0, 1}: error and CUDA-event times;
@@ -45,7 +45,23 @@ the result line):
      line tables; a profile of warm train steps (device time per kernel);
  14. one full-frame eval render of the trained `signerf` model through
      `make_eval_render`: K3 = K5 = chunks, K1 = 2 x chunks, outputs finite;
- 15. a JSON line per kernel, then {"ok": true, "device": {...}} last.
+ 15. K7 (signerf_tpu_torch/csrc/flash_attention.cu) against its plain twin
+     and an f32 reference at (B, S, H) = (1, 9216, 10), (1, 2304, 20),
+     (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1);
+     CUDA-event times of the kernel, the twin and scaled_dot_product_attention
+     (a yardstick the port never calls) beside the bound;
+ 16. the full SDXL + ControlNet-depth stack at random init in bf16 on the
+     card, then `Diffuser.diffuse` at the defaults (20 steps, strength 0.9,
+     CFG 7, ControlNet 0.8, Euler a) on a 1536 px 3x3 sheet of the scene's
+     512 px views with disc masks and the inverse-depth condition:
+     sequential CFG, exactly 208 K7 launches a sampler step (3,744), sampler
+     step times, peak memory, a finite [1536, 1536, 3] output in [0, 1];
+ 17. the per-view fast path: `prepare_sheet_cache`, then a new last cell
+     through the windowed encode and decode (num_inference_steps cut to 5);
+ 18. one CFG branch at the sheet shape through K7 and through the twin;
+ 19. a profile of one sampler step's model work: device busy share, K7's
+     share, the top kernels;
+ 20. a JSON line per kernel, then {"ok": true, "device": {...}} last.
 
 The script imports torch and the port only.
 """
@@ -113,6 +129,55 @@ BASE_SCHEDULE = (8, 2048, 16)  # levels, max_res, F of the base field
 K3_TOL = 1e-5
 K456_TOL = 1e-4
 PROFILE_STEPS = 3
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit):
+# every bound below is against these, with the card's power limit beside it.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes: float, bf16_flops: float = 0.0, f32_flops: float = 0.0):
+    """(least ms, "bytes" | "operations") of one call: each input read once
+    and each output written once over HBM's rate, against its operations
+    over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (bf16_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def add_bound(stats: dict, call, key: str = "") -> None:
+    """Add one call's bound to stats[f"bound_ms{key}"]; bound_by follows the
+    largest call."""
+    ms, kind = call
+    stats[f"bound_ms{key}"] = stats.get(f"bound_ms{key}", 0.0) + ms
+    if ms >= stats.get(f"_largest{key}", -1.0):
+        stats[f"_largest{key}"], stats[f"bound_by{key}"] = ms, kind
+
+
+def factor_bounds(res, feat, tables, n, hidden=0, out=0):
+    """Bounds of K1 to K6 on one call's inputs (N samples, L levels of F
+    features, D = L F; an MLP of `hidden` and `out` for K1 and K2). The f32
+    operation counts are the taps' lerps and products (11 L F a sample
+    forward, about as many again backward); K1 and K2's MLP runs in bf16."""
+    lf = len(res) * feat
+    d = lf
+    tab = tables.numel() * 2
+    grads = tables.numel() * 4
+    mlp_w = 2 * (d * hidden + hidden + hidden * out + out)
+    mlp = 2 * n * (d * hidden + hidden * out)
+    enc, enc_bwd = 11 * lf * n, 12 * lf * n
+    x, g_feat = 12 * n, 4 * n * d
+    return {
+        "K1": bound(x + tab + mlp_w + 4 * n * out, mlp, enc),
+        "K2 tables": bound(x + 4 * n * out + tab + mlp_w + grads + 2 * mlp_w, 3 * mlp, enc + enc_bwd),
+        "K2 coords": bound(x + 4 * n * out + tab + mlp_w + x, 3 * mlp, enc + enc_bwd),
+        "K3": bound(x + tab + g_feat, 0, enc),
+        "K4 tables": bound(x + g_feat + tab + grads, 0, enc + enc_bwd),
+        "K4 coords": bound(x + g_feat + tab + x, 0, enc + enc_bwd),
+        "K5": bound(x + g_feat + tab + x, 0, enc + enc_bwd),
+        "K6 tables": bound(x + g_feat + x + tab + grads + g_feat, 0, enc + 2 * enc_bwd),
+        "K6 coords": bound(x + g_feat + x + tab + x, 0, enc + 2 * enc_bwd),
+    }
 
 
 def fail(msg: str) -> None:
@@ -169,9 +234,9 @@ def phase_environment(torch) -> str:
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card = smi.splitlines()[0]
     print(card)  # the card's name and power limit, as nvidia-smi gives them
-    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+    from signerf_tpu_torch.ops import cuda_build
 
-    nvcc = run([ffc.nvcc_path(), "--version"]).splitlines()[-1]
+    nvcc = run([cuda_build.nvcc_path(), "--version"]).splitlines()[-1]
     try:
         import PIL  # noqa: F401
 
@@ -194,18 +259,18 @@ def phase_environment(torch) -> str:
 
 
 def phase_build():
-    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+    from signerf_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    ffc.library()
+    cuda_build.library("flash_attention")  # builds and loads every source
     secs = time.perf_counter() - t0
     usage = [
         ln.strip().removeprefix("ptxas info    : ")
-        for ln in ffc.build_log.splitlines()
+        for ln in cuda_build.build_log.splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln
     ]
-    print(f"phase 2 build K1 to K6 ({len(ffc.SOURCES)} nvcc at once): {secs:.2f} s into {ffc.BUILD_DIR} | "
-          + " | ".join(usage))
+    print(f"phase 2 build K1 to K7 ({len(cuda_build.SOURCES)} nvcc at once): {secs:.2f} s into "
+          f"{cuda_build.BUILD_DIR} | " + " | ".join(usage))
 
 
 def make_case(torch, levels, max_res, feat, hidden, out, n, gen, dev):
@@ -238,7 +303,7 @@ def phase_kernel(torch) -> dict:
         ("prop256", (5, 256, 8, 16, 1), 96),
         ("final", (8, 2048, 16, 64, 16), 48),
     ]
-    worst, chunk_ms, chunk_plain_ms = 0.0, 0.0, 0.0
+    worst, chunk_ms, chunk_plain_ms, chunk_bound = 0.0, 0.0, 0.0, {}
     for name, shape, per_ray in schedules:
         for n in sorted({257, 1 << 21, CHUNK * per_ray}):
             args = make_case(torch, *shape, n, gen, dev)
@@ -268,14 +333,15 @@ def phase_kernel(torch) -> dict:
                 if n == CHUNK * per_ray:
                     chunk_ms += k_ms
                     chunk_plain_ms += p_ms
+                    add_bound(chunk_bound, factor_bounds(args[0], shape[2], args[2], n, shape[3], shape[4])["K1"])
             print(line, flush=True)
             del args, got, want, x
     torch.cuda.empty_cache()
     print(
         f"phase 3 K1 per 8192-ray chunk (its 3 calls): kernel {chunk_ms:.4f} ms, "
-        f"plain {chunk_plain_ms:.4f} ms"
+        f"plain {chunk_plain_ms:.4f} ms, bound {chunk_bound['bound_ms']:.4f} ms ({chunk_bound['bound_by']})"
     )
-    return {"max_abs_err": worst, "ms": chunk_ms, "plain_ms": chunk_plain_ms}
+    return {"max_abs_err": worst, "ms": chunk_ms, "plain_ms": chunk_plain_ms, **chunk_bound}
 
 
 def encode_case(torch, n, gen, dev, clustered=False):
@@ -373,7 +439,9 @@ def phase_k3_k6(torch) -> dict:
             k_ms, p_ms = twin_ms(torch, kern, plain)
             if label == "uniform":
                 result[k]["ms"], result[k]["plain_ms"] = k_ms, p_ms
-            line.append(f"{k} {k_ms:.4f} vs {p_ms:.4f} ({p_ms / k_ms:.2f}x);")
+                add_bound(result[k], factor_bounds(args[0], args[1], args[2], n)[k])
+            b_ms, b_by = factor_bounds(args[0], args[1], args[2], n)[k]
+            line.append(f"{k} {k_ms:.4f} vs {p_ms:.4f} ({p_ms / k_ms:.2f}x, bound {b_ms:.4f} {b_by});")
         print(" ".join(line), flush=True)
         del args, g, ct
     torch.cuda.empty_cache()
@@ -383,22 +451,21 @@ def phase_k3_k6(torch) -> dict:
     return result
 
 
-def write_scene(root: Path) -> Path:
-    """A synthetic, multi-view consistent dataset: cameras on a ring looking
-    at a sphere of radius 0.6 shaded by |hit point| / 0.6, on white (the
-    analytic scene of examples/fit_synthetic.py)."""
+def sphere_views():
+    """The synthetic scene's views: cameras on a ring looking at a sphere of
+    radius 0.6 shaded by |hit point| / 0.6, on white (the analytic scene of
+    examples/fit_synthetic.py). -> (poses [n, 4, 4], focal, list of
+    (image [h, w, 3] f32, inverse depth [h, w] f32 in [0, 1], 0 off the sphere))."""
     import numpy as np
 
     from signerf_tpu_torch.cameras.poses import circle_poses
-    from signerf_tpu_torch.utils.images import save_array_png
 
     n, w, h = SCENE["cameras"], SCENE["width"], SCENE["height"]
-    (root / "images").mkdir(parents=True)
     poses = circle_poses(n, radius=2.0, theta=70.0, phi=(0.0, 360.0 * (n - 1) / n)).numpy()
     f = 0.8 * w
     yy, xx = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
     d_cam = np.stack([(xx - w / 2) / f, -(yy - h / 2) / f, -np.ones_like(xx)], -1)
-    frames = []
+    views = []
     for i in range(n):
         d = d_cam @ poses[i, :3, :3].T
         d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -408,7 +475,22 @@ def write_scene(root: Path) -> Path:
         t = -b - np.sqrt(np.maximum(disc, 0.0))
         hit_point = o + d * t[..., None]
         img = np.where((disc > 0)[..., None], np.abs(hit_point) / SPHERE_RADIUS, 1.0)
-        save_array_png(img.astype(np.float32), root / "images" / f"frame_{i:05d}.png")
+        near, far = np.linalg.norm(o) - SPHERE_RADIUS, np.linalg.norm(o)
+        inv_depth = np.where(disc > 0, np.clip((far - t) / (far - near), 0.0, 1.0), 0.0)
+        views.append((img.astype(np.float32), inv_depth.astype(np.float32)))
+    return poses, f, views
+
+
+def write_scene(root: Path) -> Path:
+    """The synthetic scene as a transforms.json dataset of PNGs."""
+    from signerf_tpu_torch.utils.images import save_array_png
+
+    w, h = SCENE["width"], SCENE["height"]
+    (root / "images").mkdir(parents=True)
+    poses, f, views = sphere_views()
+    frames = []
+    for i, (img, _) in enumerate(views):
+        save_array_png(img, root / "images" / f"frame_{i:05d}.png")
         frames.append({"file_path": f"images/frame_{i:05d}.png", "transform_matrix": poses[i].tolist()})
     meta = {"fl_x": f, "fl_y": f, "cx": w / 2, "cy": h / 2, "w": w, "h": h, "frames": frames}
     (root / "transforms.json").write_text(json.dumps(meta))
@@ -563,6 +645,9 @@ def phase_k2(torch) -> dict:
                 step["tables_plain"] += tp_ms
                 step["coords"] += c_ms
                 step["coords_plain"] += cp_ms
+                b = factor_bounds(res, feat, args[2], n, shape[3], shape[4])
+                add_bound(step, b["K2 tables"], "_tables")
+                add_bound(step, b["K2 coords"], "_coords")
                 line += (
                     f" | tables half: kernel {t_ms:.4f} ms, plain {tp_ms:.4f} ms; "
                     f"coords half: kernel {c_ms:.4f} ms, plain {cp_ms:.4f} ms"
@@ -573,7 +658,8 @@ def phase_k2(torch) -> dict:
     print(
         f"phase 4 K2 per {TRAIN_RAYS}-ray train step (its 3 calls): tables half kernel "
         f"{step['tables']:.4f} ms vs plain {step['tables_plain']:.4f} ms; coords half kernel "
-        f"{step['coords']:.4f} ms vs plain {step['coords_plain']:.4f} ms; worst norm-rel "
+        f"{step['coords']:.4f} ms vs plain {step['coords_plain']:.4f} ms; bounds {step['bound_ms_tables']:.4f} "
+        f"ms ({step['bound_by_tables']}) and {step['bound_ms_coords']:.4f} ms ({step['bound_by_coords']}); worst norm-rel "
         f"{worst_rel:.3g} (bound {K2_TOL}), worst max abs {worst_abs:.3g}",
         flush=True,
     )
@@ -982,16 +1068,306 @@ def phase_signerf_eval(torch, data: Path, ckpt_dir: Path) -> dict:
     return got
 
 
-def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms"):
+# K7 and the SDXL inpaint. The 3x3 sheet of 512 px cells (1536 px square)
+# is the JAX package's production regime: a latent of 192^2, so the UNet's
+# self-attention runs at S = 9216 with 10 heads (block 1) and S = 2304 with
+# 20 heads (block 2); per CFG branch 14 calls at S = 9216 (UNet 10,
+# ControlNet 4) and 90 at S = 2304 (UNet 60, ControlNet 30).
+SHEET_CELL = 512
+SHEET_GRID = 3
+K7_SHEET_CALLS = {(1, 9216, 10): 14, (1, 2304, 20): 90}  # per CFG branch
+K7_PER_STEP = 2 * sum(K7_SHEET_CALLS.values())  # sequential CFG: two branches
+K7_SHAPES = [(1, 9216, 10), (1, 2304, 20), (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1)]
+# K7 vs its twin: the twin rounds the scores to bf16 (and scales in bf16),
+# K7 keeps them in f32, so they differ by that rounding: 1e-2 of the norm.
+# K7 vs an f32 reference (q, k, v upcast): bf16 P and output rounding only,
+# 5e-3 of the norm, and K7 must be the closer of the two.
+K7_TWIN_TOL = 1e-2
+K7_REF_TOL = 5e-3
+# One CFG branch at the sheet shape (UNet + ControlNet, random weights),
+# K7 vs the twin in all 104 self-attentions: the bf16 score rounding of
+# the twin moves each attention output by ~5e-3 of its norm, and 60 layers
+# carry it to eps.
+CFG_BRANCH_TOL = 0.1
+PER_VIEW_STEPS = 5  # the per-view phase's num_inference_steps: 4 sampler steps at strength 0.9
+
+
+def k7_bound(b: int, s: int, h: int):
+    return bound(4 * b * s * h * 64 * 2, 4 * b * h * s * s * 64)
+
+
+def phase_k7(torch, card: str) -> dict:
+    """K7 against its plain twin and an f32 reference at the sheet's and a
+    1024 px view's shapes and at ragged ones; CUDA-event times of the
+    kernel, the twin and one scaled_dot_product_attention call."""
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    stats = {"max_abs_err": 0.0}
+    per_shape = {}
+    for b, s, h in K7_SHAPES:
+        q, k, v = (torch.randn(b, s, h, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+        got = fa.flash_attention_cuda(q, k, v, 0.125)
+        torch.cuda.synchronize()
+        twin = fa.flash_attention_plain(q, k, v, 0.125)
+        qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+        ref = (torch.softmax(qf @ kf.transpose(-1, -2) * 0.125, -1) @ vf).transpose(1, 2).reshape(b, s, h * 64)
+        del qf, kf, vf
+        e_twin, e_ref, e_twin_ref = rel_err(got, twin), rel_err(got, ref), rel_err(twin, ref)
+        if not bool(torch.isfinite(got).all()) or e_twin > K7_TWIN_TOL or e_ref > K7_REF_TOL or e_ref > e_twin_ref:
+            fail(f"K7 (B, S, H) = {(b, s, h)}: norm-rel err vs twin {e_twin:.3g} (bound {K7_TWIN_TOL}), vs f32 "
+                 f"{e_ref:.3g} (bound {K7_REF_TOL}), twin vs f32 {e_twin_ref:.3g}")
+        stats["max_abs_err"] = max(stats["max_abs_err"], float((got.float() - twin.float()).abs().max()))
+        line = (f"phase 15 K7 (B, S, H) = {(b, s, h)}: norm-rel err vs twin {e_twin:.3e}, vs f32 reference "
+                f"{e_ref:.3e} (twin vs f32 {e_twin_ref:.3e})")
+        del got, twin, ref
+        if s >= 1000:
+            k_ms, p_ms = twin_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, 0.125),
+                                 lambda: fa.flash_attention_plain(q, k, v, 0.125))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=0.125), 20)
+            b_ms, b_by = k7_bound(b, s, h)
+            per_shape[(b, s, h)] = (k_ms, p_ms, lib_ms, b_ms, b_by)
+            line += (f"; kernel {k_ms:.4f} ms ({4 * b * h * s * s * 64 / k_ms / 1e9:.1f} TFLOP/s), twin {p_ms:.4f} ms, "
+                     f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                     f"{b_ms / k_ms:.1%} of it)")
+        print(line, flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for key, i in (("ms", 0), ("plain_ms", 1), ("library_ms", 2), ("bound_ms", 3)):
+        stats[key] = 2 * sum(n * per_shape[shape][i] for shape, n in K7_SHEET_CALLS.items())
+    stats["bound_by"] = per_shape[(1, 9216, 10)][4]
+    print(f"phase 15 K7 per sampler step of the sheet inpaint ({K7_PER_STEP} calls): kernel {stats['ms']:.3f} ms, "
+          f"twin {stats['plain_ms']:.3f} ms, scaled_dot_product_attention {stats['library_ms']:.3f} ms, bound "
+          f"{stats['bound_ms']:.3f} ms; on {card}", flush=True)
+    return stats
+
+
+def sheet_inputs():
+    """A 3x3 sheet of the scene's 512 px views (views 0 to 7, then 0 again),
+    a disc mask in each cell and the inverse-depth condition."""
+    import numpy as np
+
+    _, _, views = sphere_views()
+    cell, n = SHEET_CELL, SHEET_GRID
+    yy, xx = np.meshgrid(np.arange(cell) + 0.5, np.arange(cell) + 0.5, indexing="ij")
+    disc = ((yy - cell / 2) ** 2 + (xx - cell / 2) ** 2 < (0.3 * cell) ** 2).astype(np.float32)[..., None]
+    sheet = np.zeros((n * cell, n * cell, 3), np.float32)
+    mask = np.zeros((n * cell, n * cell, 1), np.float32)
+    depth = np.zeros((n * cell, n * cell, 1), np.float32)
+    for i in range(n * n):
+        img, inv_depth = views[i % len(views)]
+        r, c = divmod(i, n)
+        win = (slice(r * cell, (r + 1) * cell), slice(c * cell, (c + 1) * cell))
+        sheet[win], mask[win], depth[win] = img, disc, inv_depth[..., None]
+    return sheet, mask, depth, views
+
+
+def step_stats(pipe) -> tuple:
+    ev = pipe.last_run["step_events"]
+    ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1))
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
+def phase_sheet(torch, card: str) -> dict:
+    """The full SDXL + ControlNet-depth stack at random init in bf16 on the
+    card, then `Diffuser.diffuse` at the defaults on the 1536 px sheet."""
+    import warnings
+
+    import numpy as np
+
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser, DiffuserConfig
+    from signerf_tpu_torch.diffusion.layers import count_params
+    from signerf_tpu_torch.ops import flash_attention as fa
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    diffuser = Diffuser(DiffuserConfig())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pipe = diffuser.pipeline
+    if not any("RANDOM-INIT" in str(w.message) for w in caught):
+        fail("SDXL ran at random init without the uncalibrated warning")
+    sizes = {name: count_params(getattr(pipe, name)) for name in ("unet", "controlnet", "vae", "clip_l", "clip_g")}
+    n_params, n_bytes = sum(v[0] for v in sizes.values()), sum(v[1] for v in sizes.values())
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 16 SDXL create on the card (random init, bf16, built on the meta device): {n_params / 1e9:.3f} B "
+          f"parameters, {n_bytes / 1e9:.3f} GB (" + ", ".join(f"{k} {v[0] / 1e9:.3f} B" for k, v in sizes.items())
+          + f"), {pipe.init_seconds:.2f} s, peak memory {init_peak:.2f} GiB, uncalibrated warning printed",
+          flush=True)
+
+    sheet, mask, depth, views = sheet_inputs()
+    cfg = diffuser.config
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    out = diffuser.diffuse(sheet, sheet, mask, depth)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    run_info = pipe.last_run
+    steps = run_info["sampler_steps"]
+    if steps != int(cfg.denoising_strength * cfg.num_inference_steps):
+        fail(f"the sheet inpaint ran {steps} sampler steps")
+    if not run_info["sequential_cfg"]:
+        fail("sequential CFG did not engage at the 1536 px sheet")
+    if launches != K7_PER_STEP * steps:
+        fail(f"K7 launched {launches} times in the sheet inpaint, expected {K7_PER_STEP} x {steps}")
+    if any(counts(ffc).values()):
+        fail(f"the sheet inpaint launched factor-grid kernels: {counts(ffc)}")
+    if out.shape != sheet.shape or not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
+        fail(f"sheet output: shape {out.shape}, finite {np.isfinite(out).all()}, range {out.min()} to {out.max()}")
+    med, lo, hi = step_stats(pipe)
+    print(f"phase 16 Diffuser.diffuse at the defaults ({cfg.num_inference_steps} steps, strength "
+          f"{cfg.denoising_strength}, CFG {cfg.guidance_scale}, ControlNet {cfg.controlnet_conditioning_scale}, "
+          f"Euler a, mask_blur {cfg.mask_blur}, fill {cfg.inpainting_fill}) on a {sheet.shape[1]}x{sheet.shape[0]} "
+          f"{SHEET_GRID}x{SHEET_GRID} sheet of {SHEET_CELL} px cells: sequential CFG engaged, {steps} sampler steps, "
+          f"K7 launches {launches} (= {K7_PER_STEP} x {steps}), other kernels 0; wall {wall:.3f} s; sampler step "
+          f"median {med:.2f} ms (range {lo:.2f} to {hi:.2f}) = {steps * med / 1e3:.3f} s of the wall; peak memory "
+          f"{peak:.2f} GiB; output {out.shape} in [{out.min():.3f}, {out.max():.3f}], finite; on {card}", flush=True)
+    return {"diffuser": diffuser, "sheet": sheet, "mask": mask, "depth": depth, "views": views,
+            "launches": launches, "wall": wall, "step_ms": med, "peak_gib": peak}
+
+
+def phase_per_view(torch, card: str, sh: dict) -> int:
+    """The per-view fast path: the sheet's encoder features cached once,
+    then a new last cell through the windowed encode and decode."""
+    import dataclasses
+
+    import numpy as np
+
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    base = sh["diffuser"]
+    view = Diffuser(dataclasses.replace(base.config, num_inference_steps=PER_VIEW_STEPS), pipeline=base.pipeline)
+    t0 = time.perf_counter()
+    cache = view.prepare_sheet_cache(sh["sheet"], (SHEET_CELL, SHEET_CELL))
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    sheet = sh["sheet"].copy()
+    sheet[-SHEET_CELL:, -SHEET_CELL:] = sh["views"][3][0][:, ::-1]
+    fa.launches = 0
+    t0 = time.perf_counter()
+    win = view.diffuse(sheet, sheet, sh["mask"], sh["depth"], sheet_cache=cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pipe = base.pipeline
+    steps = pipe.last_run["sampler_steps"]
+    dec_h, dec_w = cache.window_lat[4:]
+    f = pipe.config.vae_downscale
+    if not pipe.last_run["windowed"] or win.shape != (dec_h * f, dec_w * f, 3):
+        fail(f"per-view call: windowed {pipe.last_run['windowed']}, shape {win.shape}")
+    if not np.isfinite(win).all() or fa.launches != K7_PER_STEP * steps:
+        fail(f"per-view call: finite {np.isfinite(win).all()}, K7 launches {fa.launches} for {steps} steps")
+    med, lo, hi = step_stats(pipe)
+    print(f"phase 17 per-view fast path: prepare_sheet_cache {cache_s:.3f} s (window_lat {cache.window_lat}); "
+          f"diffuse(sheet_cache=...) with num_inference_steps {PER_VIEW_STEPS} (cut from 20: {steps} sampler steps) "
+          f"returned the {win.shape} window, K7 launches {fa.launches} (= {K7_PER_STEP} x {steps}), wall {wall:.3f} s, "
+          f"sampler step median {med:.2f} ms (range {lo:.2f} to {hi:.2f}); on {card}", flush=True)
+    return fa.launches
+
+
+def cfg_branch(torch, pipe, sh: dict, seed: int = 9):
+    """One CFG branch's eps at the sheet shape (ControlNet, then the UNet
+    with its residuals scaled by 0.8), as the pipeline runs it."""
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = pipe.config.vae_downscale
+    h, w = sh["sheet"].shape[:2]
+    x = torch.randn(1, h // f, w // f, 4, generator=g, device=dev) * 0.2
+    cond = torch.as_tensor(sh["depth"], device=dev).repeat_interleave(3, -1)[None]
+    t = torch.full((1,), 500.0, device=dev)
+    ctx, pooled = pipe.encode_prompt("don't change the image", "")
+    tids = torch.tensor([[h, w, 0, 0, h, w]], dtype=torch.float32, device=dev)
+    scale = torch.tensor(0.8, device=dev)
+
+    def eps(branch: int):
+        c, p = ctx[branch : branch + 1], pooled[branch : branch + 1]
+        down, mid = pipe.controlnet(x, cond, t, c, p, tids)
+        return pipe.unet(x, t, c, p, tids, [r.float() * scale for r in down], mid.float() * scale)
+
+    return eps
+
+
+def phase_cfg_branch(torch, card: str, sh: dict) -> None:
+    """One CFG branch at the sheet shape through K7, then through the twin
+    (`set_flash_attention(False)`)."""
+    from signerf_tpu_torch.diffusion import unet as unet_mod
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    eps = cfg_branch(torch, sh["diffuser"].pipeline, sh)
+    with torch.no_grad():
+        fa.launches = 0
+        e_k = eps(1)
+        torch.cuda.synchronize()
+        n = fa.launches
+        unet_mod.set_flash_attention(False)
+        try:
+            e_p = eps(1)
+            p_ms = cuda_ms(lambda: eps(1), 2)
+        finally:
+            unet_mod.set_flash_attention(True)
+        k_ms = cuda_ms(lambda: eps(1), 2)
+    err = rel_err(e_k, e_p)
+    print(f"phase 18 one CFG branch at the sheet shape (ControlNet + UNet, latent {tuple(e_k.shape)}): K7 launches "
+          f"{n}; eps through K7 vs through the twin: norm-rel {err:.3e} (bound {CFG_BRANCH_TOL}); branch "
+          f"{k_ms:.2f} ms with K7, {p_ms:.2f} ms with the twin; on {card}", flush=True)
+    if n != K7_PER_STEP // 2 or not bool(torch.isfinite(e_k).all()) or err > CFG_BRANCH_TOL:
+        fail("the CFG branch through K7 and through the twin disagree, or K7 did not run in every self-attention")
+
+
+def phase_diffusion_profile(torch, card: str, sh: dict) -> None:
+    """One sampler step's model work (both CFG branches) under torch.profiler:
+    device busy share, K7's share of device time and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eps = cfg_branch(torch, sh["diffuser"].pipeline, sh)
+    with torch.no_grad():
+        plain_span = cuda_ms(lambda: (eps(0), eps(1)), 2)  # the same work, not profiled
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            eps(0), eps(1)
+            end.record()
+            torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    if not busy > 0:
+        fail("the profiler saw no device time in the sampler step")
+    k7 = sum(v for k, v in by_name.items() if "flash_attention_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"phase 19 profile of one sampler step's UNet + ControlNet work (2 CFG branches, sheet shape): span "
+          f"{plain_span:.2f} ms unprofiled ({span:.2f} ms under the profiler), device busy {busy:.2f} ms "
+          f"({busy / plain_span:.1%} of the unprofiled span, idle {1 - busy / plain_span:.1%}); K7 "
+          f"{k7:.2f} ms ({k7 / busy:.1%} of device time); top kernels: "
+          + "; ".join(f"{k[:70]} {v:.2f} ms ({v / busy:.1%})" for k, v in top) + f"; on {card}", flush=True)
+
+
+def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms", bound_key="",
+                 replaces="signerf_tpu/ops/fused_factor_pallas.py"):
     return {
         "name": name,
         "route": "cuda",
         "source": f"signerf_tpu_torch/csrc/{source}",
-        "replaces": f"signerf_tpu/ops/fused_factor_pallas.py:{line}",
+        "replaces": f"{replaces}:{line}",
         "launches": launches,
         "max_abs_err": stats["max_abs_err"],
         "ms": stats[ms_key],
         "plain_ms": stats[plain_key],
+        "bound_ms": stats[f"bound_ms{bound_key}"],
+        "bound_by": stats[f"bound_by{bound_key}"],
+        "library_ms": stats.get("library_ms"),
     }
 
 
@@ -1035,13 +1411,18 @@ def main() -> int:
         phase_signerf_eval(torch, data, signerf["ckpt_dir"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    k7 = phase_k7(torch, card)
+    sheet = phase_sheet(torch, card)
+    phase_per_view(torch, card, sheet)
+    phase_cfg_branch(torch, card, sheet)
+    phase_diffusion_profile(torch, card, sheet)
     launched = signerf["launches"]
     kernels = [
         kernel_entry("fused_factor_density", "fused_factor_density.cu", 1475, render_launches, k1),
         kernel_entry("fused_factor_density_bwd (tables and MLP half)", "fused_factor_density_bwd.cu", 1686,
-                     train["launches"]["K2 tables"], k2, "tables", "tables_plain"),
+                     train["launches"]["K2 tables"], k2, "tables", "tables_plain", "_tables"),
         kernel_entry("fused_factor_density_bwd (coords half)", "fused_factor_density_bwd.cu", 1776,
-                     camopt["K2 coords"], k2, "coords", "coords_plain"),
+                     camopt["K2 coords"], k2, "coords", "coords_plain", "_coords"),
         kernel_entry("fused_factor_encode", "fused_factor_encode.cu", 196, launched["K3"], k36["K3"]),
         kernel_entry("fused_factor_encode_bwd (tables half)", "fused_factor_encode.cu", 626,
                      launched["K4 tables"], k36["K4 tables"]),
@@ -1052,6 +1433,8 @@ def main() -> int:
                      launched["K6 tables"], k36["K6 tables"]),
         kernel_entry("fused_factor_grad_dot_bwd (coords half)", "fused_factor_grad_dot.cu", 1329,
                      signerf_camopt["K6 coords"], k36["K6 coords"]),
+        kernel_entry("flash_attention (per sampler step of the sheet inpaint)", "flash_attention.cu", 216,
+                     sheet["launches"], k7, replaces="signerf_tpu/diffusion/unet.py"),
     ]
     print(json.dumps({"kernels": kernels}))
     kind = torch.cuda.get_device_name(0)

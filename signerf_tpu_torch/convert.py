@@ -11,6 +11,9 @@ read W0 [D, H] row by row), so the converter is a rename and a dtype check.
 LPIPS is not part of either params tree (it is frozen): `lpips_from_jax`
 turns a JAX `LPIPSParams` (as numpy) into the port's, HWIO conv kernels to
 OIHW.
+
+`sdxl_from_jax` does the same for the SDXL pipeline's five components: a
+rename by path, and conv kernels from HWIO to OIHW.
 """
 
 from __future__ import annotations
@@ -56,3 +59,19 @@ def lpips_from_jax(params: Any) -> LPIPSParams:
     """A JAX `signerf_tpu.ops.lpips.LPIPSParams` (its arrays as numpy or
     jax arrays) -> the port's `LPIPSParams`, f32, OIHW kernels."""
     return from_hwio(params.convs, params.lins, params.net)
+
+
+def sdxl_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX SDXL pipeline's params (`{unet, controlnet, vae, clip_l,
+    clip_g}`, arrays as numpy) -> `{component: state_dict}` of the port's
+    `SDXLInpaintPipeline` (f32 tensors; loading casts them to the modules'
+    bf16). Dense kernels keep flax's [in, out] layout; conv kernels go from
+    HWIO to `F.conv2d`'s OIHW."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for comp in ("unet", "controlnet", "vae", "clip_l", "clip_g"):
+        sd = state_dict_from_jax(params[comp])
+        for name, val in sd.items():
+            if name.endswith("kernel") and val.dim() == 4:
+                sd[name] = val.permute(3, 2, 0, 1).contiguous()
+        out[comp] = sd
+    return out

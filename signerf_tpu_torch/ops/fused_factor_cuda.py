@@ -33,11 +33,9 @@ TPU has no fast gather or scatter; the port keeps the function, not that
 schedule: each level and axis is a two-row gather (K1) or a two-row scatter
 (K2), and the line grads come back as one f32 buffer in `pack_tables` order.
 
-Build: `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` of each
-source into its own library under `build/kernels/` at the repository root,
-all compilers started together, at first use and again whenever a source's
-hash changes; loaded with ctypes (plain C interface, no PyTorch headers, so
-a build takes seconds).
+Build: `cuda_build.library` compiles every source of the port (these and
+K7's) into its own library under `build/kernels/`, all compilers started
+together, and loads them with ctypes (plain C interface).
 
 Every kernel `<name>_cuda` has a plain PyTorch twin `<name>_plain` on the
 same packed inputs and with the same returns. `factor_grid`'s autograd
@@ -49,31 +47,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from signerf_tpu_torch.ops.cuda_build import library
 from signerf_tpu_torch.ops.factor_grid import dense_bf16, mlp2_reference
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_HEADER = _CSRC / "factor_grid_common.cuh"
-SOURCES = {
-    "fused_factor_density": _CSRC / "fused_factor_density.cu",  # K1
-    "fused_factor_density_bwd": _CSRC / "fused_factor_density_bwd.cu",  # K2
-    "fused_factor_encode": _CSRC / "fused_factor_encode.cu",  # K3, K4
-    "fused_factor_grad_dot": _CSRC / "fused_factor_grad_dot.cu",  # K5, K6
-}
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 # (features_per_level, hidden, out, levels) K1 and K2 are instantiated for:
 # the proposal fields and the base field of `signerf_nerfacto`.
 SUPPORTED = {(8, 16, 1, 5), (16, 64, 16, 8)}
@@ -96,114 +76,6 @@ COUNTERS = (
     "encode_launches", "encode_bwd_table_launches", "encode_bwd_coords_launches",
     "grad_dot_launches", "grad_dot_bwd_table_launches", "grad_dot_bwd_coords_launches",
 )
-# The last build's compiler output (registers, shared memory, spills).
-build_log = ""
-
-_libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "fused_factor_density_forward": [
-        _P, _I,  # coords [N, 3] f32, N
-        _P, ctypes.POINTER(_I), _I,  # packed tables bf16, resolutions (host), levels
-        _I, _I, _I,  # features_per_level, hidden, out
-        _P, _P, _P, _P,  # w0 [D, H], b0 [H], w1 [H, O], b1 [O], bf16
-        _P,  # out [N, O] f32
-        _P,  # cudaStream_t
-    ],
-    "fused_factor_density_backward": [
-        _P, _P, _I,  # coords [N, 3] f32, grad_out [N, O] f32, N
-        _P, ctypes.POINTER(_I), _I,  # packed tables bf16, resolutions (host), levels
-        _I, _I, _I,  # features_per_level, hidden, out
-        _P, _P, _P,  # w0 [D, H], b0 [H], w1 [H, O], bf16
-        _P, _P, _P, _P, _P,  # grads: tables (packed), w0, b0, w1, b1, f32, zeroed
-        _P,  # grad coords [N, 3] f32
-        _I,  # mode: 0 tables, 1 coords
-        _P,  # cudaStream_t
-    ],
-    "fused_factor_encode_forward": [
-        _P, _I,  # coords [N, 3] f32, N
-        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
-        _P,  # out [N, D] f32
-        _P,  # cudaStream_t
-    ],
-    "fused_factor_encode_backward": [
-        _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, N
-        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
-        _P, _P,  # grads: tables (packed, f32, zeroed), coords [N, 3] f32
-        _I,  # mode: 0 tables, 1 coords
-        _P,  # cudaStream_t
-    ],
-    "fused_factor_grad_dot_forward": [
-        _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, N
-        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
-        _P,  # out [N, 3] f32
-        _P,  # cudaStream_t
-    ],
-    "fused_factor_grad_dot_backward": [
-        _P, _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, ct [N, 3] f32, N
-        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
-        _P, _P, _P,  # grads: tables (packed, f32, zeroed), g [N, D], coords [N, 3], f32
-        _I,  # mode: 0 tables, 1 coords
-        _P,  # cudaStream_t
-    ],
-}
-
-
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def library(name: str = "fused_factor_density") -> ctypes.CDLL:
-    """Build (the sources that changed, all compilers at once) and load the
-    kernel libraries; returns the one called `name`."""
-    global build_log
-    with _lock:
-        if not _libs:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            targets, procs = {}, {}
-            for lib_name, src in SOURCES.items():
-                digest = hashlib.sha256(
-                    src.read_bytes() + _HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                ).hexdigest()
-                so = BUILD_DIR / f"{lib_name}_{digest[:16]}.so"
-                targets[lib_name] = so
-                if not so.exists():
-                    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-                    procs[lib_name] = (
-                        subprocess.Popen(
-                            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                            stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT,
-                            text=True,
-                        ),
-                        tmp,
-                    )
-            logs, failed = [], []
-            for lib_name, (proc, tmp) in procs.items():
-                out, _ = proc.communicate()
-                logs.append(out)
-                if proc.returncode != 0:
-                    failed.append(f"{SOURCES[lib_name].name}:\n{out}")
-                else:
-                    os.replace(tmp, targets[lib_name])
-            build_log = "".join(logs)
-            if failed:
-                raise RuntimeError("nvcc failed to build " + "\n".join(failed))
-            for lib_name, so in targets.items():
-                lib = ctypes.CDLL(str(so))
-                for fn_name, argtypes in _ARGTYPES.items():
-                    if hasattr(lib, fn_name):
-                        fn = getattr(lib, fn_name)
-                        fn.restype = ctypes.c_int
-                        fn.argtypes = argtypes
-                _libs[lib_name] = lib
-        return _libs[name]
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:

@@ -169,3 +169,48 @@ def load_gray(path) -> np.ndarray:
         return a[..., 0]
     rgb = a[..., :3].astype(np.uint32)
     return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+# Pillow <-> array <-> base64, for the remote SD Web UI client only; Pillow
+# is imported inside each call (the port does not need it otherwise). The
+# same conversions as `signerf_tpu/utils/images.py`.
+
+
+def array_to_image(arr):
+    """float/bool [H, W, 1|3] in [0, 1] -> PIL image ('L' for one channel)."""
+    from PIL import Image
+
+    a = to_uint8(arr)
+    if a.ndim == 3 and a.shape[-1] == 1:
+        return Image.fromarray(a[..., 0], mode="L")
+    if a.ndim == 2:
+        return Image.fromarray(a, mode="L")
+    return Image.fromarray(a, mode="RGB")
+
+
+def image_to_array(img) -> np.ndarray:
+    """PIL image -> float32 [H, W, C] in [0, 1]; 'L' gets a channel axis, alpha is dropped."""
+    a = np.asarray(img, dtype=np.float32) / 255.0
+    if a.ndim == 2:
+        a = a[..., None]
+    if a.shape[-1] == 4:
+        a = a[..., :3]
+    return a
+
+
+def image_to_base64(img, fmt: str = "PNG") -> str:
+    import base64
+    import io
+
+    buf = io.BytesIO()
+    img.save(buf, format=fmt)
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
+def base64_to_image(data: str):
+    import base64
+    import io
+
+    from PIL import Image
+
+    return Image.open(io.BytesIO(base64.b64decode(data)))

@@ -308,3 +308,91 @@ def test_signerf_micro_batch_and_eval_chunk_launch_k1_to_k6(cuda):
     assert (ffc.launches, ffc.encode_launches, ffc.grad_dot_launches) == (2, 1, 1)
     assert ffc.bwd_table_launches == ffc.encode_bwd_table_launches == ffc.grad_dot_bwd_table_launches == 0
     assert bool(torch.isfinite(out["rgb"]).all())
+
+
+# ---------------------------------------------------------------------------
+# K7: flash self-attention
+
+
+def _qkv(b, s, h, device, seed=0, d=64):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=g).to(device, torch.bfloat16) for _ in range(3)]
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+# K7 keeps the scores in f32 where the twin rounds them to bf16 (and scales
+# in bf16): the two differ by that rounding, 1e-2 of the norm; against an
+# f32 reference (q, k, v upcast) K7 is within 5e-3 and the closer of the two.
+@pytest.mark.parametrize("b,s,h", [(1, 1, 1), (3, 77, 2), (1, 130, 10), (2, 257, 3), (1, 1000, 10), (2, 2304, 20)])
+def test_k7_matches_twin_and_f32_reference(cuda, b, s, h):
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(b, s, h, cuda, seed=s)
+    got = fa.flash_attention_cuda(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    twin = fa.flash_attention_plain(q, k, v, 0.125)
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    ref = (torch.softmax(qf @ kf.transpose(-1, -2) * 0.125, -1) @ vf).transpose(1, 2).reshape(b, s, h * 64)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, s, h * 64)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, twin) < 1e-2
+    assert _rel(got, ref) < 5e-3
+    assert _rel(got, ref) <= _rel(twin, ref)
+
+
+def test_k7_reads_strided_inputs(cuda):
+    """q, k and v as views of one [B, S, 3, H, 64] projection (no copies)."""
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn(2, 300, 3, 4, 64, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    got = fa.flash_attention_cuda(q, k, v, 0.125)
+    want = fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k7_refuses_what_it_does_not_take(cuda):
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _qkv(1, 16, 2, cuda)
+    with pytest.raises(ValueError, match="64"):
+        fa.flash_attention_cuda(*(t[..., :32] for t in (q, k, v)), 0.125)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.float(), k.float(), v.float(), 0.125)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, k[:, :8], v, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(torch.zeros(1, 16, 2, 128, device=cuda, dtype=torch.bfloat16)[..., ::2], k, v, 0.125)
+
+
+def test_k7_launch_counter_and_cross_attention_route(cuda):
+    """A CUDA self-attention at head dim 64 launches K7 once; the switch
+    off, and cross-attention, take the twin."""
+    from signerf_tpu_torch.diffusion import unet as unet_mod
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    attn = unet_mod.CrossAttention(128, 128, 2, 64)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(0)
+        for p in attn.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+        attn = attn.to(cuda)
+        x = torch.randn(2, 100, 128, generator=gen).to(cuda, torch.bfloat16)
+        fa.launches = 0
+        out = attn(x)
+        torch.cuda.synchronize()
+        assert fa.launches == 1
+        attn(x, torch.randn(2, 7, 128, generator=gen).to(cuda, torch.bfloat16))
+        unet_mod.set_flash_attention(False)
+        try:
+            twin = attn(x)
+        finally:
+            unet_mod.set_flash_attention(True)
+        assert fa.launches == 1
+    assert _rel(out, twin) < 1e-2
