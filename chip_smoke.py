@@ -8,9 +8,9 @@ the result line):
 
   1. environment: card name and power limit, torch / CUDA / nvcc versions,
      image libraries present;
-  2. build K1 to K7 (signerf_tpu_torch/csrc/fused_factor_{density,
-     density_bwd,encode,grad_dot}.cu and flash_attention.cu), all five nvcc
-     processes at once, with ptxas's registers, shared memory and spills;
+  2. build K1 to K10 (signerf_tpu_torch/csrc/fused_factor_{density,
+     density_bwd,encode,grad_dot,grad}.cu and flash_attention.cu), all six
+     nvcc processes at once, with ptxas's registers, shared memory and spills;
   3. K1 against its plain PyTorch twin on the card, at the three density
      schedules, at N = 2^21 and at the sample counts of one 8192-ray render
      chunk, plus N = 257 with u in {0, 1}: error and CUDA-event times;
@@ -20,6 +20,10 @@ the result line):
      at one `signerf` micro-batch's base-field shapes (N = 196,608, uniform
      and clustered coordinates) and at N = 257 with u in {0, 1}: error and
      CUDA-event times;
+ 5b. K8, K9 (both halves) and K10 against their plain twins at the same
+     shapes, with the cross-checks K8 . g = K5, K9 on ct = g (x) c = K6 and
+     K10 = K3 within the bf16 rounding of K10's tap weights; K10 and K4 at
+     the proposal schedule (their 5-level instantiations);
   6. the render CLI at the full width of `signerf_nerfacto` on a synthetic
      512x512 scene (--arc 2 --device cuda, seeded random weights): K1's
      launches must be 3 x chunks; the PNGs must equal a direct render's
@@ -45,6 +49,23 @@ the result line):
      line tables; a profile of warm train steps (device time per kernel);
  14. one full-frame eval render of the trained `signerf` model through
      `make_eval_render`: K3 = K5 = chunks, K1 = 2 x chunks, outputs finite;
+ 14b. the entry points of K8 to K10 on the trained `signerf` base field's
+     line tables at one micro-batch of clustered coordinates:
+     `grad_encode_fused` forward and backward (K8, both halves of K9),
+     `fused_factor_grad` (K8), `factor_encode_kernel` forward and backward
+     (K10, both halves of K4); exact launch counts; against the same calls
+     on the plain twins;
+ 14c. the reference sheet: `signerf_nerfacto` trained 300 steps by the train
+     CLI on the scene with a grey backdrop (white background colour: on the
+     white scene the NeRF learns no geometry), its 8 views rendered at
+     512 px through `make_eval_render` (K1), AABB
+     masks and conditions (dilation (50, 50)), a `bunny(3)` proxy posed with
+     `object_pose_matrix` and ray-traced by `geometry/raster.py` into shape
+     masks and conditions, the AABB set composed into a 3x3 sheet of 512 px
+     cells; mask coverage,
+     raster, dilation and compose times, `resize_mask` flips against the
+     CPU at 512 -> 256; no cell's mask may be empty; phase 7's NeRF under
+     the same box, for comparison;
  15. K7 (signerf_tpu_torch/csrc/flash_attention.cu) against its plain twin
      and an f32 reference at (B, S, H) = (1, 9216, 10), (1, 2304, 20),
      (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1);
@@ -52,12 +73,13 @@ the result line):
      (a yardstick the port never calls) beside the bound;
  16. the full SDXL + ControlNet-depth stack at random init in bf16 on the
      card, then `Diffuser.diffuse` at the defaults (20 steps, strength 0.9,
-     CFG 7, ControlNet 0.8, Euler a) on a 1536 px 3x3 sheet of the scene's
-     512 px views with disc masks and the inverse-depth condition:
-     sequential CFG, exactly 208 K7 launches a sampler step (3,744), sampler
-     step times, peak memory, a finite [1536, 1536, 3] output in [0, 1];
- 17. the per-view fast path: `prepare_sheet_cache`, then a new last cell
-     through the windowed encode and decode (num_inference_steps cut to 5);
+     CFG 7, ControlNet 0.8, Euler a) on phase 14c's 1536 px reference
+     sheet: sequential CFG, exactly 208 K7 launches a sampler step (3,744),
+     sampler step times, peak memory, a finite [1536, 1536, 3] output in
+     [0, 1], blended with the mask and split into its 8 cells;
+ 17. the per-view fast path: `prepare_sheet_cache`, then dataset view 3
+     spliced into the last cell (`splice_last_cell`) through the windowed
+     encode and decode (num_inference_steps cut to 5);
  18. one CFG branch at the sheet shape through K7 and through the twin;
  19. a profile of one sampler step's model work: device busy share, K7's
      share, the top kernels;
@@ -128,6 +150,10 @@ BASE_SCHEDULE = (8, 2048, 16)  # levels, max_res, F of the base field
 # order, and atomics in the tables halves, as K2 (K2_TOL).
 K3_TOL = 1e-5
 K456_TOL = 1e-4
+# K8 and K9 against their twins as K4 to K6, K10 as K3. K10 against K3: the
+# bf16 rounding of K10's tap weights (2^-9 relative a weight, three axes)
+# bounds their difference at 1% of max|K3|.
+K10_K3_TOL = 0.01
 PROFILE_STEPS = 3
 # Published H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit):
 # every bound below is against these, with the card's power limit beside it.
@@ -178,6 +204,24 @@ def factor_bounds(res, feat, tables, n, hidden=0, out=0):
         "K6 tables": bound(x + g_feat + x + tab + grads + g_feat, 0, enc + 2 * enc_bwd),
         "K6 coords": bound(x + g_feat + x + tab + x, 0, enc + 2 * enc_bwd),
     }
+
+
+def grad_bounds(res, feat, tables, n):
+    """Bounds of K8, K9 and K10 on one call's inputs: K8's [N, 3, D] f32
+    output and K9's cotangent of that shape dominate the bytes; the f32
+    operation counts are the taps' lerps and slopes and the products
+    (approximate, as factor_bounds')."""
+    d = len(res) * feat
+    tab, grads = tables.numel() * 2, tables.numel() * 4
+    x, ct = 12 * n, 12 * n * d
+    enc, enc_bwd = 11 * d * n, 12 * d * n
+    return {
+        "K8": bound(x + tab + ct, 0, enc + 6 * d * n),
+        "K9 tables": bound(x + ct + tab + grads, 0, enc + 3 * enc_bwd),
+        "K9 coords": bound(x + ct + tab + x, 0, enc + 2 * enc_bwd),
+        "K10": bound(x + tab + 4 * n * d, 0, enc),
+    }
+
 
 
 def fail(msg: str) -> None:
@@ -269,7 +313,7 @@ def phase_build():
         for ln in cuda_build.build_log.splitlines()
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln
     ]
-    print(f"phase 2 build K1 to K7 ({len(cuda_build.SOURCES)} nvcc at once): {secs:.2f} s into "
+    print(f"phase 2 build K1 to K10 ({len(cuda_build.SOURCES)} nvcc at once): {secs:.2f} s into "
           f"{cuda_build.BUILD_DIR} | " + " | ".join(usage))
 
 
@@ -451,11 +495,104 @@ def phase_k3_k6(torch) -> dict:
     return result
 
 
-def sphere_views():
+def phase_k8_k10(torch) -> dict:
+    """K8, K9 and K10 against their plain twins at one signerf
+    micro-batch's base-field shapes and at N = 257, the cross-checks
+    against K5, K6 and K3, and K10 and K4 at the proposal schedule."""
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8)
+    names = ["K8", "K9 tables", "K9 coords", "K10"]
+    result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
+    for label, n, clustered in [("uniform", SIGNERF_SAMPLES, False), ("clustered", SIGNERF_SAMPLES, True),
+                                ("boundary", 257, False)]:
+        args, g, c = encode_case(torch, n, gen, dev, clustered)
+        ct = torch.randn(n, 3, g.shape[1], generator=gen).to(dev)
+        got = {"K8": ffc.grad_cuda(*args)}
+        got["K9 tables"], got["K9 coords"] = ffc.grad_bwd_cuda(*args, ct, True, True)
+        got["K10"] = ffc.dense_encode_cuda(*args)
+        torch.cuda.synchronize()
+        want = {"K8": ffc.grad_plain(*args), "K10": ffc.dense_encode_plain(*args)}
+        want["K9 tables"], want["K9 coords"] = ffc.grad_bwd_plain(*args, ct, True, True)
+        line = [f"phase 5b {label} N={n}:"]
+        for k in names:
+            a, b = got[k], want[k]
+            if not bool(torch.isfinite(a).all()):
+                fail(f"{k} {label} N={n}: non-finite output")
+            if k == "K10":
+                err, tol = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12), K3_TOL
+            else:
+                err, tol = rel_err(a, b), K456_TOL
+            if err > tol:
+                fail(f"{k} {label} N={n}: error {err:.3g} > {tol}")
+            result[k]["max_abs_err"] = max(result[k]["max_abs_err"], float((a - b).abs().max()))
+            line.append(f"{k} {err:.2e};")
+        # Cross-checks: K8 contracted with g is K5; K9 on ct = g (x) c is K6
+        # for the scalar c; K10 is K3 up to its bf16 tap weights.
+        e5 = rel_err(torch.einsum("nad,nd->na", got["K8"], g), ffc.grad_dot_cuda(*args, g))
+        g9, c9 = ffc.grad_bwd_cuda(*args, g[:, None, :] * c[:, :, None], True, True)
+        g6, _, c6 = ffc.grad_dot_bwd_cuda(*args, g, c, True, True)
+        e6t, e6c = rel_err(g9, g6), rel_err(c9, c6)
+        k3 = ffc.encode_cuda(*args)
+        e3 = float((got["K10"] - k3).abs().max()) / float(k3.abs().max())
+        line.append(f"cross-checks: K8.g vs K5 {e5:.2e}, K9 vs K6 tables {e6t:.2e} coords {e6c:.2e} (bound "
+                    f"{K456_TOL}), K10 vs K3 {e3:.2e} of max|K3| (bound {K10_K3_TOL})")
+        if max(e5, e6t, e6c) > K456_TOL or e3 > K10_K3_TOL:
+            fail(f"phase 5b {label}: a cross-check failed: " + line[-1])
+        if n == 257 and not (bool((got["K8"][:2] == 0).all()) and bool((got["K8"][2:4, 1] == 0).all())):
+            fail("K8: the slope at an exact knot is not 0")
+        print(" ".join(line), flush=True)
+        del got, want, g9, c9, g6, c6, k3
+        if n == 257:
+            continue
+        times = {
+            "K8": (lambda: ffc.grad_cuda(*args), lambda: ffc.grad_plain(*args)),
+            "K9 tables": (lambda: ffc.grad_bwd_cuda(*args, ct), lambda: ffc.grad_bwd_plain(*args, ct)),
+            "K9 coords": (lambda: ffc.grad_bwd_cuda(*args, ct, False, True),
+                          lambda: ffc.grad_bwd_plain(*args, ct, False, True)),
+            "K10": (lambda: ffc.dense_encode_cuda(*args), lambda: ffc.dense_encode_plain(*args)),
+        }
+        line = [f"phase 5b {label} N={n} times (kernel vs plain, ms):"]
+        bounds = grad_bounds(args[0], args[1], args[2], n)
+        for k, (kern, plain) in times.items():
+            k_ms, p_ms = twin_ms(torch, kern, plain)
+            if label == "uniform":
+                result[k]["ms"], result[k]["plain_ms"] = k_ms, p_ms
+                add_bound(result[k], bounds[k])
+            b_ms, b_by = bounds[k]
+            line.append(f"{k} {k_ms:.4f} vs {p_ms:.4f} ({p_ms / k_ms:.2f}x, bound {b_ms:.4f} {b_by}, "
+                        f"{b_ms / k_ms:.1%} of it);")
+        print(" ".join(line), flush=True)
+        del args, g, c, ct
+        torch.cuda.empty_cache()
+
+    # The proposal schedule (5 levels, F = 8): K10 and K4, its backward.
+    for n in (257, CHUNK * 256):
+        res, feat, tables, *_, x = make_case(torch, 5, 128, 8, 16, 1, n, gen, dev)
+        if n == 257:
+            x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]], device=dev)
+        g = torch.randn(n, 5 * feat, generator=gen).to(dev)
+        a, b = ffc.dense_encode_cuda(res, feat, tables, x), ffc.dense_encode_plain(res, feat, tables, x)
+        got4 = ffc.encode_bwd_cuda(res, feat, tables, x, g, True, True)
+        torch.cuda.synchronize()
+        want4 = ffc.encode_bwd_plain(res, feat, tables, x, g, True, True)
+        e10 = float((a - b).abs().max()) / float(b.abs().max())
+        e4 = [rel_err(u, v) for u, v in zip(got4, want4)]
+        print(f"phase 5b proposal schedule N={n}: K10 {e10:.2e} of max|ref| (bound {K3_TOL}); its backward, "
+              f"K4 tables {e4[0]:.2e}, coords {e4[1]:.2e} (bound {K456_TOL})", flush=True)
+        if e10 > K3_TOL or max(e4) > K456_TOL or not bool(torch.isfinite(a).all()):
+            fail(f"K10 or K4 at the proposal schedule, N={n}, disagrees with its twin")
+        del res, tables, x, g, a, b, got4, want4
+    torch.cuda.empty_cache()
+    return result
+
+
+def sphere_views(backdrop: float = 1.0):
     """The synthetic scene's views: cameras on a ring looking at a sphere of
-    radius 0.6 shaded by |hit point| / 0.6, on white (the analytic scene of
-    examples/fit_synthetic.py). -> (poses [n, 4, 4], focal, list of
-    (image [h, w, 3] f32, inverse depth [h, w] f32 in [0, 1], 0 off the sphere))."""
+    radius 0.6 shaded by |hit point| / 0.6, on a uniform backdrop (white:
+    the analytic scene of examples/fit_synthetic.py). -> (poses [n, 4, 4],
+    focal, list of images [h, w, 3] f32)."""
     import numpy as np
 
     from signerf_tpu_torch.cameras.poses import circle_poses
@@ -474,22 +611,20 @@ def sphere_views():
         disc = b * b - (o @ o - SPHERE_RADIUS**2)
         t = -b - np.sqrt(np.maximum(disc, 0.0))
         hit_point = o + d * t[..., None]
-        img = np.where((disc > 0)[..., None], np.abs(hit_point) / SPHERE_RADIUS, 1.0)
-        near, far = np.linalg.norm(o) - SPHERE_RADIUS, np.linalg.norm(o)
-        inv_depth = np.where(disc > 0, np.clip((far - t) / (far - near), 0.0, 1.0), 0.0)
-        views.append((img.astype(np.float32), inv_depth.astype(np.float32)))
+        img = np.where((disc > 0)[..., None], np.abs(hit_point) / SPHERE_RADIUS, backdrop)
+        views.append(img.astype(np.float32))
     return poses, f, views
 
 
-def write_scene(root: Path) -> Path:
+def write_scene(root: Path, backdrop: float = 1.0) -> Path:
     """The synthetic scene as a transforms.json dataset of PNGs."""
     from signerf_tpu_torch.utils.images import save_array_png
 
     w, h = SCENE["width"], SCENE["height"]
     (root / "images").mkdir(parents=True)
-    poses, f, views = sphere_views()
+    poses, f, views = sphere_views(backdrop)
     frames = []
-    for i, (img, _) in enumerate(views):
+    for i, img in enumerate(views):
         save_array_png(img, root / "images" / f"frame_{i:05d}.png")
         frames.append({"file_path": f"images/frame_{i:05d}.png", "transform_matrix": poses[i].tolist()})
     meta = {"fl_x": f, "fl_y": f, "cx": w / 2, "cy": h / 2, "w": w, "h": h, "frames": frames}
@@ -676,7 +811,8 @@ def train_argv(method: str, data: Path, out: Path, steps: int, *extra: str):
 
 # ffc's launch counters (fused_factor_cuda.COUNTERS order), as the JSON
 # line and the printed lines name them.
-KERNEL_NAMES = ("K1", "K2 tables", "K2 coords", "K3", "K4 tables", "K4 coords", "K5", "K6 tables", "K6 coords")
+KERNEL_NAMES = ("K1", "K2 tables", "K2 coords", "K3", "K4 tables", "K4 coords", "K5", "K6 tables", "K6 coords",
+                "K8", "K9 tables", "K9 coords", "K10")
 
 
 def zero_counts(ffc) -> None:
@@ -1068,6 +1204,248 @@ def phase_signerf_eval(torch, data: Path, ckpt_dir: Path) -> dict:
     return got
 
 
+# The entry points of K8 to K10 and the plain functions their kernels
+# replace (`fused_factor_cuda.<name>_cuda` -> `<name>_plain`).
+GRAD_ENTRY_KERNELS = ("grad", "grad_bwd", "dense_encode", "encode_bwd")
+GRAD_ENTRY_COUNTS = expect_counts(K8=2, K9_tables=1, K9_coords=1, K10=1, K4_tables=1, K4_coords=1)
+
+
+def phase_grad_entry_points(torch, card: str, data: Path, ckpt_dir: Path) -> dict:
+    """K8, K9 and K10 through their entry points on the trained signerf base
+    field's line tables, at one micro-batch of clustered coordinates; then
+    the same calls on the plain twins."""
+    from signerf_tpu_torch.ops import factor_grid as fg
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+    from signerf_tpu_torch.ops.factor_grid_kernel import factor_encode_kernel
+
+    dev = torch.device("cuda")
+    _, model = signerf_setup(torch, data, ckpt_dir, use_lpips=False)
+    enc = model.field.encoding
+    cfg, lines = enc.config, enc.get_lines()
+    flat = [t for axes in lines for t in axes]
+    gen = torch.Generator().manual_seed(11)
+    (_, _, _, x), _, _ = encode_case(torch, SIGNERF_SAMPLES, gen, dev, clustered=True)
+    n, d = x.shape[0], cfg.out_dim
+    ct = torch.randn(n, 3, d, generator=gen).to(dev)
+    g = torch.randn(n, d, generator=gen).to(dev)
+
+    def run():
+        enc.zero_grad()
+        xx = x.clone().requires_grad_(True)
+        dfeat = fg.grad_encode_fused(cfg, lines, xx)
+        (dfeat * ct).sum().backward()
+        out = {"grad_encode_fused": dfeat.detach(), "grad_encode_fused x01 grad": xx.grad,
+               "grad_encode_fused line grads": torch.cat([t.grad.reshape(-1) for t in flat])}
+        enc.zero_grad()
+        out["fused_factor_grad"] = fg.fused_factor_grad(cfg, lines, x).detach()
+        xx = x.clone().requires_grad_(True)
+        feat = factor_encode_kernel(xx, flat, cfg.resolutions)
+        (feat * g).sum().backward()
+        out.update({"factor_encode_kernel": feat.detach(), "factor_encode_kernel x01 grad": xx.grad,
+                    "factor_encode_kernel line grads": torch.cat([t.grad.reshape(-1) for t in flat])})
+        return out
+
+    torch.cuda.synchronize()
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = counts(ffc)
+    if launched != GRAD_ENTRY_COUNTS(1):
+        fail(f"the entry points of K8 to K10 launched {launched}, expected {GRAD_ENTRY_COUNTS(1)}")
+    kernels = {name: getattr(ffc, f"{name}_cuda") for name in GRAD_ENTRY_KERNELS}
+    for name in GRAD_ENTRY_KERNELS:
+        setattr(ffc, f"{name}_cuda", getattr(ffc, f"{name}_plain"))
+    try:
+        want = run()
+    finally:
+        for name, fn in kernels.items():
+            setattr(ffc, f"{name}_cuda", fn)
+    errs = []
+    for k, a in got.items():
+        b = want[k]
+        if not bool(torch.isfinite(a).all()):
+            fail(f"phase 14b: non-finite {k}")
+        if k == "factor_encode_kernel":
+            err, tol = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12), K3_TOL
+        else:
+            err, tol = rel_err(a, b), K456_TOL
+        if err > tol:
+            fail(f"phase 14b: {k} through the kernels vs the twins: {err:.3g} > {tol}")
+        errs.append(f"{k} {err:.2e}")
+    if not torch.equal(got["fused_factor_grad"], got["grad_encode_fused"]):
+        fail("phase 14b: fused_factor_grad and grad_encode_fused differ in the forward")
+    print(f"phase 14b entry points of K8 to K10 on the trained signerf base field ({n} clustered samples): "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launched.items() if v) + f", all others 0, "
+          f"{secs:.3f} s; kernels vs twins: " + ", ".join(errs) + f"; on {card}", flush=True)
+    return launched
+
+
+# The reference sheet's NeRF. On the white scene of phases 7 to 14 the
+# NeRF learns no geometry: it soon renders white everywhere (its colour
+# head saturated, accumulation ~0; phase 10's PSNR is that of an all-white
+# image), so its median depth never meets a selection box; phase 14c
+# measures this on phase 7's checkpoint every run. The same scene on a
+# mid-grey backdrop, trained by the same CLI with the white background
+# colour, has to explain the backdrop with density and learns the sphere
+# with it. That scene and config make the reference sheet's NeRF.
+REFERENCE_BACKDROP = 0.5
+REFERENCE_FLAGS = ("--pipeline.model.background-color", "white")
+# The selection: an AABB around the top cap of the sphere and the bunny
+# proxy sitting on it, both given in the scene's own frame (the sphere of
+# radius 0.6 at its origin) and carried into the NeRF's world frame by the
+# dataparser's transform and scale.
+SHEET_AABB_SCENE = ((-0.35, -0.35, 0.25), (0.35, 0.35, 0.75))
+BUNNY_SCENE = dict(position=(0.0, 0.0, 0.5), rotation=(90.0, 0.0, 0.0), scale=0.035)
+MASK_DILATION = (50, 50)  # the generator's default
+# The per-view phase regenerates dataset view 3, as the per-view loop
+# regenerates every dataset view.
+TARGET_VIEW = 3
+
+
+def to_world(parsed, points):
+    """Scene-frame points [..., 3] -> the NeRF's world frame."""
+    import numpy as np
+
+    t = np.asarray(parsed.dataparser_transform, np.float64)
+    return (np.asarray(points, np.float64) @ t[:3, :3].T + t[:3, 3]) * parsed.dataparser_scale
+
+
+def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict:
+    """The dataset generator's first stage on the card: a signerf_nerfacto
+    NeRF trained by the train CLI on the grey-backdrop scene, its renders,
+    masks, conditions, the proxy raster, the composed sheet and the
+    per-view phase's target view; and phase 7's NeRF (`white_ckpt`, the
+    white scene) under the same box, for comparison."""
+    import itertools
+
+    import numpy as np
+
+    from signerf_tpu_torch import train as train_cli
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.editing import conditions as ec
+    from signerf_tpu_torch.editing import sheet as es
+    from signerf_tpu_torch.editing.morphology import dilate
+    from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, load_checkpoint
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+    from signerf_tpu_torch.geometry import obj, primitives, raster
+    from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+    from signerf_tpu_torch.ops.image_metrics import psnr as psnr_fn
+    from signerf_tpu_torch.utils.images import load_rgb
+
+    dev = torch.device("cuda")
+    data = write_scene(tmp / "reference_scene", REFERENCE_BACKDROP)
+    out = tmp / "reference_nerf"
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    rc = train_cli.main(train_argv("signerf_nerfacto", data, out, TRAIN_STEPS, *REFERENCE_FLAGS))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if rc != 0 or counts(ffc) != NERFACTO_COUNTS(TRAIN_STEPS):
+        fail(f"the reference NeRF's train CLI: rc {rc}, launches {counts(ffc)}")
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    cams = parsed.cameras.to(dev)
+    model = NerfactoModel(NerfactoModelConfig(background_color=REFERENCE_FLAGS[1]), len(cams))
+    ckpt_dir = out / "experiment" / "signerf_nerfacto" / "checkpoints"
+    model.load_state_dict(load_checkpoint(latest_checkpoint(ckpt_dir))["params"], strict=True)
+    model = model.to(dev).eval()
+    h, w = cams.height, cams.width
+    chunks = -(-(h * w) // CHUNK)
+    scene_aabb = torch.as_tensor(parsed.scene_box_aabb, device=dev)
+    corners = to_world(parsed, list(itertools.product(*zip(*SHEET_AABB_SCENE))))
+    mcfg = ec.MaskingConfig(masking_mode="aabb", aabb_min=tuple(corners.min(0)), aabb_max=tuple(corners.max(0)),
+                            mask_dilation=MASK_DILATION)
+    scfg = ec.MaskingConfig(masking_mode="shape", mask_dilation=MASK_DILATION)
+    verts, faces = primitives.bunny(3)
+    pose = obj.object_pose_matrix(to_world(parsed, BUNNY_SCENE["position"]), BUNNY_SCENE["rotation"],
+                                  [BUNNY_SCENE["scale"] * parsed.dataparser_scale] * 3)
+    verts = obj.transform_vertices(verts, pose).astype(np.float32)
+    render = make_eval_render(model, chunk_size=CHUNK)
+
+    def view(i):
+        rb = cams.generate_rays(camera_index=i, aabb=scene_aabb)
+        out = render(rb.reshape((h * w,)), appearance_mode="index")
+        rgb, depth = out["rgb"].reshape(h, w, 3), out["depth"].reshape(h, w, 1)
+        mask, cond = ec.aabb_mask_condition(depth, rb.origins, rb.directions, mcfg)
+        return rgb, depth, mask, cond
+
+    torch.cuda.synchronize()
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    refs = [view(i) for i in range(len(cams))]
+    torch.cuda.synchronize()
+    views_s = time.perf_counter() - t0
+    if counts(ffc) != expect_counts(K1=3)(chunks * len(cams)):
+        fail(f"the reference views launched {counts(ffc)}, expected K1 3 x {chunks} chunks x {len(cams)} views")
+    raster_s, shape_cov = [], []
+    for i, (_, depth, _, _) in enumerate(refs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, mesh_depth = raster.mesh_depth_render(cams, verts, faces, camera_index=i)
+        torch.cuda.synchronize()
+        raster_s.append(time.perf_counter() - t0)
+        smask, scond = ec.shape_mask_condition(depth, mesh_depth, scfg)
+        if not (bool(torch.isfinite(scond).all()) and float(scond.min()) >= 0.0 and float(scond.max()) <= 1.0):
+            fail(f"reference view {i}: shape condition not finite or outside [0, 1]")
+        shape_cov.append(float(smask.mean()))
+    dilate_ms = cuda_ms(lambda: dilate(refs[0][2], MASK_DILATION), 10)
+
+    layout = es.SheetLayout(rows=SHEET_GRID, cols=SHEET_GRID, cell_height=SHEET_CELL, cell_width=SHEET_CELL)
+    if (layout.height, layout.width) != (SHEET_GRID * SHEET_CELL,) * 2 or (h, w) != (SHEET_CELL,) * 2:
+        fail(f"sheet layout {layout} does not match the {h}x{w} views")
+
+    def cells(rgb, mask, cond):
+        return (es.resize_bilinear(rgb, SHEET_CELL, SHEET_CELL), es.resize_mask(mask, SHEET_CELL, SHEET_CELL),
+                es.resize_bilinear(cond, SHEET_CELL, SHEET_CELL))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scaled = [cells(rgb, mask, cond) for rgb, _, mask, cond in refs]
+    image_sheet, mask_sheet, cond_sheet = es.compose_sheet(layout, *zip(*scaled))
+    torch.cuda.synchronize()
+    compose_ms = (time.perf_counter() - t0) * 1e3
+    coverage = [float(c[1].mean()) for c in scaled]
+    flips = sum(int((es.resize_mask(m, h // 2, w // 2).cpu() != es.resize_mask(m.cpu(), h // 2, w // 2)).sum())
+                for _, _, m, _ in refs)
+    for name, t in (("image", image_sheet), ("mask", mask_sheet), ("condition", cond_sheet)):
+        if not bool(torch.isfinite(t).all()) or float(t.min()) < 0.0 or float(t.max()) > 1.0:
+            fail(f"the reference sheet's {name} is not finite or outside [0, 1]")
+    if min(coverage) == 0.0:
+        fail(f"a reference cell's mask is empty: coverage {coverage}")
+
+
+    white = NerfactoModel(NerfactoModelConfig(), len(cams))
+    white.load_state_dict(load_checkpoint(latest_checkpoint(white_ckpt))["params"], strict=True)
+    white_render = make_eval_render(white.to(dev).eval(), chunk_size=CHUNK)
+    white_acc, white_cov = [], []
+    for i in range(len(cams)):
+        rb = cams.generate_rays(camera_index=i, aabb=scene_aabb)
+        out = white_render(rb.reshape((h * w,)), appearance_mode="index")
+        mask, _ = ec.aabb_mask_condition(out["depth"].reshape(h, w, 1), rb.origins, rb.directions, mcfg)
+        white_acc.append(float(out["accumulation"].mean()))
+        white_cov.append(float(mask.mean()))
+    gts = [torch.from_numpy(load_rgb(f)).to(dev).float() / 255.0 for f in parsed.image_filenames]
+    psnr = [float(psnr_fn(rgb, gt)) for (rgb, _, _, _), gt in zip(refs, gts)]
+    print(f"phase 14c reference sheet: signerf_nerfacto trained {TRAIN_STEPS} steps by the train CLI on the scene "
+          f"with a {REFERENCE_BACKDROP} grey backdrop ({' '.join(REFERENCE_FLAGS)}) in {train_s:.3f} s; its {len(refs)} "
+          f"views of {w}x{h} in {views_s:.3f} s (K1 {3 * chunks} launches a view), PSNR "
+          + ", ".join(f"{v:.2f}" for v in psnr) + f" dB; AABB masks (box {np.round(corners.min(0), 3).tolist()} "
+          f"to {np.round(corners.max(0), 3).tolist()}, dilation {MASK_DILATION}) cover "
+          + ", ".join(f"{c:.3f}" for c in coverage)
+          + f" of each cell; bunny(3) proxy ({len(faces)} triangles) ray-traced in "
+          + ", ".join(f"{s * 1e3:.1f}" for s in raster_s)
+          + " ms a view, shape masks cover " + ", ".join(f"{c:.3f}" for c in shape_cov)
+          + f"; dilation {dilate_ms:.3f} ms a {w}x{h} mask; compose {compose_ms:.3f} ms; condition sheet "
+          f"{float(cond_sheet.min()):.3f} to {float(cond_sheet.max()):.3f}; resize_mask {h} -> {h // 2} on the card vs "
+          f"the CPU: {flips} flipped pixels over {len(refs)} masks. Phase 7's NeRF (the white scene) on the same views and box: mean "
+          f"accumulation " + ", ".join(f"{a:.4f}" for a in white_acc) + ", AABB masks cover "
+          + ", ".join(f"{c:.3f}" for c in white_cov) + f"; on {card}", flush=True)
+    return {"layout": layout, "image_sheet": image_sheet, "mask_sheet": mask_sheet, "cond_sheet": cond_sheet,
+            "target": scaled[TARGET_VIEW], "count": len(refs), "coverage": coverage}
+
+
 # K7 and the SDXL inpaint. The 3x3 sheet of 512 px cells (1536 px square)
 # is the JAX package's production regime: a latent of 192^2, so the UNet's
 # self-attention runs at S = 9216 with 10 heads (block 1) and S = 2304 with
@@ -1144,41 +1522,23 @@ def phase_k7(torch, card: str) -> dict:
     return stats
 
 
-def sheet_inputs():
-    """A 3x3 sheet of the scene's 512 px views (views 0 to 7, then 0 again),
-    a disc mask in each cell and the inverse-depth condition."""
-    import numpy as np
-
-    _, _, views = sphere_views()
-    cell, n = SHEET_CELL, SHEET_GRID
-    yy, xx = np.meshgrid(np.arange(cell) + 0.5, np.arange(cell) + 0.5, indexing="ij")
-    disc = ((yy - cell / 2) ** 2 + (xx - cell / 2) ** 2 < (0.3 * cell) ** 2).astype(np.float32)[..., None]
-    sheet = np.zeros((n * cell, n * cell, 3), np.float32)
-    mask = np.zeros((n * cell, n * cell, 1), np.float32)
-    depth = np.zeros((n * cell, n * cell, 1), np.float32)
-    for i in range(n * n):
-        img, inv_depth = views[i % len(views)]
-        r, c = divmod(i, n)
-        win = (slice(r * cell, (r + 1) * cell), slice(c * cell, (c + 1) * cell))
-        sheet[win], mask[win], depth[win] = img, disc, inv_depth[..., None]
-    return sheet, mask, depth, views
-
-
 def step_stats(pipe) -> tuple:
     ev = pipe.last_run["step_events"]
     ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1))
     return ms[len(ms) // 2], ms[0], ms[-1]
 
 
-def phase_sheet(torch, card: str) -> dict:
+def phase_sheet(torch, card: str, ref: dict) -> dict:
     """The full SDXL + ControlNet-depth stack at random init in bf16 on the
-    card, then `Diffuser.diffuse` at the defaults on the 1536 px sheet."""
+    card, then `Diffuser.diffuse` at the defaults on phase 14c's 1536 px
+    reference sheet, blended with its mask and split into its cells."""
     import warnings
 
     import numpy as np
 
     from signerf_tpu_torch.diffusion.diffuser import Diffuser, DiffuserConfig
     from signerf_tpu_torch.diffusion.layers import count_params
+    from signerf_tpu_torch.editing.sheet import blend_with_mask, split_cells
     from signerf_tpu_torch.ops import flash_attention as fa
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
@@ -1198,7 +1558,7 @@ def phase_sheet(torch, card: str) -> dict:
           + f"), {pipe.init_seconds:.2f} s, peak memory {init_peak:.2f} GiB, uncalibrated warning printed",
           flush=True)
 
-    sheet, mask, depth, views = sheet_inputs()
+    sheet, mask, depth = (ref[k].cpu().numpy() for k in ("image_sheet", "mask_sheet", "cond_sheet"))
     cfg = diffuser.config
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1222,26 +1582,39 @@ def phase_sheet(torch, card: str) -> dict:
         fail(f"the sheet inpaint launched factor-grid kernels: {counts(ffc)}")
     if out.shape != sheet.shape or not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
         fail(f"sheet output: shape {out.shape}, finite {np.isfinite(out).all()}, range {out.min()} to {out.max()}")
+    edited = blend_with_mask(torch.from_numpy(out).to(ref["image_sheet"].device), ref["image_sheet"], ref["mask_sheet"])
+    cells = split_cells(ref["layout"], edited, ref["count"])
+    if len(cells) != ref["count"] or any(tuple(c.shape) != (SHEET_CELL, SHEET_CELL, 3) for c in cells):
+        fail(f"split_cells gave {[tuple(c.shape) for c in cells]}")
+    if not bool(torch.isfinite(edited).all()) or float(edited.min()) < 0.0 or float(edited.max()) > 1.0:
+        fail("the blended sheet is not finite or outside [0, 1]")
+    outside = float((edited - ref["image_sheet"]).abs().mul(1.0 - ref["mask_sheet"]).max())
+    if outside != 0.0:
+        fail(f"the blend changed pixels outside the mask by up to {outside}")
     med, lo, hi = step_stats(pipe)
     print(f"phase 16 Diffuser.diffuse at the defaults ({cfg.num_inference_steps} steps, strength "
           f"{cfg.denoising_strength}, CFG {cfg.guidance_scale}, ControlNet {cfg.controlnet_conditioning_scale}, "
-          f"Euler a, mask_blur {cfg.mask_blur}, fill {cfg.inpainting_fill}) on a {sheet.shape[1]}x{sheet.shape[0]} "
-          f"{SHEET_GRID}x{SHEET_GRID} sheet of {SHEET_CELL} px cells: sequential CFG engaged, {steps} sampler steps, "
+          f"Euler a, mask_blur {cfg.mask_blur}, fill {cfg.inpainting_fill}) on phase 14c's {sheet.shape[1]}x"
+          f"{sheet.shape[0]} {SHEET_GRID}x{SHEET_GRID} reference sheet of {SHEET_CELL} px cells: sequential CFG "
+          f"engaged, {steps} sampler steps, "
           f"K7 launches {launches} (= {K7_PER_STEP} x {steps}), other kernels 0; wall {wall:.3f} s; sampler step "
           f"median {med:.2f} ms (range {lo:.2f} to {hi:.2f}) = {steps * med / 1e3:.3f} s of the wall; peak memory "
-          f"{peak:.2f} GiB; output {out.shape} in [{out.min():.3f}, {out.max():.3f}], finite; on {card}", flush=True)
-    return {"diffuser": diffuser, "sheet": sheet, "mask": mask, "depth": depth, "views": views,
+          f"{peak:.2f} GiB; output {out.shape} in [{out.min():.3f}, {out.max():.3f}], finite; blended with the mask "
+          f"(unchanged outside it) and split into {len(cells)} cells of {SHEET_CELL} px; on {card}", flush=True)
+    return {"diffuser": diffuser, "sheet": sheet, "mask": mask, "depth": depth, "ref": ref,
             "launches": launches, "wall": wall, "step_ms": med, "peak_gib": peak}
 
 
 def phase_per_view(torch, card: str, sh: dict) -> int:
     """The per-view fast path: the sheet's encoder features cached once,
-    then a new last cell through the windowed encode and decode."""
+    then phase 14c's dataset view 3 spliced into the last cell through the
+    windowed encode and decode."""
     import dataclasses
 
     import numpy as np
 
     from signerf_tpu_torch.diffusion.diffuser import Diffuser
+    from signerf_tpu_torch.editing.sheet import splice_last_cell
     from signerf_tpu_torch.ops import flash_attention as fa
 
     base = sh["diffuser"]
@@ -1250,11 +1623,12 @@ def phase_per_view(torch, card: str, sh: dict) -> int:
     cache = view.prepare_sheet_cache(sh["sheet"], (SHEET_CELL, SHEET_CELL))
     torch.cuda.synchronize()
     cache_s = time.perf_counter() - t0
-    sheet = sh["sheet"].copy()
-    sheet[-SHEET_CELL:, -SHEET_CELL:] = sh["views"][3][0][:, ::-1]
+    ref = sh["ref"]
+    sheet, mask, cond = (t.cpu().numpy() for t in splice_last_cell(ref["layout"], ref["image_sheet"],
+                                                                     ref["cond_sheet"], *ref["target"]))
     fa.launches = 0
     t0 = time.perf_counter()
-    win = view.diffuse(sheet, sheet, sh["mask"], sh["depth"], sheet_cache=cache)
+    win = view.diffuse(sheet, sheet, mask, cond, sheet_cache=cache)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pipe = base.pipeline
@@ -1389,6 +1763,7 @@ def main() -> int:
     k1 = phase_kernel(torch)
     k2 = phase_k2(torch)
     k36 = phase_k3_k6(torch)
+    k810 = phase_k8_k10(torch)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         data = write_scene(tmp / "scene")
@@ -1409,10 +1784,12 @@ def main() -> int:
         phase_signerf_step(torch, data, signerf["ckpt_dir"])
         phase_profile(torch, card, data, signerf["ckpt_dir"])
         phase_signerf_eval(torch, data, signerf["ckpt_dir"])
+        grad_entry = phase_grad_entry_points(torch, card, data, signerf["ckpt_dir"])
+        ref = phase_reference_sheet(torch, card, tmp, train["ckpt_dir"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k7 = phase_k7(torch, card)
-    sheet = phase_sheet(torch, card)
+    sheet = phase_sheet(torch, card, ref)
     phase_per_view(torch, card, sheet)
     phase_cfg_branch(torch, card, sheet)
     phase_diffusion_profile(torch, card, sheet)
@@ -1435,6 +1812,13 @@ def main() -> int:
                      signerf_camopt["K6 coords"], k36["K6 coords"]),
         kernel_entry("flash_attention (per sampler step of the sheet inpaint)", "flash_attention.cu", 216,
                      sheet["launches"], k7, replaces="signerf_tpu/diffusion/unet.py"),
+        kernel_entry("fused_factor_grad", "fused_factor_grad.cu", 399, grad_entry["K8"], k810["K8"]),
+        kernel_entry("fused_factor_grad_bwd (tables half)", "fused_factor_grad.cu", 902, grad_entry["K9 tables"],
+                     k810["K9 tables"]),
+        kernel_entry("fused_factor_grad_bwd (coords half)", "fused_factor_grad.cu", 916, grad_entry["K9 coords"],
+                     k810["K9 coords"]),
+        kernel_entry("factor_dense_encode (factor_encode_pallas)", "fused_factor_encode.cu", 79, grad_entry["K10"],
+                     k810["K10"], replaces="signerf_tpu/ops/pallas/factor_grid_kernel.py"),
     ]
     print(json.dumps({"kernels": kernels}))
     kind = torch.cuda.get_device_name(0)

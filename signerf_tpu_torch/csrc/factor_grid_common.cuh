@@ -1,4 +1,4 @@
-// Helpers shared by the factor-grid kernels (K1 to K6).
+// Helpers shared by the factor-grid kernels (K1 to K6, K8 to K10).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,9 +32,11 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* row, float* out) {
 }
 
 // The two taps of one level and axis: x = u * (R - 1), i = min(floor(x),
-// R - 2), w = x - i, so u = 1 exactly reads the last row with w = 1.
+// R - 2), w = x - i, so u = 1 exactly reads the last row with w = 1. x is
+// rounded before the subtraction (no FMA contraction), as the plain twins
+// and the JAX versions take it, so an exact knot gives w = 0 exactly.
 __device__ __forceinline__ void tap(float u, int res, int& i, float& w) {
-  const float x = u * static_cast<float>(res - 1);
+  const float x = __fmul_rn(u, static_cast<float>(res - 1));
   i = max(0, min(static_cast<int>(floorf(x)), res - 2));
   w = x - static_cast<float>(i);
 }

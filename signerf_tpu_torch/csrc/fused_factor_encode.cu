@@ -1,4 +1,5 @@
-// The factor-grid CP encode (K3) and its backward (K4) for Hopper (sm_90a).
+// The factor-grid CP encode (K3), its backward (K4) and the early
+// dense-hat encode (K10) for Hopper (sm_90a).
 //
 // K3 replaces the TPU kernel `fused_factor_encode_tpu` and K4
 // `fused_factor_encode_bwd_tpu` (its "tables" and "coords" pallas_calls) in
@@ -41,6 +42,21 @@
 // run to run (f32 rounding, not bitwise); K3 and the coords half are
 // deterministic.
 //
+// K10, the early dense-hat encode, replaces the TPU kernel
+// `factor_encode_pallas` (`_forward`) in
+// signerf_tpu/ops/pallas/factor_grid_kernel.py. It is K3's kernel with that
+// kernel's contract in place of K1's taps: the two nonzero hat weights
+// h_i = 1 - |x - i| and h_{i+1} = 1 - |x - (i + 1)| are rounded to bf16
+// before their products with the bf16 rows (as the Pallas kernel feeds
+// them to its matrix unit), the two products are summed in f32 (exact
+// products, one rounding) and the axes multiplied in f32. Its bound is
+// K3's. K10's backward is K4 (signerf_tpu_torch/ops/factor_grid_kernel.py).
+//
+// K3 is instantiated for the base field (F = 16, 8 levels); K10 and K4 for
+// the base field and the proposal fields (F = 8, 5 levels). With 5 levels a
+// sample's items do not tile a warp, so K4's coords half adds its levels
+// with device-memory atomics into zeroed coords grads instead of shuffles.
+//
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
 
@@ -60,7 +76,23 @@ constexpr int kThreads = 128;
 constexpr int kBwdThreads = 256;
 constexpr int kSmallBytes = 48 * 1024;
 
-template <int F, int L>
+// K10's value of one level and axis: the Pallas kernel's hat row has two
+// nonzero entries, at i and i + 1, each rounded to bf16.
+template <int F>
+__device__ __forceinline__ void dense_hat_interp(const __nv_bfloat16* __restrict__ line, float u, int res,
+                                                 float* f) {
+  const float x = __fmul_rn(u, static_cast<float>(res - 1));
+  const int i = max(0, min(static_cast<int>(floorf(x)), res - 2));
+  const float h0 = factor_grid::round_bf16(1.f - fabsf(x - static_cast<float>(i)));
+  const float h1 = factor_grid::round_bf16(1.f - fabsf(x - static_cast<float>(i + 1)));
+  float r0[F], r1[F];
+  factor_grid::load_row<F>(line + i * F, r0);
+  factor_grid::load_row<F>(line + (i + 1) * F, r1);
+#pragma unroll
+  for (int k = 0; k < F; ++k) f[k] = fmaf(h0, r0[k], h1 * r1[k]);  // exact products
+}
+
+template <int F, int L, bool kDenseHat>
 __global__ void __launch_bounds__(kThreads)
 encode_kernel(const float* __restrict__ coords, int n, const __nv_bfloat16* __restrict__ tables,
               Schedule s, float* __restrict__ out) {  // [N, L F]
@@ -76,9 +108,14 @@ encode_kernel(const float* __restrict__ coords, int n, const __nv_bfloat16* __re
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const float u = fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f);
-      int i;
-      float w, sl, f[F];
-      interp<F, false>(tables + s.offset[l][a], u, s.res[l], i, w, sl, f, nullptr);
+      float f[F];
+      if constexpr (kDenseHat) {
+        dense_hat_interp<F>(tables + s.offset[l][a], u, s.res[l], f);
+      } else {
+        int i;
+        float w, sl;
+        interp<F, false>(tables + s.offset[l][a], u, s.res[l], i, w, sl, f, nullptr);
+      }
 #pragma unroll
       for (int k = 0; k < F; ++k) feat[k] *= f[k];
     }
@@ -92,22 +129,24 @@ encode_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ gr
                   const __nv_bfloat16* __restrict__ tables, Schedule s,
                   float* __restrict__ g_tables,   // packed like `tables`
                   float* __restrict__ g_coords) { // [N, 3]
-  static_assert(kBwdThreads % L == 0, "a thread keeps its level across tiles");
+  // With L | 32 a sample's L items are neighbouring lanes of one warp, and
+  // a thread keeps its level across tiles.
+  constexpr bool kShuffle = 32 % L == 0;
   extern __shared__ __align__(16) float s_small[];
   const int t = threadIdx.x;
   if constexpr (kTables) {
     for (int e = t; e < s.small_elems; e += kBwdThreads) s_small[e] = 0.f;
     __syncthreads();
   }
-  const int l = t % L;
-  const int res = s.res[l];
-  const bool small = l < s.n_small;
   const int64_t n_items = static_cast<int64_t>(n) * L;
   const int64_t num_tiles = (n_items + kBwdThreads - 1) / kBwdThreads;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t item = tile * kBwdThreads + t;
     const bool valid = item < n_items;
     const int64_t sample = item / L;
+    const int l = static_cast<int>(item % L);
+    const int res = s.res[l];
+    const bool small = l < s.n_small;
     float gu[3] = {0.f, 0.f, 0.f};
     if (valid) {
       float fa[3][F], da[3][F], wa[3], sa[3];
@@ -148,12 +187,17 @@ encode_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ gr
         }
       }
     }
-    if constexpr (!kTables) {
+    if constexpr (!kTables && kShuffle) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
       if (valid && l == 0) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
+      }
+    } else if constexpr (!kTables) {  // g_coords zeroed by the caller
+      if (valid) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) atomicAdd(g_coords + sample * 3 + a, gu[a]);
       }
     }
   }
@@ -163,12 +207,12 @@ encode_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ gr
   }
 }
 
-template <int F, int L>
+template <int F, int L, bool kDenseHat>
 int launch_forward(const float* c, int n, const __nv_bfloat16* t, const Schedule& s, float* out,
                    cudaStream_t stream) {
   const int64_t items = static_cast<int64_t>(n) * L;
   const int blocks = static_cast<int>((items + kThreads - 1) / kThreads);
-  encode_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, n, t, s, out);
+  encode_kernel<F, L, kDenseHat><<<blocks, kThreads, 0, stream>>>(c, n, t, s, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,13 +251,32 @@ extern "C" int fused_factor_encode_forward(const void* coords, int n, const void
   const auto* t = static_cast<const __nv_bfloat16*>(tables);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (feat == 16 && num_levels == 8) return launch_forward<16, 8>(c, n, t, s, o, st);  // base field
+  if (feat == 16 && num_levels == 8) return launch_forward<16, 8, false>(c, n, t, s, o, st);  // base field
+  return cudaErrorInvalidValue;
+}
+
+// K10: writes feat [N, L F] f32 under the dense-hat contract. Returns and
+// takes as K3 does.
+extern "C" int factor_dense_encode_forward(const void* coords, int n, const void* tables,
+                                           const int* resolutions, int num_levels, int feat,
+                                           void* out, void* stream) {
+  Schedule s;
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const auto* c = static_cast<const float*>(coords);
+  const auto* t = static_cast<const __nv_bfloat16*>(tables);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (feat == 16 && num_levels == 8) return launch_forward<16, 8, true>(c, n, t, s, o, st);  // base field
+  if (feat == 8 && num_levels == 5) return launch_forward<8, 5, true>(c, n, t, s, o, st);  // proposal fields
   return cudaErrorInvalidValue;
 }
 
 // K4, given g [N, L F] f32. mode 0 ("tables"): adds the line grads into
 // g_tables (packed like `tables`, f32, zeroed by the caller). mode 1
-// ("coords"): writes g_coords [N, 3]. Returns as the forward does.
+// ("coords"): writes g_coords [N, 3] (f32, zeroed by the caller). Returns as
+// the forward does.
 extern "C" int fused_factor_encode_backward(const void* coords, const void* grad, int n,
                                             const void* tables, const int* resolutions,
                                             int num_levels, int feat, void* g_tables,
@@ -232,6 +295,10 @@ extern "C" int fused_factor_encode_backward(const void* coords, const void* grad
   if (feat == 16 && num_levels == 8) {  // base field
     if (mode == 0) return launch_backward<16, 8, true>(c, g, n, t, s, gt, gc, st);
     return launch_backward<16, 8, false>(c, g, n, t, s, gt, gc, st);
+  }
+  if (feat == 8 && num_levels == 5) {  // proposal fields (K10's backward)
+    if (mode == 0) return launch_backward<8, 5, true>(c, g, n, t, s, gt, gc, st);
+    return launch_backward<8, 5, false>(c, g, n, t, s, gt, gc, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -8,8 +8,8 @@ library's name carries their hash). The libraries have a plain C interface
 (no PyTorch headers, so a build takes seconds) and are loaded with ctypes;
 every exported function returns the launch's `cudaGetLastError()`.
 
-The wrappers (`fused_factor_cuda.py` for K1 to K6, `flash_attention.py` for
-K7) call `library(name)` and read nothing else of this module.
+The wrappers (`fused_factor_cuda.py` for K1 to K6 and K8 to K10,
+`flash_attention.py` for K7) call `library(name)` and read nothing else of this module.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ _FACTOR_HEADER = _CSRC / "factor_grid_common.cuh"
 SOURCES: Dict[str, Tuple[Path, Tuple[Path, ...]]] = {
     "fused_factor_density": (_CSRC / "fused_factor_density.cu", (_FACTOR_HEADER,)),  # K1
     "fused_factor_density_bwd": (_CSRC / "fused_factor_density_bwd.cu", (_FACTOR_HEADER,)),  # K2
-    "fused_factor_encode": (_CSRC / "fused_factor_encode.cu", (_FACTOR_HEADER,)),  # K3, K4
+    "fused_factor_encode": (_CSRC / "fused_factor_encode.cu", (_FACTOR_HEADER,)),  # K3, K4, K10
     "fused_factor_grad_dot": (_CSRC / "fused_factor_grad_dot.cu", (_FACTOR_HEADER,)),  # K5, K6
+    "fused_factor_grad": (_CSRC / "fused_factor_grad.cu", (_FACTOR_HEADER,)),  # K8, K9
     "flash_attention": (_CSRC / "flash_attention.cu", ()),  # K7
 }
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -69,6 +70,25 @@ ARGTYPES = {
     ],
     "fused_factor_encode_backward": [
         _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, N
+        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
+        _P, _P,  # grads: tables (packed, f32, zeroed), coords [N, 3] f32 (zeroed)
+        _I,  # mode: 0 tables, 1 coords
+        _P,  # cudaStream_t
+    ],
+    "factor_dense_encode_forward": [
+        _P, _I,  # coords [N, 3] f32, N
+        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
+        _P,  # out [N, D] f32
+        _P,  # cudaStream_t
+    ],
+    "fused_factor_grad_forward": [
+        _P, _I,  # coords [N, 3] f32, N
+        _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
+        _P,  # out [N, 3, D] f32
+        _P,  # cudaStream_t
+    ],
+    "fused_factor_grad_backward": [
+        _P, _P, _I,  # coords [N, 3] f32, ct [N, 3, D] f32, N
         _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
         _P, _P,  # grads: tables (packed, f32, zeroed), coords [N, 3] f32
         _I,  # mode: 0 tables, 1 coords

@@ -24,7 +24,9 @@ versions:
   the product rule and the line-grad sums in f32. `encode_fused` (K3, K4)
   and `grad_encode_dot` (K5, K6) take the same encode contract without the
   MLP; the derivative of an axis' value is its cell's slope times (R - 1),
-  and 0 at an exact knot, as both JAX versions take it.
+  and 0 at an exact knot, as both JAX versions take it. `grad_encode_fused`
+  (K8, K9) and `fused_factor_grad` (K8, with a zero VJP) return the
+  uncontracted derivative [N, 3, D] under the same contract.
 - `dhat_matrix`, `dfeat01_reference` and `cp_level_features_and_grad` port
   the XLA expression of the spatial derivative (bf16 hat and dhat
   matrices, bf16 products).
@@ -314,3 +316,66 @@ def grad_encode_dot(
     Differentiable in the line tables, x01 and g: K5 and K6 on a CUDA
     tensor, their plain twins on a CPU tensor."""
     return _GradEncodeDot.apply(cfg, x01, g, *[t for axes in lines for t in axes])
+
+
+class _GradEncodeFused(torch.autograd.Function):
+    """The counterpart of the JAX `custom_vjp` `grad_encode_fused`: K8
+    forward, K9 backward. K9's coords launch runs only when x01 needs a
+    grad."""
+
+    @staticmethod
+    def forward(ctx, cfg, x01, *lines):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x01, *lines)
+        fwd = _kernel("grad", x01.device)
+        return fwd(cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)), x01.detach())
+
+    @staticmethod
+    def backward(ctx, ct):
+        cfg = ctx.cfg
+        x01, *lines = ctx.saved_tensors
+        bwd = _kernel("grad_bwd", x01.device)
+        g_tables, g_x = bwd(
+            cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)), x01,
+            ct.float().contiguous(), tables_half=any(ctx.needs_input_grad[2:]),
+            coords_half=ctx.needs_input_grad[1],
+        )
+        g_lines = [None] * len(lines) if g_tables is None else _unpack(g_tables, lines)
+        return (None, g_x, *g_lines)
+
+
+def grad_encode_fused(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) -> torch.Tensor:
+    """d feat / d pos01 -> [N, 3, D] f32 under the kernels' contract (the
+    slope is 0 at an exact knot), differentiable in the line tables and
+    x01: K8 and K9 on a CUDA tensor, their plain twins on a CPU tensor.
+    The counterpart of `signerf_tpu/ops/factor_grid.py` `grad_encode_fused`."""
+    return _GradEncodeFused.apply(cfg, x01, *[t for axes in lines for t in axes])
+
+
+class _FusedFactorGrad(torch.autograd.Function):
+    """K8 with a zero VJP, as `fused_factor_grad_tpu`'s custom_vjp: the
+    output takes part in autograd, and the tables and coordinates get zero
+    gradients (not None)."""
+
+    @staticmethod
+    def forward(ctx, cfg, x01, *lines):
+        ctx.inputs = [(t.shape, t.dtype, t.device) for t in (x01, *lines)]
+        fwd = _kernel("grad", x01.device)
+        return fwd(cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)), x01.detach())
+
+    @staticmethod
+    def backward(ctx, ct):
+        zeros = [
+            torch.zeros(shape, dtype=dtype, device=device) if need else None
+            for (shape, dtype, device), need in zip(ctx.inputs, ctx.needs_input_grad[1:])
+        ]
+        return (None, *zeros)
+
+
+def fused_factor_grad(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) -> torch.Tensor:
+    """d feat / d pos01 -> [N, 3, D] f32 through K8 (its plain twin on a CPU
+    tensor), DETACHED by a zero VJP: the counterpart of
+    `ffp.fused_factor_grad_tpu` (gradient normals as a supervision target).
+    Unlike `.detach()`, the output still requires grad when its inputs do,
+    and a backward through it hands the tables and x01 zeros."""
+    return _FusedFactorGrad.apply(cfg, x01, *[t for axes in lines for t in axes])

@@ -1,4 +1,4 @@
-"""K1 to K6: the factor-grid kernels, hand-written in CUDA.
+"""K1 to K6 and K8 to K10: the factor-grid kernels, hand-written in CUDA.
 
 The Pallas TPU kernels of `signerf_tpu/ops/fused_factor_pallas.py` that
 they replace:
@@ -13,7 +13,14 @@ they replace:
 - K5 `fused_factor_grad_dot_tpu` and K6 `fused_factor_grad_dot_bwd_tpu`: the
   encode's spatial derivative contracted with the density's feature
   cotangent, and its backward (the gradient normals), in
-  `csrc/fused_factor_grad_dot.cu`.
+  `csrc/fused_factor_grad_dot.cu`;
+- K8 `fused_factor_grad_tpu` and K9 `fused_factor_grad_bwd_tpu`: the
+  encode's uncontracted spatial derivative [N, 3, D] and its backward
+  (`factor_grid.grad_encode_fused`, `factor_grid.fused_factor_grad`), in
+  `csrc/fused_factor_grad.cu`;
+- K10 `factor_encode_pallas` of `signerf_tpu/ops/pallas/factor_grid_kernel.py`:
+  the early dense-hat encode (`factor_grid_kernel.factor_encode_kernel`),
+  in `csrc/fused_factor_encode.cu` beside K3; its backward is K4.
 
 Each source's header says what it computes, what bounds it on an H100 and
 what the design does about it. In short, K2 recomputes K1's features per
@@ -57,8 +64,11 @@ from signerf_tpu_torch.ops.factor_grid import dense_bf16, mlp2_reference
 # (features_per_level, hidden, out, levels) K1 and K2 are instantiated for:
 # the proposal fields and the base field of `signerf_nerfacto`.
 SUPPORTED = {(8, 16, 1, 5), (16, 64, 16, 8)}
-# (features_per_level, levels) K3 to K6 are instantiated for: the base field.
+# (features_per_level, levels) K3, K5, K6, K8 and K9 are instantiated for:
+# the base field.
 ENCODE_SUPPORTED = {(16, 8)}
+# ... and K10 and K4 (K10's backward): the base and the proposal fields.
+DENSE_SUPPORTED = {(16, 8), (8, 5)}
 
 # Launches in this process; only the wrappers below add to them, once per
 # launch. `chip_smoke.py` resets and reads them.
@@ -71,10 +81,15 @@ encode_bwd_coords_launches = 0  # K4, coordinate grads
 grad_dot_launches = 0  # K5
 grad_dot_bwd_table_launches = 0  # K6, line grads and grad_g
 grad_dot_bwd_coords_launches = 0  # K6, coordinate grads
+grad_launches = 0  # K8
+grad_bwd_table_launches = 0  # K9, line grads
+grad_bwd_coords_launches = 0  # K9, coordinate grads
+dense_encode_launches = 0  # K10
 COUNTERS = (
     "launches", "bwd_table_launches", "bwd_coords_launches",
     "encode_launches", "encode_bwd_table_launches", "encode_bwd_coords_launches",
     "grad_dot_launches", "grad_dot_bwd_table_launches", "grad_dot_bwd_coords_launches",
+    "grad_launches", "grad_bwd_table_launches", "grad_bwd_coords_launches", "dense_encode_launches",
 )
 
 
@@ -212,22 +227,23 @@ def density_mlp_bwd_cuda(
     return g_tables, g_ws, g_coords
 
 
-def _check_encode(resolutions, feat, tables, x01, g=None) -> int:
-    """Device, shape and type checks shared by K3 to K6 -> N."""
+def _check_encode(resolutions, feat, tables, x01, g=None, supported=ENCODE_SUPPORTED, g_shape=None) -> int:
+    """Device, shape and type checks shared by K3 to K6 and K8 to K10 -> N.
+    g is the [N, L F] (or `g_shape`) f32 cotangent or input, when there is one."""
     device = x01.device
     if device.type != "cuda":
         raise ValueError(f"the kernels need CUDA tensors, got {device}")
     levels = len(resolutions)
-    if (feat, levels) not in ENCODE_SUPPORTED:
+    if (feat, levels) not in supported:
         raise ValueError(
             f"no kernel for features_per_level={feat}, levels={levels}; "
-            f"instantiated for {sorted(ENCODE_SUPPORTED)}"
+            f"instantiated for {sorted(supported)}"
         )
     n = x01.shape[0]
     _check("x01", x01, torch.float32, (n, 3), device)
     _check("tables", tables, torch.bfloat16, (3 * sum(resolutions) * feat,), device)
     if g is not None:
-        _check("g", g, torch.float32, (n, levels * feat), device)
+        _check("g", g, torch.float32, g_shape or (n, levels * feat), device)
     if tables.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
         raise ValueError("tables and g must be 16-byte aligned for the vector loads")
     if n * levels >= 2**31:
@@ -259,11 +275,11 @@ def encode_bwd_cuda(
     coords_half: bool = False,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Launch K4 on x01's stream, given the cotangent g [N, L F] f32 of K3's
-    output. Returns (line grads as one packed f32 buffer in `pack_tables`
-    order, coords grad [N, 3] f32), each only when asked for (None
-    otherwise), one launch each."""
+    (or K10's) output. Returns (line grads as one packed f32 buffer in
+    `pack_tables` order, coords grad [N, 3] f32), each only when asked for
+    (None otherwise), one launch each."""
     global encode_bwd_table_launches, encode_bwd_coords_launches
-    n = _check_encode(resolutions, feat, tables, x01, g)
+    n = _check_encode(resolutions, feat, tables, x01, g, DENSE_SUPPORTED)
     device = x01.device
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     common = (x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat)
@@ -273,8 +289,8 @@ def encode_bwd_cuda(
         _launch("fused_factor_encode", "fused_factor_encode_backward", device,
                 *common, g_tables.data_ptr(), None, 0)
         encode_bwd_table_launches += 1
-    if coords_half:
-        g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
+    if coords_half:  # zeroed: levels that do not tile a warp add atomically
+        g_coords = torch.zeros((n, 3), dtype=torch.float32, device=device)
         _launch("fused_factor_encode", "fused_factor_encode_backward", device,
                 *common, None, g_coords.data_ptr(), 1)
         encode_bwd_coords_launches += 1
@@ -331,6 +347,65 @@ def grad_dot_bwd_cuda(
                 *common, None, None, g_coords.data_ptr(), 1)
         grad_dot_bwd_coords_launches += 1
     return g_tables, g_g, g_coords
+
+
+def grad_cuda(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor
+) -> torch.Tensor:
+    """Launch K8 on x01's stream: out[n, a] = d feat[n] / d u_a -> [N, 3, L F] f32."""
+    global grad_launches
+    n = _check_encode(resolutions, feat, tables, x01)
+    out = torch.empty((n, 3, len(resolutions) * feat), dtype=torch.float32, device=x01.device)
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    _launch("fused_factor_grad", "fused_factor_grad_forward", x01.device,
+            x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, out.data_ptr())
+    grad_launches += 1
+    return out
+
+
+def grad_bwd_cuda(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    x01: torch.Tensor,
+    ct: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch K9 on x01's stream, given the cotangent ct [N, 3, L F] f32 of
+    K8's output. Returns (line grads as one packed f32 buffer in
+    `pack_tables` order, coords grad [N, 3] f32), each only when asked for
+    (None otherwise), one launch each."""
+    global grad_bwd_table_launches, grad_bwd_coords_launches
+    n = _check_encode(resolutions, feat, tables, x01, ct, g_shape=(x01.shape[0], 3, len(resolutions) * feat))
+    device = x01.device
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    common = (x01.data_ptr(), ct.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat)
+    g_tables = g_coords = None
+    if tables_half:
+        g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=device)
+        _launch("fused_factor_grad", "fused_factor_grad_backward", device, *common, g_tables.data_ptr(), None, 0)
+        grad_bwd_table_launches += 1
+    if coords_half:
+        g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
+        _launch("fused_factor_grad", "fused_factor_grad_backward", device, *common, None, g_coords.data_ptr(), 1)
+        grad_bwd_coords_launches += 1
+    return g_tables, g_coords
+
+
+def dense_encode_cuda(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor
+) -> torch.Tensor:
+    """Launch K10 on x01's stream: [N, 3] f32 in [0, 1] -> feat [N, L F] f32
+    under the dense-hat contract (bf16 hat weights)."""
+    global dense_encode_launches
+    n = _check_encode(resolutions, feat, tables, x01, supported=DENSE_SUPPORTED)
+    out = torch.empty((n, len(resolutions) * feat), dtype=torch.float32, device=x01.device)
+    res = (ctypes.c_int * len(resolutions))(*resolutions)
+    _launch("fused_factor_encode", "factor_dense_encode_forward", x01.device,
+            x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, out.data_ptr())
+    dense_encode_launches += 1
+    return out
 
 
 def _taps(u: torch.Tensor, res: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -531,3 +606,66 @@ def grad_dot_bwd_plain(
             if coords_half:
                 g_coords[:, a] += (g_hat * d[a]).sum(-1)
     return g_tables, g_g, g_coords
+
+
+def grad_plain(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor
+) -> torch.Tensor:
+    """K8's contract in plain PyTorch, on the same inputs: [N, 3, L F]."""
+    levels = _axes(resolutions, feat, tables, x01)
+    return torch.cat(
+        [torch.stack([ax[a].d * ax[(a + 1) % 3].f * ax[(a + 2) % 3].f for a in range(3)], dim=1) for ax in levels],
+        dim=-1,
+    )
+
+
+def grad_bwd_plain(
+    resolutions: Sequence[int],
+    feat: int,
+    tables: torch.Tensor,
+    x01: torch.Tensor,
+    ct: torch.Tensor,
+    tables_half: bool = True,
+    coords_half: bool = False,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K9's contract in plain PyTorch, with `grad_bwd_cuda`'s returns."""
+    g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=tables.device) if tables_half else None
+    g_coords = torch.zeros((x01.shape[0], 3), dtype=torch.float32, device=x01.device) if coords_half else None
+    for lvl, axes in enumerate(_axes(resolutions, feat, tables, x01)):
+        c = [ct[:, a, lvl * feat : (lvl + 1) * feat] for a in range(3)]
+        f = [ax.f for ax in axes]
+        d = [ax.d for ax in axes]
+        for a, ax in enumerate(axes):
+            b, cc = (a + 1) % 3, (a + 2) % 3
+            g_hat = c[b] * d[b] * f[cc] + c[cc] * d[cc] * f[b]
+            if tables_half:
+                g_dhat = c[a] * f[b] * f[cc]
+                _scatter(g_tables, feat, ax, (1.0 - ax.w) * g_hat - ax.s * g_dhat, ax.w * g_hat + ax.s * g_dhat)
+            if coords_half:
+                g_coords[:, a] += (g_hat * d[a]).sum(-1)
+    return g_tables, g_coords
+
+
+def dense_encode_plain(
+    resolutions: Sequence[int], feat: int, tables: torch.Tensor, x01: torch.Tensor
+) -> torch.Tensor:
+    """K10's contract in plain PyTorch, on the same inputs: the two nonzero
+    hat weights rounded to bf16, exact products with the bf16 rows summed
+    in f32, the axes multiplied in f32."""
+    u = x01.clamp(0.0, 1.0)
+    tab = tables.float()
+    feats, offset = [], 0
+    for res in resolutions:
+        prod = None
+        for ax in range(3):
+            line = tab[offset : offset + res * feat].view(res, feat)
+            x = u[:, ax] * (res - 1)
+            i = x.floor().clamp(0, res - 2)
+            h0 = (1.0 - (x - i).abs()).to(torch.bfloat16).float()[:, None]
+            h1 = (1.0 - (x - (i + 1)).abs()).to(torch.bfloat16).float()[:, None]
+            i = i.long()
+            f = h0 * line[i] + h1 * line[i + 1]
+            prod = f if prod is None else prod * f
+            offset += res * feat
+        feats.append(prod)
+    return torch.cat(feats, dim=-1)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: K1 to K6 against their plain twins,
-their input checks, one model chunk through K1, one train step through K1
-and K2, and one `signerf` micro-batch and eval chunk through K1 to K6.
+"""The port's CUDA kernels on the card: K1 to K10 against their plain
+twins, their input checks, one model chunk through K1, one train step
+through K1 and K2, one `signerf` micro-batch and eval chunk through K1 to
+K6, K8 and K9 against K5 and K6, and the entry points of K8 to K10.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -296,7 +297,8 @@ def test_signerf_micro_batch_and_eval_chunk_launch_k1_to_k6(cuda):
     got = {c: getattr(ffc, c) for c in ffc.COUNTERS}
     assert got == {"launches": 2, "bwd_table_launches": 2, "bwd_coords_launches": 0, "encode_launches": 1,
                    "encode_bwd_table_launches": 1, "encode_bwd_coords_launches": 0, "grad_dot_launches": 1,
-                   "grad_dot_bwd_table_launches": 1, "grad_dot_bwd_coords_launches": 0}
+                   "grad_dot_bwd_table_launches": 1, "grad_dot_bwd_coords_launches": 0, "grad_launches": 0,
+                   "grad_bwd_table_launches": 0, "grad_bwd_coords_launches": 0, "dense_encode_launches": 0}
     assert "lpips_loss" in ld and all(bool(torch.isfinite(v)) for v in ld.values())
     assert bool(torch.isfinite(out["normals_samples"]).all())
     assert float(model.field.encoding.line_7_0.grad.abs().max()) > 0
@@ -308,6 +310,108 @@ def test_signerf_micro_batch_and_eval_chunk_launch_k1_to_k6(cuda):
     assert (ffc.launches, ffc.encode_launches, ffc.grad_dot_launches) == (2, 1, 1)
     assert ffc.bwd_table_launches == ffc.encode_bwd_table_launches == ffc.grad_dot_bwd_table_launches == 0
     assert bool(torch.isfinite(out["rgb"]).all())
+
+
+# ---------------------------------------------------------------------------
+# K8 to K10
+
+
+@pytest.mark.parametrize("n", ENCODE_NS)
+def test_k8_and_k9_match_twins_and_k5_k6(cuda, n):
+    args, g, c = encode_args(n, cuda, seed=2)
+    ct = torch.randn(n, 3, g.shape[1], generator=torch.Generator().manual_seed(3)).to(cuda)
+    before = (ffc.grad_launches, ffc.grad_bwd_table_launches, ffc.grad_bwd_coords_launches)
+    out = ffc.grad_cuda(*args)
+    got9 = ffc.grad_bwd_cuda(*args, ct, tables_half=True, coords_half=True)
+    torch.cuda.synchronize()
+    assert (ffc.grad_launches, ffc.grad_bwd_table_launches, ffc.grad_bwd_coords_launches) == tuple(
+        b + 1 for b in before)
+    want = ffc.grad_plain(*args)
+    assert out.shape == (n, 3, g.shape[1]) and bool(torch.isfinite(out).all())
+    # The same f32 formulas; FMA contraction and the atomics' order move the
+    # last bits (chip_smoke.py's K456_TOL)
+    assert rel(out, want) < 1e-4
+    assert bool((out[:2] == 0).all()) and bool((out[2:4, 1] == 0).all())  # exact zeros at the knots
+    for a, b in zip(got9, ffc.grad_bwd_plain(*args, ct, True, True)):
+        assert a.dtype == torch.float32 and a.shape == b.shape and rel(a, b) < 1e-4
+    # K8 contracted with g is K5; K9 on ct = g (x) c is K6 for the scalar c.
+    assert rel(torch.einsum("nad,nd->na", out, g), ffc.grad_dot_cuda(*args, g)) < 1e-4
+    g9, c9 = ffc.grad_bwd_cuda(*args, g[:, None, :] * c[:, :, None], True, True)
+    g6, _, c6 = ffc.grad_dot_bwd_cuda(*args, g, c, True, True)
+    assert rel(g9, g6) < 1e-4 and rel(c9, c6) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["proposal", "final"])
+@pytest.mark.parametrize("n", [257, 100_003])
+def test_k10_and_its_backward_match_twins(cuda, name, n):
+    from signerf_tpu_torch.ops.factor_grid_kernel import factor_encode_kernel
+
+    res, feat, tables, *_, x = make_args(name, n, cuda, seed=4)
+    before = ffc.dense_encode_launches
+    got = ffc.dense_encode_cuda(res, feat, tables, x)
+    torch.cuda.synchronize()
+    assert ffc.dense_encode_launches == before + 1
+    want = ffc.dense_encode_plain(res, feat, tables, x)
+    assert got.shape == (n, len(res) * feat) and bool(torch.isfinite(got).all())
+    # the same contract: exact products, one rounding of their sum (K3_TOL)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    if name == "final":  # K3 keeps f32 tap weights: within their bf16 rounding
+        k3 = ffc.encode_cuda(res, feat, tables, x)
+        torch.testing.assert_close(got, k3, rtol=0, atol=0.01 * float(k3.abs().max()))
+    # The entry point's backward runs K4's two launches (proposal: K4's
+    # 5-level instantiation, coords by atomics), against K4's twin on the CPU.
+    lines = [t.float() for t in torch.split(tables, [r * feat for r in res for _ in range(3)])]
+    lines = [t.view(-1, feat) for t in lines]
+    gout = torch.randn(n, len(res) * feat, generator=torch.Generator().manual_seed(5))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        ls = [t.detach().to(dev).requires_grad_(True) for t in lines]
+        xx = x.detach().to(dev).requires_grad_(True)
+        t0, c0 = ffc.encode_bwd_table_launches, ffc.encode_bwd_coords_launches
+        (factor_encode_kernel(xx, ls, res) * gout.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (ffc.encode_bwd_table_launches, ffc.encode_bwd_coords_launches) == (t0 + 1, c0 + 1)
+        grads.append([xx.grad.cpu()] + [t.grad.cpu() for t in ls])
+    for a, b in zip(*grads):
+        assert rel(a, b) < 1e-4
+
+
+def test_k8_to_k10_refuse_what_they_do_not_take(cuda):
+    args, g, _ = encode_args(64, cuda)
+    res, feat, tables, x = args
+    with pytest.raises(ValueError, match="no kernel"):
+        ffc.grad_cuda(res[:5], 8, tables[: 3 * sum(res[:5]) * 8], x)  # a proposal-sized schedule
+    with pytest.raises(ValueError, match="no kernel"):
+        ffc.dense_encode_cuda(res[:4], feat, tables[: 3 * sum(res[:4]) * feat], x)
+    with pytest.raises(ValueError):
+        ffc.grad_bwd_cuda(*args, g)  # a [N, D] cotangent where K9 takes [N, 3, D]
+    with pytest.raises(TypeError):
+        ffc.grad_bwd_cuda(*args, torch.zeros(64, 3, g.shape[1], device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        ffc.dense_encode_cuda(res, feat, tables.cpu(), x.cpu())
+
+
+def test_grad_entry_points_launch_k8_and_k9(cuda):
+    """`grad_encode_fused` runs K8 forward and K9 backward (the coords half
+    only for an x01 that needs a grad); `fused_factor_grad` runs K8 and no
+    backward kernel."""
+    args, _, _ = encode_args(1003, cuda, seed=6)
+    res, feat, tables, x = args
+    cfg = fg.FactorGridConfig(num_levels=8, base_res=16, max_res=2048, features_per_level=16)
+    lines = [t.float().view(-1, feat).requires_grad_(True)
+             for t in torch.split(tables, [r * feat for r in res for _ in range(3)])]
+    nested = [lines[3 * i : 3 * i + 3] for i in range(len(res))]
+    ct = torch.randn(1003, 3, 128, device=cuda)
+    for c in ffc.COUNTERS:
+        setattr(ffc, c, 0)
+    xx = x.clone().requires_grad_(True)
+    (fg.grad_encode_fused(cfg, nested, xx) * ct).sum().backward()
+    (fg.fused_factor_grad(cfg, nested, x) * ct).sum().backward()
+    torch.cuda.synchronize()
+    got = {c: getattr(ffc, c) for c in ffc.COUNTERS if getattr(ffc, c)}
+    assert got == {"grad_launches": 2, "grad_bwd_table_launches": 1, "grad_bwd_coords_launches": 1}
+    assert float(xx.grad.abs().max()) > 0 and all(bool(torch.isfinite(t.grad).all()) for t in lines)
 
 
 # ---------------------------------------------------------------------------
