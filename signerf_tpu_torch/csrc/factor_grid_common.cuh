@@ -130,6 +130,43 @@ __device__ __forceinline__ void warp_store(float* stage, const float* v, float* 
   __syncwarp();
 }
 
+// Warp-aggregated sums for a scatter whose lanes often hit the same row:
+// every run of consecutive lanes holding the same `key` gets v summed over
+// the run, element by element, into the run's first lane, which returns
+// true; the other lanes return false with v spent. Samples in ray order
+// put a ray's samples on consecutive lanes, so at the coarse levels a
+// warp's 32 lanes form one or two runs. A segmented suffix scan: round k
+// adds the value 2^k lanes down where that lane is still in the run, and
+// the rounds stop once no run is longer than 2^k (none when every lane's
+// key differs from its neighbours'). Every lane of the warp must call it.
+template <int N>
+__device__ __forceinline__ bool warp_run_sum(int key, float (&v)[N]) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int up = __shfl_up_sync(kFull, key, 1);  // every lane takes part
+  const bool head = lane == 0 || up != key;
+  const unsigned later_heads = __ballot_sync(kFull, head) & ~((2u << lane) - 1u);
+  const int end = later_heads ? __ffs(later_heads) - 1 : 32;  // this run is [.., end)
+  for (int off = 1; off < 32 && __any_sync(kFull, lane + off < end); off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float x = __shfl_down_sync(kFull, v[i], off);
+      if (lane + off < end) v[i] += x;
+    }
+  }
+  return head;
+}
+
+// dst[0, F) += v[0, F) in device memory as 16-byte vector reductions
+// (sm_90: resolved in L2, no compare-and-swap loop); dst 16-byte aligned.
+template <int F>
+__device__ __forceinline__ void red_add_row(float* dst, const float* v) {
+  static_assert(F % 4 == 0, "16-byte pieces");
+#pragma unroll
+  for (int q = 0; q < F / 4; ++q)
+    atomicAdd(reinterpret_cast<float4*>(dst) + q, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+}
+
 // Sum over the L consecutive lanes that hold one sample's levels.
 template <int L>
 __device__ __forceinline__ float sum_levels(float v) {

@@ -32,34 +32,56 @@
 // camera optimisation off never asks for du, and then the coords launch is
 // not made.
 //
-// What bounds it on an H100: per sample, 2 x 3 x L two-row gathers (twice:
-// the forward recompute and the product rule), 2 x 3 x L x F scattered
-// line-grad additions, and for the base field (D = 128 -> 64 -> 16) about
-// 3 x 8,192 FMAs of MLP VJP on the CUDA cores. The design:
+// What bounds the tables mode on an H100: per sample, 2 x 3 x L two-row
+// gathers (the forward recompute and the product rule), 2 x 3 x L x F
+// scattered line-grad additions, and for the base field (D = 128 -> 64 ->
+// 16) about 3 x 8,192 multiply-adds of MLP VJP. The first design spent its
+// time in the scatter: f32 atomicAdd into shared memory is a
+// compare-and-swap loop on sm_90a (ATOMS.CAST.SPIN), a train step's samples
+// lie in ray order (a warp holds 32 consecutive samples of one ray), so at
+// the coarse levels the lanes of a warp add into the same few rows and
+// serialize; and its 213 KB of shared memory left one 4-warp block an SM.
+// This design:
 //   - one thread per sample, blocks of 128 samples ("tiles"); a block walks
-//     over tiles (grid = resident blocks), so its reductions cross tiles in
-//     shared memory and reach device memory once;
-//   - W0 and W1 in shared memory as f32 (exact: bf16 values), rows read as
-//     broadcast float4;
-//   - the tile's h, g_o, g_h (then rounded to bf16) and bf16(feat) are staged
-//     in shared memory (rows padded by 4 floats, so a quarter-warp's float4
-//     stores hit distinct banks); the block's threads then form dW1 and dW0
-//     by looping over the tile's samples, each thread owning its entries, so
-//     no atomic touches the weights until the block's one flush;
-//   - line grads of the first levels, as many as fit 48 KB (all five levels
-//     of both proposal fields, the base field's levels up to res 128), are
-//     summed with shared-memory atomics and flushed once per block; the
-//     larger levels add straight into device memory with atomics. On
-//     sm_90a a shared f32 atomicAdd is a compare-and-swap loop
-//     (ATOMS.CAST.SPIN), so lanes adding into the same row serialize: this
-//     scatter, not the gathers or the MLP, is what the tables half spends
-//     its time on, and clustered samples make it slower.
-// The base field's tables mode takes ~213 KB of dynamic shared memory (one
-// block per SM), the proposals' ~85 KB.
+//     over tiles (grid = resident blocks), so dW and db reach device memory
+//     once per block;
+//   - the line grads: per level and axis the lanes' (1 - w) G and w G are
+//     summed over each run of lanes on the same row with shuffles
+//     (factor_grid::warp_run_sum), and the run's first lane adds the sums
+//     into device memory with 16-byte vector reductions (float4 atomicAdd,
+//     resolved in L2: F = 8 is 2 instructions a row, F = 16 is 4). All the
+//     line grads sit in L2 (the base field's are 0.8 MB). Every level goes
+//     this way: at ray-ordered samples a warp's lanes reach the coarse
+//     levels as one or two runs. At uniform random samples every warp adds
+//     into all 16 to 32 rows of the coarsest levels and their reductions
+//     queue on a few L2 slices; summing those levels in shared memory would
+//     win there but lose at the ray-ordered layout a train step gives
+//     (PERF.md has the H100's times of both);
+//   - the MLP products on the tensor cores, mma.sync.m16n8k16 bf16 x bf16
+//     -> f32 over each tile: the layer-0 recompute bf16(feat) W0, g_h =
+//     g_o W1^T, dW1 += h^T g_o, dW0 += bf16(feat)^T g_h_b and g_feat =
+//     g_h_b W0^T. Every operand is an exact bf16 value (W0, W1, bf16(feat),
+//     g_o, the bf16-rounded h, g_h_b), so every product is exact in f32 and
+//     only the order of the sums changes. db0 and db1 stay f32 sums; dW0
+//     and dW1 take each tile's products from the tensor cores and sum them
+//     over the block's tiles in f32 registers, so no long sum stays in the
+//     tensor cores' accumulator (their adds do not round to nearest);
+//   - shared memory holds bf16 tiles: W0, W1, bf16(feat) (then g_feat), h,
+//     g_h_b and g_o, rows padded by 16 bytes so that ldmatrix and the
+//     fragment stores hit distinct banks: ~101 KB for the base field (two
+//     blocks, 8 warps an SM), ~36 KB for the proposal fields (four blocks,
+//     16 warps, as their registers allow);
+//   - the features are K1's taps and products with every lerp rounded as the
+//     plain twin rounds it (no FMA contraction), so bf16(feat) is the
+//     twin's bit for bit: a contracted lerp flips the rounding of a feature
+//     for every sample of a cell at once, which shows in dW0 and dW1.
+// The coords mode is the first design's (one thread per sample, f32 weights
+// in shared memory, no atomics): it runs only with camera optimisation.
 //
-// Determinism: the atomics add in an order that changes from run to run, so
-// line grads and dW/db are reproducible to f32 rounding only, not bitwise.
-// The coords mode has no atomics and is deterministic.
+// Determinism: the vector reductions and the per-block dW/db flushes add in
+// an order that changes from run to run, so line grads and dW/db are
+// reproducible to f32 rounding only, not bitwise. The coords mode is
+// deterministic.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
@@ -73,39 +95,482 @@
 
 namespace {
 
-using factor_grid::kMaxLevels;
 using factor_grid::load_row;
+using factor_grid::red_add_row;
 using factor_grid::round_bf16;
+using factor_grid::Schedule;
 using factor_grid::tap;
+using factor_grid::warp_run_sum;
+using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;            // samples per tile, one thread each
-constexpr int kSmallBytes = 48 * 1024;   // shared line-grad accumulator budget
+constexpr int kThreads = 128;  // samples per tile, one thread each
+constexpr int kWarps = kThreads / 32;
 
-struct BwdLevels {
-  int res[kMaxLevels];
-  int offset[kMaxLevels][3];  // element offset of each [R_l, F] table and its grad
-  int n_small;                // levels [0, n_small) accumulate in shared memory
-  int small_elems;            // their element count: a prefix of the packed grads
+constexpr int round16(int x) { return (x + 15) / 16 * 16; }
+
+// The largest D x H whose layer 0 is recomputed per sample on f32 FMAs
+// (the proposal fields' 640) rather than on the MMA (the base field's 8,192).
+constexpr int kRowForwardMax = 1024;
+
+// ---------------------------------------------------------------------------
+// Tensor-core helpers: mma.sync.m16n8k16 bf16 and its ldmatrix fragments.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// c += a b: a 16x16 (row fragment), b 16x8 (column fragment), f32 sums.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+  }
+}
+
+// The A fragment of rows [m0, m0 + 16) x cols [k0, k0 + 16) of a matrix
+// stored [m][k] (row stride `ld` values).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0, int lane) {
+  ldsm<false>(a, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 + (lane >> 4) * 8);
+}
+// ... of a matrix stored transposed, [k][m].
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0, int lane) {
+  ldsm<true>(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8);
+}
+// The B fragments of k [k0, k0 + 16) x n [n0, n0 + 16) (two n-tiles of 8:
+// b[0], b[1] for n0 and b[2], b[3] for n0 + 8) of a matrix stored [k][n].
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0, int lane) {
+  ldsm<true>(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+// ... of a matrix stored [n][k].
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0, int lane) {
+  ldsm<false>(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
+// (1 - w) r0 + w r1 with each product rounded, as the plain twin takes
+// it: a contracted FMA rounds once, and that flips the bf16 rounding of
+// some features against the twin's (one value for every sample of a cell).
+__device__ __forceinline__ float lerp(float r0, float r1, float w) {
+  return __fadd_rn(__fmul_rn(1.f - w, r0), __fmul_rn(w, r1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// Tables mode.
+
+// Dynamic shared memory of the tables mode, in bytes. bf16 tiles with rows
+// padded by 8 values (16 bytes); D and O rounded up to the MMA's k = 16
+// with zeros.
+template <int F, int H, int O, int L>
+struct TablesLayout {
+  static constexpr int D = L * F, DP = round16(D), OP = round16(O);
+  static constexpr int XS = DP + 8, HS = H + 8, OS = OP + 8;  // row strides, in values
+  static constexpr int kW0 = 0;                              // W0 [DP][HS]
+  static constexpr int kW1 = kW0 + DP * HS * 2;              // W1 [H][OS]
+  static constexpr int kB0 = kW1 + H * OS * 2;               // b0 [H] f32
+  static constexpr int kDb0 = kB0 + H * 4;                   // per-warp db0 sums [kWarps][H] f32
+  static constexpr int kX = kDb0 + kWarps * H * 4;           // bf16(feat), then g_feat [T][XS]
+  static constexpr int kH = kX + kThreads * XS * 2;          // bf16 h [T][HS]
+  static constexpr int kGh = kH + kThreads * HS * 2;         // g_h_b [T][HS]
+  static constexpr int kGo = kGh + kThreads * HS * 2;        // g_o [T][OS]
+  static constexpr int kBytes = kGo + kThreads * OS * 2;
+  static_assert(kX % 16 == 0 && kBytes % 16 == 0, "16-byte aligned tiles");
 };
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int round4(int x) { return (x + 3) / 4 * 4; }
-// Row stride (floats) of a staged [kThreads, width] tile.
-constexpr int stride(int width) { return width == 1 ? 1 : width + 4; }
+template <int F, int H, int O, int L, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+density_bwd_tables_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out, int n,
+                          const bf16* __restrict__ tables, Schedule lv,
+                          const bf16* __restrict__ w0,  // [D, H]
+                          const bf16* __restrict__ b0,  // [H]
+                          const bf16* __restrict__ w1,  // [H, O]
+                          float* __restrict__ g_tables,  // packed like `tables`
+                          float* __restrict__ g_w0, float* __restrict__ g_b0, float* __restrict__ g_w1,
+                          float* __restrict__ g_b1) {
+  using Lay = TablesLayout<F, H, O, L>;
+  constexpr int D = Lay::D, DP = Lay::DP, OP = Lay::OP, XS = Lay::XS, HS = Lay::HS, OS = Lay::OS;
+  // dW0 [DP x H]: warp w owns the m-tiles w, w + 4, .. of 16 rows, all H / 8 n-tiles.
+  constexpr int kW0Tiles = DP / 16, kMyW0 = (kW0Tiles + kWarps - 1) / kWarps;
+  // dW1 [H x O]: m-tiles of 16 hidden rows, n-tiles of 8 outputs.
+  constexpr int kW1Tiles = H / 16, kMyW1 = (kW1Tiles + kWarps - 1) / kWarps, kW1N = (O + 7) / 8;
+  static_assert(H % 16 == 0 && F % 8 == 0, "MMA tiles and 16-byte table rows");
+  // A small layer 0 (the proposal fields: D H = 640) is recomputed per
+  // sample with f32 FMAs, which round to nearest; the tensor cores' adds do
+  // not, flip more bf16 roundings of h, and with H = 16, O = 1 each flip
+  // shows in dW1 (PERF.md has both errors). The base field's layer 0
+  // (8,192 multiply-adds a sample) runs on the MMA.
+  constexpr bool kRowForward = D * H <= kRowForwardMax;
 
-// Dynamic shared memory, in floats.
+  extern __shared__ __align__(16) uint8_t smem[];
+  bf16* s_w0 = reinterpret_cast<bf16*>(smem + Lay::kW0);
+  bf16* s_w1 = reinterpret_cast<bf16*>(smem + Lay::kW1);
+  float* s_b0 = reinterpret_cast<float*>(smem + Lay::kB0);
+  float* s_db0 = reinterpret_cast<float*>(smem + Lay::kDb0);
+  bf16* s_x = reinterpret_cast<bf16*>(smem + Lay::kX);
+  bf16* s_h = reinterpret_cast<bf16*>(smem + Lay::kH);
+  bf16* s_gh = reinterpret_cast<bf16*>(smem + Lay::kGh);
+  bf16* s_go = reinterpret_cast<bf16*>(smem + Lay::kGo);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+
+  // Weights (zero in the padding), zeroed sums and tiles: the padding
+  // columns of X and g_o stay zero for good.
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = t; i < DP * HS; i += kThreads) {
+    const int r = i / HS, c = i % HS;
+    s_w0[i] = r < D && c < H ? w0[r * H + c] : zero;
+  }
+  for (int i = t; i < H * OS; i += kThreads) {
+    const int r = i / OS, c = i % OS;
+    s_w1[i] = c < O ? w1[r * O + c] : zero;
+  }
+  for (int i = t; i < H; i += kThreads) s_b0[i] = __bfloat162float(b0[i]);
+  for (int i = t; i < kWarps * H; i += kThreads) s_db0[i] = 0.f;
+  for (int i = t; i < kThreads * XS; i += kThreads) s_x[i] = zero;
+  for (int i = t; i < kThreads * OS; i += kThreads) s_go[i] = zero;
+  float dw0[kMyW0][H / 8][4] = {};
+  float dw1[kMyW1][kW1N][4] = {};
+  float db1[O] = {};
+  float db0[kRowForward ? H : 1] = {};
+  __syncthreads();
+
+  const int num_tiles = (n + kThreads - 1) / kThreads;
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t idx = static_cast<int64_t>(tile) * kThreads + t;
+    const bool valid = idx < n;
+    // Past the end: u = 0 and g = 0, so every contribution is zero.
+    float u[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) u[a] = valid ? fminf(fmaxf(coords[idx * 3 + a], 0.f), 1.f) : 0.f;
+
+    // Phase 1: K1's features, bf16-rounded, into X; g_o into its tile.
+    float acc0[kRowForward ? H : 1] = {};  // layer 0 of this sample (small layer 0 only)
+#pragma unroll 1
+    for (int l = 0; l < L; ++l) {
+      const int res = lv.res[l];
+      float feat[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) feat[f] = 1.f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        int i;
+        float w;
+        tap(u[a], res, i, w);
+        float r0[F], r1[F];
+        load_row<F>(tables + lv.offset[l][a] + i * F, r0);
+        load_row<F>(tables + lv.offset[l][a] + (i + 1) * F, r1);
+#pragma unroll
+        for (int f = 0; f < F; ++f) feat[f] *= lerp(r0[f], r1[f], w);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(s_x + t * XS + l * F);
+#pragma unroll
+      for (int q = 0; q < F / 8; ++q) {
+        const float* v = feat + 8 * q;
+        dst[q] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                            pack_bf16(v[6], v[7]));
+      }
+      if constexpr (kRowForward) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float xf = round_bf16(feat[f]);
+          const uint4* wrow = reinterpret_cast<const uint4*>(s_w0 + (l * F + f) * HS);
+#pragma unroll
+          for (int q = 0; q < H / 8; ++q) {
+            const uint4 raw = wrow[q];
+            const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              acc0[8 * q + 2 * k] = fmaf(xf, __uint_as_float(words[k] << 16), acc0[8 * q + 2 * k]);
+              acc0[8 * q + 2 * k + 1] = fmaf(xf, __uint_as_float(words[k] & 0xffff0000u), acc0[8 * q + 2 * k + 1]);
+            }
+          }
+        }
+      }
+    }
+    float go[O];
+#pragma unroll
+    for (int o = 0; o < O; ++o) {
+      go[o] = valid ? round_bf16(grad_out[idx * O + o]) : 0.f;
+      db1[o] += go[o];
+      s_go[t * OS + o] = __float2bfloat16_rn(go[o]);
+    }
+    if constexpr (kRowForward) {
+      // h = relu(bf16(bf16(acc) + b0)), g_h = (W1 g_o) 1{h > 0} (f32, into
+      // db0), and bf16 h and g_h_b into this sample's rows of their tiles.
+      float hv[H], gh[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        hv[h] = fmaxf(round_bf16(round_bf16(acc0[h]) + s_b0[h]), 0.f);
+        float s = 0.f;
+#pragma unroll
+        for (int o = 0; o < O; ++o) s = fmaf(__bfloat162float(s_w1[h * OS + o]), go[o], s);
+        gh[h] = hv[h] > 0.f ? s : 0.f;
+        db0[h] += gh[h];
+      }
+#pragma unroll
+      for (int h = 0; h < H; h += 2) {
+        *reinterpret_cast<uint32_t*>(s_h + t * HS + h) = pack_bf16(hv[h], hv[h + 1]);
+        *reinterpret_cast<uint32_t*>(s_gh + t * HS + h) = pack_bf16(gh[h], gh[h + 1]);
+      }
+    }
+    __syncthreads();
+
+    // MMA 1 (the base field), per m-tile of this warp's 32 samples: acc =
+    // bf16(feat) W0 and gac = g_o W1^T; then h = relu(bf16(bf16(acc) + b0)),
+    // g_h = gac 1{h > 0} (f32, summed into db0), and bf16 h and g_h_b into
+    // their tiles.
+    if constexpr (!kRowForward) {
+#pragma unroll 1
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m0 = warp * 32 + mt * 16;
+        float acc[H / 8][4] = {}, gac[H / 8][4] = {};
+        uint32_t a[4], b[4];
+#pragma unroll
+        for (int k0 = 0; k0 < DP; k0 += 16) {
+          load_a(a, s_x, XS, m0, k0, lane);
+#pragma unroll
+          for (int n0 = 0; n0 < H; n0 += 16) {
+            load_b_kn(b, s_w0, HS, k0, n0, lane);
+            mma(acc[n0 / 8], a, b[0], b[1]);
+            mma(acc[n0 / 8 + 1], a, b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int k0 = 0; k0 < OP; k0 += 16) {
+          load_a(a, s_go, OS, m0, k0, lane);
+#pragma unroll
+          for (int n0 = 0; n0 < H; n0 += 16) {
+            load_b_nk(b, s_w1, OS, k0, n0, lane);
+            mma(gac[n0 / 8], a, b[0], b[1]);
+            mma(gac[n0 / 8 + 1], a, b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < H / 8; ++nt) {
+          float hv[4], gh[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = nt * 8 + 2 * t4 + (e & 1);
+            hv[e] = fmaxf(round_bf16(round_bf16(acc[nt][e]) + s_b0[c]), 0.f);
+            gh[e] = hv[e] > 0.f ? gac[nt][e] : 0.f;
+          }
+          const int c = nt * 8 + 2 * t4, r = m0 + g;
+          *reinterpret_cast<uint32_t*>(s_h + r * HS + c) = pack_bf16(hv[0], hv[1]);
+          *reinterpret_cast<uint32_t*>(s_h + (r + 8) * HS + c) = pack_bf16(hv[2], hv[3]);
+          *reinterpret_cast<uint32_t*>(s_gh + r * HS + c) = pack_bf16(gh[0], gh[1]);
+          *reinterpret_cast<uint32_t*>(s_gh + (r + 8) * HS + c) = pack_bf16(gh[2], gh[3]);
+          // db0: this thread's two rows, then the 8 row groups of the warp.
+          float col[2] = {gh[0] + gh[2], gh[1] + gh[3]};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            col[e] += __shfl_xor_sync(0xffffffffu, col[e], 4);
+            col[e] += __shfl_xor_sync(0xffffffffu, col[e], 8);
+            col[e] += __shfl_xor_sync(0xffffffffu, col[e], 16);
+          }
+          if (g == 0) {
+            s_db0[warp * H + c] += col[0];
+            s_db0[warp * H + c + 1] += col[1];
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // MMA 2 over the tile's 128 samples: dW1 += h^T g_o, dW0 += bf16(feat)^T g_h_b.
+#pragma unroll 1
+    for (int k0 = 0; k0 < kThreads; k0 += 16) {
+      uint32_t a[4], b[4];
+#pragma unroll
+      for (int j = 0; j < kMyW1; ++j) {
+        const int mt = warp + j * kWarps;
+        if (mt < kW1Tiles) {
+          load_a_t(a, s_h, HS, mt * 16, k0, lane);
+          load_b_kn(b, s_go, OS, k0, 0, lane);
+          mma(dw1[j][0], a, b[0], b[1]);
+          if constexpr (kW1N > 1) mma(dw1[j][1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMyW0; ++j) {
+        const int mt = warp + j * kWarps;
+        if (mt < kW0Tiles) {
+          load_a_t(a, s_x, XS, mt * 16, k0, lane);
+#pragma unroll
+          for (int n0 = 0; n0 < H; n0 += 16) {
+            load_b_kn(b, s_gh, HS, k0, n0, lane);
+            mma(dw0[j][n0 / 8], a, b[0], b[1]);
+            mma(dw0[j][n0 / 8 + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // MMA 3: g_feat = bf16(g_h_b W0^T) over X (bf16(feat) is spent).
+#pragma unroll 1
+    for (int mt = 0; mt < 2; ++mt) {
+      const int m0 = warp * 32 + mt * 16;
+      uint32_t a[H / 16][4];
+#pragma unroll
+      for (int k0 = 0; k0 < H; k0 += 16) load_a(a[k0 / 16], s_gh, HS, m0, k0, lane);
+#pragma unroll
+      for (int n0 = 0; n0 < DP; n0 += 16) {
+        float c[2][4] = {};
+#pragma unroll
+        for (int k0 = 0; k0 < H; k0 += 16) {
+          uint32_t b[4];
+          load_b_nk(b, s_w0, HS, k0, n0, lane);
+          mma(c[0], a[k0 / 16], b[0], b[1]);
+          mma(c[1], a[k0 / 16], b[2], b[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = n0 + j * 8 + 2 * t4, r = m0 + g;
+          *reinterpret_cast<uint32_t*>(s_x + r * XS + col) = pack_bf16(c[j][0], c[j][1]);
+          *reinterpret_cast<uint32_t*>(s_x + (r + 8) * XS + col) = pack_bf16(c[j][2], c[j][3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // Phase 2, per level: the taps again, g_feat from X, the product rule,
+    // and the warp-aggregated two-row scatter.
+#pragma unroll 1
+    for (int l = 0; l < L; ++l) {
+      const int res = lv.res[l];
+      float fa[3][F];
+      int ia[3];
+      float wa[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        tap(u[a], res, ia[a], wa[a]);
+        float r0[F], r1[F];
+        load_row<F>(tables + lv.offset[l][a] + ia[a] * F, r0);
+        load_row<F>(tables + lv.offset[l][a] + (ia[a] + 1) * F, r1);
+#pragma unroll
+        for (int f = 0; f < F; ++f) fa[a][f] = lerp(r0[f], r1[f], wa[a]);
+      }
+      float gf[F];
+      {
+        const uint4* src = reinterpret_cast<const uint4*>(s_x + t * XS + l * F);
+#pragma unroll
+        for (int q = 0; q < F / 8; ++q) {
+          const uint4 raw = src[q];
+          const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            gf[8 * q + 2 * k] = __uint_as_float(words[k] << 16);
+            gf[8 * q + 2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int o1 = (a + 1) % 3, o2 = (a + 2) % 3;
+        const float w = wa[a];
+        float v[2 * F];  // (1 - w) G for row i, then w G for row i + 1
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float G = gf[f] * fa[o1][f] * fa[o2][f];
+          v[f] = (1.f - w) * G;
+          v[F + f] = w * G;
+        }
+        if (warp_run_sum(ia[a], v)) {
+          float* dst = g_tables + lv.offset[l][a] + ia[a] * F;
+          red_add_row<F>(dst, v);
+          red_add_row<F>(dst + F, v + F);
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites X
+  }
+
+  // The block's one flush of dW0, dW1, db0 and db1.
+#pragma unroll
+  for (int j = 0; j < kMyW0; ++j) {
+    const int mt = warp + j * kWarps;
+#pragma unroll
+    for (int nt = 0; nt < H / 8; ++nt) {
+      const int c = nt * 8 + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + g + 8 * h;
+        if (mt < kW0Tiles && r < D)
+          atomicAdd(reinterpret_cast<float2*>(g_w0 + r * H + c), make_float2(dw0[j][nt][2 * h], dw0[j][nt][2 * h + 1]));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMyW1; ++j) {
+    const int mt = warp + j * kWarps;
+#pragma unroll
+    for (int nt = 0; nt < kW1N; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = mt * 16 + g + 8 * (e >> 1), c = nt * 8 + 2 * t4 + (e & 1);
+        if (mt < kW1Tiles && c < O) atomicAdd(g_w1 + r * O + c, dw1[j][nt][e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < O; ++o) {
+    float s = db1[o];
+#pragma unroll
+    for (int k = 16; k > 0; k >>= 1) s += __shfl_xor_sync(0xffffffffu, s, k);
+    if (lane == 0) atomicAdd(g_b1 + o, s);
+  }
+  if constexpr (kRowForward) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float s = db0[h];
+#pragma unroll
+      for (int k = 16; k > 0; k >>= 1) s += __shfl_xor_sync(0xffffffffu, s, k);
+      if (lane == 0) s_db0[warp * H + h] = s;
+    }
+  }
+  __syncthreads();
+  for (int c = t; c < H; c += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += s_db0[w * H + c];
+    atomicAdd(g_b0 + c, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Coords mode: one thread per sample, W0 and W1 as f32 in shared memory.
+
+// Row stride (floats) of the staged [kThreads, width] g_h tile.
+constexpr int stride(int width) { return width == 1 ? 1 : width + 4; }
+constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+
+// Dynamic shared memory of the coords mode, in floats.
 template <int F, int H, int O, int L>
-struct Layout {
+struct CoordsLayout {
   static constexpr int D = L * F;
-  static constexpr int HS = stride(H), OS = stride(O), FS = stride(D);
-  static constexpr int kW0 = 0;                                  // [D][H]
-  static constexpr int kW1 = kW0 + D * H;                        // [H][O]
-  static constexpr int kB0 = kW1 + round4(H * O);                // [H]
-  static constexpr int kGh = kB0 + round4(H);                    // [T][HS] g_h
-  static constexpr int kUnion = kGh + kThreads * HS;             // h [T][HS], g_o [T][OS]
-  static constexpr int kGo = kUnion + kThreads * HS;             //   later bf16(feat) [T][FS]
-  static constexpr int kDw0 = kUnion + cmax(kThreads * (HS + OS), kThreads * FS);  // [D][H]
-  static constexpr int kSmall = kDw0 + D * H;                    // small-level line grads
+  static constexpr int HS = stride(H);
+  static constexpr int kW0 = 0;                    // [D][H]
+  static constexpr int kW1 = kW0 + D * H;          // [H][O]
+  static constexpr int kB0 = kW1 + round4(H * O);  // [H]
+  static constexpr int kGh = kB0 + round4(H);      // [T][HS] g_h
+  static constexpr int kFloats = kGh + kThreads * HS;
 };
 
 // W values from registers to a 16-byte-aligned shared row.
@@ -122,61 +587,39 @@ __device__ __forceinline__ void store_row(float* dst, const float* v) {
   }
 }
 
-template <int F, int H, int O, int L, bool kTables>
+template <int F, int H, int O, int L>
 __global__ void __launch_bounds__(kThreads)
-density_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out, int n,
-                   const __nv_bfloat16* __restrict__ tables, BwdLevels lv,
-                   const __nv_bfloat16* __restrict__ w0,  // [D, H]
-                   const __nv_bfloat16* __restrict__ b0,  // [H]
-                   const __nv_bfloat16* __restrict__ w1,  // [H, O]
-                   float* __restrict__ g_tables,          // packed like `tables`
-                   float* __restrict__ g_w0, float* __restrict__ g_b0,
-                   float* __restrict__ g_w1, float* __restrict__ g_b1,
-                   float* __restrict__ g_coords) {        // [N, 3]
-  using Lay = Layout<F, H, O, L>;
-  constexpr int D = Lay::D;
-  constexpr int HS = Lay::HS, OS = Lay::OS, FS = Lay::FS;
-  constexpr int kW1PerThread = (H * O + kThreads - 1) / kThreads;
-  constexpr int kW0PerThread = D * H / kThreads;
-  static_assert(D * H % kThreads == 0, "dW0 entries must split evenly over the threads");
+density_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out, int n,
+                          const bf16* __restrict__ tables, Schedule lv,
+                          const bf16* __restrict__ w0,  // [D, H]
+                          const bf16* __restrict__ b0,  // [H]
+                          const bf16* __restrict__ w1,  // [H, O]
+                          float* __restrict__ g_coords) {  // [N, 3]
+  using Lay = CoordsLayout<F, H, O, L>;
+  constexpr int D = Lay::D, HS = Lay::HS;
   static_assert(H % 4 == 0 && F % 8 == 0, "float4 rows and 16-byte table rows");
 
-  extern __shared__ __align__(16) float smem[];
-  float* s_w0 = smem + Lay::kW0;
-  float* s_w1 = smem + Lay::kW1;
-  float* s_b0 = smem + Lay::kB0;
-  float* s_gh = smem + Lay::kGh;
-  float* s_h = smem + Lay::kUnion;
-  float* s_go = smem + Lay::kGo;
-  float* s_feat = smem + Lay::kUnion;
-  float* s_dw0 = smem + Lay::kDw0;
-  float* s_small = smem + Lay::kSmall;
+  extern __shared__ __align__(16) float smem_f[];
+  float* s_w0 = smem_f + Lay::kW0;
+  float* s_w1 = smem_f + Lay::kW1;
+  float* s_b0 = smem_f + Lay::kB0;
+  float* s_gh = smem_f + Lay::kGh;
   const int t = threadIdx.x;
 
   for (int i = t; i < D * H; i += kThreads) s_w0[i] = __bfloat162float(w0[i]);
   for (int i = t; i < H * O; i += kThreads) s_w1[i] = __bfloat162float(w1[i]);
   for (int i = t; i < H; i += kThreads) s_b0[i] = __bfloat162float(b0[i]);
-  if constexpr (kTables) {
-    for (int i = t; i < D * H; i += kThreads) s_dw0[i] = 0.f;
-    for (int i = t; i < lv.small_elems; i += kThreads) s_small[i] = 0.f;
-  }
-  float acc_w1[kW1PerThread];
-#pragma unroll
-  for (int j = 0; j < kW1PerThread; ++j) acc_w1[j] = 0.f;
-  float acc_b0 = 0.f, acc_b1 = 0.f;
   __syncthreads();
 
   const int num_tiles = (n + kThreads - 1) / kThreads;
   for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t idx = static_cast<int64_t>(tile) * kThreads + t;
-    const bool valid = idx < n;
-    // Past the end: u = 0 and g = 0, so every staged value is finite and
-    // every contribution is zero (the thread still takes part in the syncs).
+    if (idx >= n) continue;
     float u[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) u[a] = valid ? fminf(fmaxf(coords[idx * 3 + a], 0.f), 1.f) : 0.f;
+    for (int a = 0; a < 3; ++a) u[a] = fminf(fmaxf(coords[idx * 3 + a], 0.f), 1.f);
 
-    // Phase 1: K1's forward to the layer-0 output h, then g_o and g_h.
+    // K1's forward to the layer-0 output h, then g_h_b = bf16((W1 g_o) 1{h > 0}).
     {
       float acc[H];
 #pragma unroll
@@ -192,7 +635,7 @@ density_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ g
           int i;
           float w;
           tap(u[a], res, i, w);
-          const __nv_bfloat16* row = tables + lv.offset[l][a] + i * F;
+          const bf16* row = tables + lv.offset[l][a] + i * F;
           float r0[F], r1[F];
           load_row<F>(row, r0);
           load_row<F>(row + F, r1);
@@ -215,7 +658,7 @@ density_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ g
       }
       float go[O];
 #pragma unroll
-      for (int o = 0; o < O; ++o) go[o] = valid ? round_bf16(grad_out[idx * O + o]) : 0.f;
+      for (int o = 0; o < O; ++o) go[o] = round_bf16(grad_out[idx * O + o]);
       float gh[H];
 #pragma unroll
       for (int h = 0; h < H; ++h) {
@@ -223,220 +666,107 @@ density_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ g
         float s = 0.f;
 #pragma unroll
         for (int o = 0; o < O; ++o) s = fmaf(s_w1[h * O + o], go[o], s);
-        acc[h] = hv;
-        // g_h: f32 in tables mode (db0 needs it; reduce A rounds it), bf16 now in coords mode
-        gh[h] = hv > 0.f ? (kTables ? s : round_bf16(s)) : 0.f;
+        gh[h] = hv > 0.f ? round_bf16(s) : 0.f;
       }
       store_row<H>(s_gh + t * HS, gh);
-      if constexpr (kTables) {
-        store_row<H>(s_h + t * HS, acc);
-        store_row<O>(s_go + t * OS, go);
-      }
     }
 
-    if constexpr (kTables) {
-      __syncthreads();
-      // Reduce A over the tile: dW1, db1, db0; then g_h -> bf16 in place.
-#pragma unroll
-      for (int j = 0; j < kW1PerThread; ++j) {
-        const int e = t + j * kThreads;
-        if (e < H * O) {
-          const int k = e / O, o = e % O;
-          float s = 0.f;
-          for (int m = 0; m < kThreads; ++m) s = fmaf(s_go[m * OS + o], s_h[m * HS + k], s);
-          acc_w1[j] += s;
-        }
-      }
-      if (t < O) {
-        float s = 0.f;
-        for (int m = 0; m < kThreads; ++m) s += s_go[m * OS + t];
-        acc_b1 += s;
-      }
-      if (t < H) {
-        float s = 0.f;
-        for (int m = 0; m < kThreads; ++m) {
-          const float v = s_gh[m * HS + t];
-          s += v;
-          s_gh[m * HS + t] = round_bf16(v);
-        }
-        acc_b0 += s;
-      }
-      __syncthreads();  // h and g_o are overwritten by the feature tile below
-    }
-
-    // Phase 2: per level, the taps again, g_feat = bf16(W0 g_h_b), the
-    // product rule, and the scatter (tables) or the coordinate sum (coords).
+    // Per level: the taps again, g_feat = bf16(W0 g_h_b), the product rule
+    // and the coordinate sum.
     float gu[3] = {0.f, 0.f, 0.f};
-    if (kTables || valid) {
-      const float4* gh4 = reinterpret_cast<const float4*>(s_gh + t * HS);
+    const float4* gh4 = reinterpret_cast<const float4*>(s_gh + t * HS);
 #pragma unroll 1
-      for (int l = 0; l < L; ++l) {
-        const int res = lv.res[l];
-        const float scale = static_cast<float>(res - 1);
-        float fa[3][F];
-        float da[3][F];
-        int ia[3];
-        float wa[3];
+    for (int l = 0; l < L; ++l) {
+      const int res = lv.res[l];
+      const float scale = static_cast<float>(res - 1);
+      float fa[3][F], da[3][F];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          tap(u[a], res, ia[a], wa[a]);
-          const __nv_bfloat16* row = tables + lv.offset[l][a] + ia[a] * F;
-          float r0[F], r1[F];
-          load_row<F>(row, r0);
-          load_row<F>(row + F, r1);
+      for (int a = 0; a < 3; ++a) {
+        int i;
+        float w;
+        tap(u[a], res, i, w);
+        const bf16* row = tables + lv.offset[l][a] + i * F;
+        float r0[F], r1[F];
+        load_row<F>(row, r0);
+        load_row<F>(row + F, r1);
 #pragma unroll
-          for (int f = 0; f < F; ++f) {
-            fa[a][f] = (1.f - wa[a]) * r0[f] + wa[a] * r1[f];
-            if constexpr (!kTables) da[a][f] = r1[f] - r0[f];
-          }
-        }
-        float gf[F];
-#pragma unroll
-        for (int f = 0; f < F; ++f) gf[f] = 0.f;
-#pragma unroll
-        for (int q = 0; q < H / 4; ++q) {
-          const float4 g4 = gh4[q];
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            const float4 wv = reinterpret_cast<const float4*>(s_w0 + (l * F + f) * H)[q];
-            gf[f] = fmaf(wv.x, g4.x, gf[f]);
-            gf[f] = fmaf(wv.y, g4.y, gf[f]);
-            gf[f] = fmaf(wv.z, g4.z, gf[f]);
-            gf[f] = fmaf(wv.w, g4.w, gf[f]);
-          }
-        }
-#pragma unroll
-        for (int f = 0; f < F; ++f) gf[f] = round_bf16(gf[f]);
-        if constexpr (kTables) {
-          float fb[F];
-#pragma unroll
-          for (int f = 0; f < F; ++f) fb[f] = round_bf16(fa[0][f] * fa[1][f] * fa[2][f]);
-          store_row<F>(s_feat + t * FS + l * F, fb);
-        }
-        if (!valid) continue;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const int o1 = (a + 1) % 3, o2 = (a + 2) % 3;
-          if constexpr (kTables) {
-            const float w = wa[a];
-            const int off = lv.offset[l][a] + ia[a] * F;
-            if (l < lv.n_small) {
-              float* dst = s_small + off;
-#pragma unroll
-              for (int f = 0; f < F; ++f) {
-                const float G = gf[f] * fa[o1][f] * fa[o2][f];
-                atomicAdd(dst + f, (1.f - w) * G);
-                atomicAdd(dst + F + f, w * G);
-              }
-            } else {
-              float* dst = g_tables + off;
-#pragma unroll
-              for (int f = 0; f < F; ++f) {
-                const float G = gf[f] * fa[o1][f] * fa[o2][f];
-                atomicAdd(dst + f, (1.f - w) * G);
-                atomicAdd(dst + F + f, w * G);
-              }
-            }
-          } else {
-            float s = 0.f;
-#pragma unroll
-            for (int f = 0; f < F; ++f) s = fmaf(gf[f] * fa[o1][f] * fa[o2][f], da[a][f], s);
-            gu[a] = fmaf(s, scale, gu[a]);
-          }
+        for (int f = 0; f < F; ++f) {
+          fa[a][f] = (1.f - w) * r0[f] + w * r1[f];
+          da[a][f] = r1[f] - r0[f];
         }
       }
-    }
-
-    if constexpr (kTables) {
-      __syncthreads();
-      // Reduce B: dW0[d][h] += sum over the tile of bf16(feat)[d] * g_h_b[h];
-      // thread t owns entries [t * E, (t + 1) * E) of the [D][H] layout.
-      const int e0 = t * kW0PerThread;
-      float acc[kW0PerThread];
+      float gf[F];
 #pragma unroll
-      for (int j = 0; j < kW0PerThread; ++j) acc[j] = 0.f;
-      if constexpr (kW0PerThread % 4 == 0 && H % kW0PerThread == 0) {
-        // One feature d, consecutive h (the base field: E = H = 64, d = t).
-        const int d = e0 / H, h0 = e0 % H;
-        for (int m = 0; m < kThreads; ++m) {
-          const float fv = s_feat[m * FS + d];
-          const float4* g4 = reinterpret_cast<const float4*>(s_gh + m * HS + h0);
+      for (int f = 0; f < F; ++f) gf[f] = 0.f;
 #pragma unroll
-          for (int q = 0; q < kW0PerThread / 4; ++q) {
-            const float4 gv = g4[q];
-            acc[4 * q + 0] = fmaf(fv, gv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(fv, gv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(fv, gv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(fv, gv.w, acc[4 * q + 3]);
-          }
-        }
-      } else {
-        for (int m = 0; m < kThreads; ++m) {
+      for (int q = 0; q < H / 4; ++q) {
+        const float4 g4 = gh4[q];
 #pragma unroll
-          for (int j = 0; j < kW0PerThread; ++j) {
-            const int e = e0 + j;
-            acc[j] = fmaf(s_feat[m * FS + e / H], s_gh[m * HS + e % H], acc[j]);
-          }
+        for (int f = 0; f < F; ++f) {
+          const float4 wv = reinterpret_cast<const float4*>(s_w0 + (l * F + f) * H)[q];
+          gf[f] = fmaf(wv.x, g4.x, gf[f]);
+          gf[f] = fmaf(wv.y, g4.y, gf[f]);
+          gf[f] = fmaf(wv.z, g4.z, gf[f]);
+          gf[f] = fmaf(wv.w, g4.w, gf[f]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < kW0PerThread; ++j) s_dw0[e0 + j] += acc[j];
-      __syncthreads();  // the next tile overwrites the staged tiles
-    } else if (valid) {
+      for (int a = 0; a < 3; ++a) {
+        const int o1 = (a + 1) % 3, o2 = (a + 2) % 3;
+        float s = 0.f;
 #pragma unroll
-      for (int a = 0; a < 3; ++a) g_coords[idx * 3 + a] = gu[a];
+        for (int f = 0; f < F; ++f) s = fmaf(round_bf16(gf[f]) * fa[o1][f] * fa[o2][f], da[a][f], s);
+        gu[a] = fmaf(s, scale, gu[a]);
+      }
     }
-  }
-
-  if constexpr (kTables) {
-    // The block's one flush: a device-memory atomic per entry.
-    __syncthreads();
-    for (int i = t; i < D * H; i += kThreads) atomicAdd(g_w0 + i, s_dw0[i]);
 #pragma unroll
-    for (int j = 0; j < kW1PerThread; ++j) {
-      const int e = t + j * kThreads;
-      if (e < H * O) atomicAdd(g_w1 + e, acc_w1[j]);
-    }
-    if (t < H) atomicAdd(g_b0 + t, acc_b0);
-    if (t < O) atomicAdd(g_b1 + t, acc_b1);
-    for (int i = t; i < lv.small_elems; i += kThreads) atomicAdd(g_tables + i, s_small[i]);
+    for (int a = 0; a < 3; ++a) g_coords[idx * 3 + a] = gu[a];
   }
 }
 
-template <int F, int H, int O, int L, bool kTables>
-int launch(const float* coords, const float* grad_out, int n, const __nv_bfloat16* tables,
-           const BwdLevels& lv, const __nv_bfloat16* w0, const __nv_bfloat16* b0,
-           const __nv_bfloat16* w1, float* g_tables, float* g_w0, float* g_b0, float* g_w1,
-           float* g_b1, float* g_coords, cudaStream_t stream) {
-  using Lay = Layout<F, H, O, L>;
-  auto kernel = density_bwd_kernel<F, H, O, L, kTables>;
-  const int floats = kTables ? Lay::kSmall + lv.small_elems : Lay::kUnion;
-  const size_t bytes = static_cast<size_t>(floats) * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes)) !=
-      cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int num_tiles = (n + kThreads - 1) / kThreads;
-  const int grid = num_tiles < per_sm * sms ? num_tiles : per_sm * sms;
-  kernel<<<grid, kThreads, bytes, stream>>>(coords, grad_out, n, tables, lv, w0, b0, w1, g_tables,
-                                            g_w0, g_b0, g_w1, g_b1, g_coords);
-  return static_cast<int>(cudaGetLastError());
-}
+// ---------------------------------------------------------------------------
+// Launch.
 
+// Blocks an SM must hold, for the register budget: two for the base field
+// (its dW0 stays in 64 accumulator registers a thread), four for the
+// proposal fields.
+constexpr int min_blocks(int d) { return d > 64 ? 2 : 4; }
+
+// The kernel of `mode` and its dynamic shared memory, in bytes.
 template <int F, int H, int O, int L>
-int launch_mode(int mode, const float* c, const float* g, int n, const __nv_bfloat16* t,
-                const BwdLevels& lv, const __nv_bfloat16* w0, const __nv_bfloat16* b0,
-                const __nv_bfloat16* w1, float* gt, float* gw0, float* gb0, float* gw1,
-                float* gb1, float* gc, cudaStream_t s) {
-  if (mode == 0) return launch<F, H, O, L, true>(c, g, n, t, lv, w0, b0, w1, gt, gw0, gb0, gw1, gb1, gc, s);
-  return launch<F, H, O, L, false>(c, g, n, t, lv, w0, b0, w1, gt, gw0, gb0, gw1, gb1, gc, s);
+void pick(int mode, const void*& kernel, int& smem_bytes) {
+  if (mode == 0) {
+    kernel = reinterpret_cast<const void*>(density_bwd_tables_kernel<F, H, O, L, min_blocks(F * L)>);
+    smem_bytes = TablesLayout<F, H, O, L>::kBytes;
+  } else {
+    kernel = reinterpret_cast<const void*>(density_bwd_coords_kernel<F, H, O, L>);
+    smem_bytes = CoordsLayout<F, H, O, L>::kFloats * static_cast<int>(sizeof(float));
+  }
+}
+
+// The kernel for (feat, hidden, out_dim, levels), or false.
+bool pick_any(int feat, int hidden, int out_dim, int levels, int mode, const void*& kernel, int& smem_bytes) {
+  if (feat == 8 && hidden == 16 && out_dim == 1 && levels == 5) {  // proposal fields
+    pick<8, 16, 1, 5>(mode, kernel, smem_bytes);
+    return true;
+  }
+  if (feat == 16 && hidden == 64 && out_dim == 16 && levels == 8) {  // base field
+    pick<16, 64, 16, 8>(mode, kernel, smem_bytes);
+    return true;
+  }
+  return false;
+}
+
+// Opt in to the shared memory and count the blocks an SM holds.
+cudaError_t prepare(const void* kernel, int smem_bytes, int& per_sm, int& sms) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  int device = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes)) != cudaSuccess)
+    return err;
+  return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
 
 }  // namespace
@@ -453,47 +783,37 @@ extern "C" int fused_factor_density_backward(const void* coords, const void* gra
                                              const void* w0, const void* b0, const void* w1,
                                              void* g_tables, void* g_w0, void* g_b0, void* g_w1,
                                              void* g_b1, void* g_coords, int mode, void* stream) {
-  if (n < 0 || num_levels < 1 || num_levels > kMaxLevels || (mode != 0 && mode != 1))
+  Schedule lv;
+  const void* kernel = nullptr;
+  int smem_bytes = 0;
+  if (n < 0 || (mode != 0 && mode != 1) ||
+      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, lv) ||
+      !pick_any(feat, hidden, out_dim, num_levels, mode, kernel, smem_bytes))
     return cudaErrorInvalidValue;
-  BwdLevels lv = {};
-  int offset = 0;
-  lv.n_small = 0;
-  lv.small_elems = 0;
-  bool small = true;
-  for (int l = 0; l < num_levels; ++l) {
-    if (resolutions[l] < 2) return cudaErrorInvalidValue;
-    lv.res[l] = resolutions[l];
-    for (int a = 0; a < 3; ++a) {
-      lv.offset[l][a] = offset;
-      offset += resolutions[l] * feat;
-    }
-    const int elems = 3 * resolutions[l] * feat;
-    if (small && (lv.small_elems + elems) * static_cast<int>(sizeof(float)) <= kSmallBytes) {
-      lv.small_elems += elems;
-      lv.n_small = l + 1;
-    } else {
-      small = false;
-    }
-  }
   if (n == 0) return cudaSuccess;
-  const auto* c = static_cast<const float*>(coords);
-  const auto* g = static_cast<const float*>(grad_out);
-  const auto* t = static_cast<const __nv_bfloat16*>(tables);
-  const auto* pw0 = static_cast<const __nv_bfloat16*>(w0);
-  const auto* pb0 = static_cast<const __nv_bfloat16*>(b0);
-  const auto* pw1 = static_cast<const __nv_bfloat16*>(w1);
-  auto* gt = static_cast<float*>(g_tables);
-  auto* gw0 = static_cast<float*>(g_w0);
-  auto* gb0 = static_cast<float*>(g_b0);
-  auto* gw1 = static_cast<float*>(g_w1);
-  auto* gb1 = static_cast<float*>(g_b1);
-  auto* gc = static_cast<float*>(g_coords);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (feat == 8 && hidden == 16 && out_dim == 1 && num_levels == 5) {  // proposal fields
-    return launch_mode<8, 16, 1, 5>(mode, c, g, n, t, lv, pw0, pb0, pw1, gt, gw0, gb0, gw1, gb1, gc, s);
-  }
-  if (feat == 16 && hidden == 64 && out_dim == 16 && num_levels == 8) {  // base field
-    return launch_mode<16, 64, 16, 8>(mode, c, g, n, t, lv, pw0, pb0, pw1, gt, gw0, gb0, gw1, gb1, gc, s);
-  }
-  return cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = prepare(kernel, smem_bytes, per_sm, sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int num_tiles = (n + kThreads - 1) / kThreads;
+  const int grid = num_tiles < per_sm * sms ? num_tiles : per_sm * sms;
+  void* args_tables[] = {&coords, &grad_out, &n, &tables, &lv, &w0, &b0, &w1, &g_tables, &g_w0, &g_b0, &g_w1, &g_b1};
+  void* args_coords[] = {&coords, &grad_out, &n, &tables, &lv, &w0, &b0, &w1, &g_coords};
+  err = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), mode == 0 ? args_tables : args_coords,
+                         static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory (bytes) of `mode`'s kernel for this field and
+// the blocks of it an SM holds, for reports. Returns a CUDA error code.
+extern "C" int fused_factor_density_backward_occupancy(const int* resolutions, int num_levels, int feat, int hidden,
+                                                       int out_dim, int mode, int* smem_bytes, int* blocks_per_sm) {
+  Schedule lv;
+  const void* kernel = nullptr;
+  if ((mode != 0 && mode != 1) ||
+      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, lv) ||
+      !pick_any(feat, hidden, out_dim, num_levels, mode, kernel, *smem_bytes))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  return static_cast<int>(prepare(kernel, *smem_bytes, *blocks_per_sm, sms));
 }

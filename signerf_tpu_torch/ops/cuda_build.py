@@ -62,6 +62,11 @@ ARGTYPES = {
         _I,  # mode: 0 tables, 1 coords
         _P,  # cudaStream_t
     ],
+    "fused_factor_density_backward_occupancy": [
+        ctypes.POINTER(_I), _I,  # resolutions (host), levels
+        _I, _I, _I, _I,  # features_per_level, hidden, out, mode (0 tables, 1 coords)
+        ctypes.POINTER(_I), ctypes.POINTER(_I),  # (host) dynamic shared bytes, blocks per SM
+    ],
     "fused_factor_encode_forward": [
         _P, _I,  # coords [N, 3] f32, N
         _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F

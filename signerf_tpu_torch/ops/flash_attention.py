@@ -3,8 +3,13 @@
 Replaces the Pallas TPU flash-attention kernel that
 `signerf_tpu/diffusion/unet.py:216-268` (`_flash_self_attention`) calls in
 every UNet and ControlNet self-attention of the SDXL inpaint. The kernel
-is `csrc/flash_attention.cu` (a FlashAttention-2 forward on mma.sync; its
-header says what bounds it and how), built by `cuda_build`.
+is `csrc/flash_attention.cu` (a FlashAttention-3 style forward for sm_90a:
+wgmma for both products, TMA loads into a ring of mbarrier stages, a
+producer warpgroup and three consumers, one persistent CTA an SM; its header
+says what bounds it and how), built by `cuda_build`. The C entry point
+describes q, k and v to the TMA with tensor maps built on the host from
+their pointers and strides (`cuTensorMapEncodeTiled`, found through
+`cudaGetDriverEntryPoint`, so the library links no libcuda).
 
 Contract (the JAX function's): q, k, v [B, S, H, 64] bf16 -> [B, S, H*64]
 bf16, softmax(q k^T * scale) v per batch row and head, softmax in f32. The
@@ -43,7 +48,7 @@ def _check(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.stride(3) != 1:
         raise ValueError(f"{name}'s head_dim axis must be contiguous")
-    # cp.async moves 16 bytes: rows must start on 16-byte boundaries.
+    # TMA reads a tensor whose base and strides are multiples of 16 bytes.
     if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
         raise ValueError(f"{name} must be 16-byte aligned with strides that are multiples of 8")
     if t.requires_grad and torch.is_grad_enabled():

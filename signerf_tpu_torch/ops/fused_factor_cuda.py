@@ -24,12 +24,14 @@ they replace:
 
 Each source's header says what it computes, what bounds it on an H100 and
 what the design does about it. In short, K2 recomputes K1's features per
-sample, takes the MLP VJP at the Pallas kernel's bf16 rounding points, sums
-dW/db per block in shared memory and flushes them once per block, sums the
-small levels' line grads with shared-memory atomics and the large levels'
-with device-memory atomics (so its sums are reproducible to f32 rounding,
-not bitwise). K3 to K6 run one thread per (sample, level), keep K1's taps
-and f32 contract, and K4 and K6 take K2's line-grad scheme. K5, K6 and the
+sample, takes the MLP VJP at the Pallas kernel's bf16 rounding points with
+the MLP products on the tensor cores, keeps dW/db per block and flushes
+them once per block, and sums the line grads over runs of lanes on the
+same row before adding them into device memory with vector reductions (so
+its sums are reproducible to f32 rounding, not bitwise). K3 to K6 run one
+thread per (sample, level), keep K1's taps and f32 contract, and K4 and K6
+sum their small levels' line grads with shared-memory atomics and the
+large levels' with device-memory atomics. K5, K6 and the
 coords halves of K4 and K6 take the derivative of an axis' value as 0 at
 an exact knot, as both JAX versions do (K2's coords half takes the slope
 of the cell K1 reads there).
@@ -225,6 +227,26 @@ def density_mlp_bwd_cuda(
                 *common, None, None, None, None, None, g_coords.data_ptr(), 1)
         bwd_coords_launches += 1
     return g_tables, g_ws, g_coords
+
+
+def density_mlp_bwd_occupancy(
+    resolutions: Sequence[int], feat: int, hidden: int, out_dim: int, tables_half: bool = True, device=None
+) -> Tuple[int, int]:
+    """(dynamic shared memory in bytes, blocks an SM holds) of K2's tables
+    (or coords) kernel for this field on `device` (default: the current
+    card), for reports; launches nothing."""
+    levels = len(resolutions)
+    if (feat, hidden, out_dim, levels) not in SUPPORTED:
+        raise ValueError(f"no kernel for features_per_level={feat}, hidden={hidden}, out={out_dim}, levels={levels}")
+    res = (ctypes.c_int * levels)(*resolutions)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = library("fused_factor_density_bwd").fused_factor_density_backward_occupancy(
+            res, levels, feat, hidden, out_dim, 0 if tables_half else 1, ctypes.byref(smem), ctypes.byref(blocks)
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_factor_density_backward_occupancy failed with CUDA error {rc}")
+    return smem.value, blocks.value
 
 
 def _check_encode(resolutions, feat, tables, x01, g=None, supported=ENCODE_SUPPORTED, g_shape=None) -> int:

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: K1 to K10 against their plain
 twins, their input checks, one model chunk through K1, one train step
-through K1 and K2, one `signerf` micro-batch and eval chunk through K1 to
-K6, K8 and K9 against K5 and K6, and the entry points of K8 to K10.
+through K1 and K2, K2's tables half at ray-ordered and one-cell coordinates
+and its run-to-run spread, K7 at every ragged tail of its tiles on strided
+views, one `signerf` micro-batch and eval chunk through K1 to K6, K8 and K9
+against K5 and K6, and the entry points of K8 to K10.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -143,6 +145,95 @@ def test_k2_matches_plain_twin(cuda, name):
         assert rel(a, b) < 1e-4
     only_tables = ffc.density_mlp_bwd_cuda(*bwd_args)
     assert only_tables[2] is None and ffc.bwd_coords_launches == c0 + 1
+
+
+def ray_ordered_x01(rays, per_ray, seed):
+    """Sample positions laid out as a train step lays them out: ray by ray,
+    each ray's samples in order along it (cameras on a circle of radius 2
+    looking at the origin, random pixels of a 512 px frame, stratified
+    distances 0.05 to 1000, linear to 1 and then in disparity), contracted
+    into the unit cube."""
+    from signerf_tpu_torch.cameras.poses import circle_poses
+    from signerf_tpu_torch.ops.contraction import contract_to_unit
+
+    g = torch.Generator().manual_seed(seed)
+    poses = circle_poses(8, radius=2.0, theta=70.0, phi=(0.0, 315.0))
+    cam = torch.randint(0, 8, (rays,), generator=g)
+    px = torch.rand(rays, 2, generator=g) * 512.0
+    d = torch.stack([(px[:, 0] - 256) / 409.6, -(px[:, 1] - 256) / 409.6, -torch.ones(rays)], -1)
+    d = torch.nn.functional.normalize(torch.einsum("rij,rj->ri", poses[cam, :3, :3], d), dim=-1)
+    s = (torch.arange(per_ray) + torch.rand(rays, per_ray, generator=g)) / per_ray
+    t = torch.where(s < 0.5, 0.05 + 0.95 * 2 * s, 1.0 / (1.0 - (2 * s - 1) * (1.0 - 1e-3)))
+    return contract_to_unit(poses[cam, None, :3, 3] + d[:, None] * t[..., None]).reshape(-1, 3)
+
+
+def one_cell_x01(n, resolutions, seed, width=1e-4):
+    """n points inside one cell of every level: each level and axis adds
+    every sample into the same two rows."""
+    import math
+
+    for k in range(1000):
+        c = 0.3 + 1e-3 * k
+        if all(math.floor(c * (r - 1)) == math.floor((c + width) * (r - 1)) and c * (r - 1) % 1 > 1e-3
+               for r in resolutions):
+            return c + width * torch.rand(n, 3, generator=torch.Generator().manual_seed(seed))
+    raise AssertionError("no point lies inside one cell of every level")
+
+
+K2_PER_RAY = {"proposal": 256, "prop256": 96, "final": 48}
+
+
+def k2_layout_args(name, layout, device):
+    res, feat, tables, w0, b0, w1, _, _ = make_args(name, 4, device)
+    x = ray_ordered_x01(1024, K2_PER_RAY[name], 3) if layout == "ray-ordered" else one_cell_x01(100_003, res, 3)
+    g = torch.randn(x.shape[0], w1.shape[1], generator=torch.Generator().manual_seed(4))
+    return res, feat, tables, w0, b0, w1, x.to(device), g.to(device)
+
+
+def k2_tables_f64(args, chunk=2048):
+    """The tables half from the plain twin with the sums over samples in
+    float64: the twin on chunks of `chunk` samples, added in float64."""
+    res, feat, tables, w0, b0, w1, x, g = args
+    total = None
+    for s in range(0, x.shape[0], chunk):
+        lines, ws, _ = ffc.density_mlp_bwd_plain(res, feat, tables, w0, b0, w1, x[s : s + chunk], g[s : s + chunk])
+        part = [lines.double(), *(t.double() for t in ws)]
+        total = part if total is None else [a + b for a, b in zip(total, part)]
+    return total
+
+
+@pytest.mark.parametrize("layout", ["ray-ordered", "one cell"])
+@pytest.mark.parametrize("name", ["proposal", "final"])
+def test_k2_tables_half_at_ray_ordered_and_one_cell_coordinates(cuda, name, layout):
+    """The tables half where its warp-aggregated scatter matters: each ray's
+    samples on consecutive lanes, and every sample on the same two rows of
+    each level and axis. There N f32 atomics into one row stray on their
+    own, the twin's index_add_ as much as the kernel's reductions, so the
+    one-cell case is held against the twin's terms summed in float64."""
+    args = k2_layout_args(name, layout, cuda)
+    t0 = ffc.bwd_table_launches
+    got = ffc.density_mlp_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert ffc.bwd_table_launches == t0 + 1
+    want = ffc.density_mlp_bwd_plain(*args)
+    want = [want[0], *want[1]] if layout == "ray-ordered" else k2_tables_f64(args)
+    for a, b in zip([got[0], *got[1]], want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert rel(a, b) < 1e-4  # f32 sums in another order, per leaf
+
+
+@pytest.mark.parametrize("name", ["proposal", "final"])
+def test_k2_run_to_run_spread_is_f32_rounding(cuda, name):
+    """The same inputs twice: the vector reductions and the per-block
+    flushes add in another order each run, so the results differ, but only
+    by f32 rounding of the twin's scale."""
+    args = k2_layout_args(name, "ray-ordered", cuda)
+    first = ffc.density_mlp_bwd_cuda(*args)
+    second = ffc.density_mlp_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    want = ffc.density_mlp_bwd_plain(*args)
+    for a, b, w in zip([first[0], *first[1]], [second[0], *second[1]], [want[0], *want[1]]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 def test_k2_refuses_what_it_does_not_take(cuda):
@@ -459,6 +550,43 @@ def test_k7_reads_strided_inputs(cuda):
     want = fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), 0.125)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 2304, 9217])
+def test_k7_ragged_lengths_on_a_strided_projection(cuda, s):
+    """Every ragged tail of K7's tiles (128 keys, 192 queries as three
+    blocks of 64 rows), at B = 2, with q, k and v as
+    strided views of one [B, S, 3, H, 64] projection: against the twin and
+    an f32 reference, and equal to K7 on contiguous copies."""
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    b, h = 2, 2 if s > 4096 else 3
+    g = torch.Generator().manual_seed(s)
+    q, k, v = torch.randn(b, s, 3, h, 64, generator=g).to(cuda, torch.bfloat16).unbind(2)
+    got = fa.flash_attention_cuda(q, k, v, 0.125)
+    dense = fa.flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), 0.125)
+    torch.cuda.synchronize()
+    twin = fa.flash_attention_plain(q, k, v, 0.125)
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    ref = (torch.softmax(qf @ kf.transpose(-1, -2) * 0.125, -1) @ vf).transpose(1, 2).reshape(b, s, h * 64)
+    assert torch.equal(got, dense)
+    assert _rel(got, twin) < 1e-2
+    assert _rel(got, ref) < 5e-3
+    assert _rel(got, ref) <= _rel(twin, ref)
+
+
+def test_k7_refuses_misaligned_views(cuda):
+    """TMA reads from 16-byte aligned bases with strides of whole 16-byte
+    units: a view off by 8 bytes, or with 68-value rows, is refused."""
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    _, k, v = _qkv(1, 16, 2, cuda)
+    shifted = torch.zeros(1, 16, 2, 72, device=cuda, dtype=torch.bfloat16)[..., 4:68]
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(shifted, k, v, 0.125)
+    odd = torch.zeros(1, 16, 2, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(odd, k, v, 0.125)
 
 
 def test_k7_refuses_what_it_does_not_take(cuda):
