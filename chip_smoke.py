@@ -25,7 +25,11 @@ the result line):
   5. K3, K4 (both halves), K5 and K6 (both halves) against their plain twins
      at one `signerf` micro-batch's base-field shapes (N = 196,608, uniform
      and clustered coordinates) and at N = 257 with u in {0, 1}: error and
-     CUDA-event times;
+     CUDA-event times; then the tables halves of K4 and K6 (and grad_g) at
+     three layouts, uniform, ray-ordered (48 samples a ray in ray order)
+     and every sample in one cell (there against the twin's terms summed
+     in float64, beside the twin's own error): error, run-to-run spread of
+     the line grads and times;
  5b. K8, K9 (both halves) and K10 against their plain twins at the same
      shapes, with the cross-checks K8 . g = K5, K9 on ct = g (x) c = K6 and
      K10 = K3 within the bf16 rounding of K10's tap weights; K10 and K4 at
@@ -52,7 +56,8 @@ the result line):
      and K6 launch;
  13. one `signerf` micro-batch's gradients with all six plain twins in place
      of the kernels; finite normals; the orientation loss alone reaches the
-     line tables; a profile of warm train steps (device time per kernel);
+     line tables; a profile of warm train steps (device time per kernel,
+     K4's and K6's a call);
  14. one full-frame eval render of the trained `signerf` model through
      `make_eval_render`: K3 = K5 = chunks, K1 = 2 x chunks, outputs finite;
  14b. the entry points of K8 to K10 on the trained `signerf` base field's
@@ -411,18 +416,24 @@ def phase_kernel(torch) -> dict:
     return {"max_abs_err": worst, "ms": chunk_ms, "plain_ms": chunk_plain_ms, **chunk_bound}
 
 
-def encode_case(torch, n, gen, dev, clustered=False):
+def encode_case(torch, n, gen, dev, layout="uniform"):
     """Base-field tables, coordinates, g [N, 128] and ct [N, 3] on the card.
-    Clustered coordinates are points along rays from a ring of cameras at
-    radius 2 through the scene's centre, as the train step samples them;
-    N = 257 starts with rows on u = 0 and u = 1."""
+    Coordinates: uniform random; clustered, points along rays from a ring of
+    cameras at radius 2 through the scene's centre (rays in random order);
+    ray-ordered, 48 a ray laid out as a train step lays them out
+    (`ray_ordered_coords`); or all in one cell (`one_cell_coords`). N = 257
+    starts with rows on u = 0 and u = 1."""
     from signerf_tpu_torch.ops import factor_grid as fg
     from signerf_tpu_torch.ops.contraction import contract_to_unit
 
     levels, max_res, feat = BASE_SCHEDULE
     cfg = fg.FactorGridConfig(num_levels=levels, base_res=16, max_res=max_res, features_per_level=feat)
     lines = [[torch.randn(r, feat, generator=gen) * 0.2 for _ in range(3)] for r in cfg.resolutions]
-    if clustered:
+    if layout == "ray-ordered":
+        x = ray_ordered_coords(torch, 48, gen, n // 48)
+    elif layout == "one cell":
+        x = one_cell_coords(torch, n, gen)
+    elif layout == "clustered":
         rays = n // 48
         phi = torch.rand(rays, generator=gen) * 6.2832
         origin = torch.stack([2 * torch.cos(phi), 2 * torch.sin(phi), 0.7 * torch.ones(rays)], -1)
@@ -457,9 +468,8 @@ def phase_k3_k6(torch) -> dict:
     gen = torch.Generator().manual_seed(2)
     names = ["K3", "K4 tables", "K4 coords", "K5", "K6 tables", "K6 coords"]
     result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
-    for label, n, clustered in [("uniform", SIGNERF_SAMPLES, False), ("clustered", SIGNERF_SAMPLES, True),
-                                ("boundary", 257, False)]:
-        args, g, ct = encode_case(torch, n, gen, dev, clustered)
+    for label, n in [("uniform", SIGNERF_SAMPLES), ("clustered", SIGNERF_SAMPLES), ("boundary", 257)]:
+        args, g, ct = encode_case(torch, n, gen, dev, "uniform" if label == "boundary" else label)
         calls = {
             "K3": (lambda f: f(*args), ffc.encode_cuda, ffc.encode_plain),
             "K4": (lambda f: f(*args, g, True, True), ffc.encode_bwd_cuda, ffc.encode_bwd_plain),
@@ -515,7 +525,64 @@ def phase_k3_k6(torch) -> dict:
     per_step = sum(result[k]["ms"] for k in ("K3", "K4 tables", "K5", "K6 tables")) * SIGNERF_MICRO
     print(f"phase 5 K3 + K4 tables + K5 + K6 tables per {SIGNERF_RAYS}-ray signerf step "
           f"({SIGNERF_MICRO} micro-batches, uniform coordinates): {per_step:.4f} ms", flush=True)
+    tables_halves_layouts(torch, ffc, gen, dev, result)
     return result
+
+
+def tables_halves_layouts(torch, ffc, gen, dev, result) -> None:
+    """K4's and K6's tables halves (and grad_g) at one signerf micro-batch
+    in three layouts: uniform, ray-ordered (48 samples a ray in ray order,
+    as a train step feeds them) and every sample in one cell. Each against
+    the twin, in one cell against the twin's terms summed in float64 (there
+    N f32 additions into one row stray on their own, the twin's index_add_
+    as much as the kernels' reductions); the run-to-run spread of the line
+    grads; times."""
+    per_layout = {}
+    for layout in LAYOUTS:
+        n = SIGNERF_SAMPLES
+        args, g, ct = encode_case(torch, n, gen, dev, layout)
+        got4 = ffc.encode_bwd_cuda(*args, g)[0]
+        got6, got_g, _ = ffc.grad_dot_bwd_cuda(*args, g, ct)
+        torch.cuda.synchronize()
+        want4 = ffc.encode_bwd_plain(*args, g)[0]
+        want6, want_g, _ = ffc.grad_dot_bwd_plain(*args, g, ct)
+        line = f"phase 5 tables halves {layout} N={n}:"
+        ref4, ref6, against = want4, want6, "the twin"
+        if layout == "one cell":
+            res, feat, tables, x = args
+            ref4, ref6 = f64_chunk_sum(lambda p: [ffc.encode_bwd_plain(res, feat, tables, x[p], g[p])[0],
+                                                  ffc.grad_dot_bwd_plain(res, feat, tables, x[p], g[p], ct[p])[0]], n)
+            against = "the twin's terms summed in float64"
+            line += (f" the twin's own norm-rel err against its terms summed in float64: K4 {rel_err(want4, ref4):.2e}, "
+                     f"K6 {rel_err(want6, ref6):.2e}; the kernels' against the twin: K4 {rel_err(got4, want4):.2e}, "
+                     f"K6 {rel_err(got6, want6):.2e};")
+        errs = []
+        for leaf, a, b in (("K4 tables", got4, ref4), ("K6 tables", got6, ref6), ("grad_g", got_g, want_g)):
+            if not bool(torch.isfinite(a).all()):
+                fail(f"{leaf} {layout} N={n}: non-finite output")
+            err = rel_err(a, b)
+            if err > K456_TOL:
+                fail(f"{leaf} {layout} N={n}: norm-relative error {err:.3g} against {against} > {K456_TOL}")
+            errs.append(f"{leaf} {err:.2e}")
+            entry = result["K6 tables"] if leaf == "grad_g" else result[leaf]
+            entry["max_abs_err"] = max(entry["max_abs_err"], float((a.double() - b.double()).abs().max()))
+        line += f" norm-rel err against {against} (bound {K456_TOL}): " + ", ".join(errs)
+        # The same inputs twice: the vector reductions' order varies.
+        d4 = float((ffc.encode_bwd_cuda(*args, g)[0] - got4).abs().max())
+        d6 = float((ffc.grad_dot_bwd_cuda(*args, g, ct)[0] - got6).abs().max())
+        line += (f"; run to run max |d| line grads K4 {d4:.3g} (max |lines| {float(got4.abs().max()):.3g}), "
+                 f"K6 {d6:.3g} (max |lines| {float(got6.abs().max()):.3g})")
+        run4 = lambda: ffc.encode_bwd_cuda(*args, g)  # noqa: E731
+        run6 = lambda: ffc.grad_dot_bwd_cuda(*args, g, ct)  # noqa: E731
+        ms4 = (cuda_ms(run4, 20) + cuda_ms(run4, 20)) / 2
+        ms6 = (cuda_ms(run6, 20) + cuda_ms(run6, 20)) / 2
+        per_layout[layout] = (ms4, ms6)
+        print(line + f" | kernel ms: K4 tables {ms4:.4f}, K6 tables + grad_g {ms6:.4f}", flush=True)
+        del args, g, ct, got4, got6, got_g, want4, want6, want_g, ref4, ref6
+    torch.cuda.empty_cache()
+    print(f"phase 5 K4 + K6 tables halves per {SIGNERF_RAYS}-ray signerf step ({SIGNERF_MICRO} micro-batches): "
+          + "; ".join(f"{k} {SIGNERF_MICRO * (a + b):.4f} ms (K4 {a:.4f}, K6 {b:.4f} a call)"
+                      for k, (a, b) in per_layout.items()), flush=True)
 
 
 def phase_k8_k10(torch) -> dict:
@@ -528,9 +595,8 @@ def phase_k8_k10(torch) -> dict:
     gen = torch.Generator().manual_seed(8)
     names = ["K8", "K9 tables", "K9 coords", "K10"]
     result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
-    for label, n, clustered in [("uniform", SIGNERF_SAMPLES, False), ("clustered", SIGNERF_SAMPLES, True),
-                                ("boundary", 257, False)]:
-        args, g, c = encode_case(torch, n, gen, dev, clustered)
+    for label, n in [("uniform", SIGNERF_SAMPLES), ("clustered", SIGNERF_SAMPLES), ("boundary", 257)]:
+        args, g, c = encode_case(torch, n, gen, dev, "uniform" if label == "boundary" else label)
         ct = torch.randn(n, 3, g.shape[1], generator=gen).to(dev)
         got = {"K8": ffc.grad_cuda(*args)}
         got["K9 tables"], got["K9 coords"] = ffc.grad_bwd_cuda(*args, ct, True, True)
@@ -795,20 +861,19 @@ def one_cell_coords(torch, n: int, gen, width: float = 1e-4):
     raise RuntimeError("no point lies inside one cell of every level")
 
 
-K2_LAYOUTS = ("uniform", "ray-ordered", "one cell")
+LAYOUTS = ("uniform", "ray-ordered", "one cell")
 
 
-def k2_tables_f64(ffc, args, chunk: int = 2048):
-    """K2's tables half from its plain twin with the sums over samples in
-    float64: the twin on chunks of `chunk` samples (so its f32 sums hold at
-    most `chunk` terms), the chunks' results added in float64."""
-    res, feat, tables, w0, b0, w1, x, g = args
+def f64_chunk_sum(twin, n: int, chunk: int = 2048) -> list:
+    """A plain twin's sums over samples in float64: `twin(part)` gives a
+    list of tensors for the samples in slice `part`; it runs on chunks of
+    `chunk` samples (so its f32 sums hold at most `chunk` terms) and the
+    chunks' results are added in float64."""
     total = None
-    for s in range(0, x.shape[0], chunk):
-        lines, ws, _ = ffc.density_mlp_bwd_plain(res, feat, tables, w0, b0, w1, x[s : s + chunk], g[s : s + chunk])
-        part = [lines.double(), *(t.double() for t in ws)]
+    for s in range(0, n, chunk):
+        part = [t.double() for t in twin(slice(s, s + chunk))]
         total = part if total is None else [a + b for a, b in zip(total, part)]
-    return total[0], tuple(total[1:]), None
+    return total
 
 
 def phase_k2(torch) -> dict:
@@ -822,7 +887,7 @@ def phase_k2(torch) -> dict:
     gen = torch.Generator().manual_seed(1)
     worst_rel = worst_abs = 0.0
     step = {"tables": 0.0, "tables_plain": 0.0, "coords": 0.0, "coords_plain": 0.0}
-    per_layout = {layout: {} for layout in K2_LAYOUTS}
+    per_layout = {layout: {} for layout in LAYOUTS}
     spread = {"line grads": 0.0, "dW0": 0.0}
     occupancy = []
     names = ["line grads", "dW0", "db0", "dW1", "db1", "coords"]
@@ -851,7 +916,12 @@ def phase_k2(torch) -> dict:
                 # axis, where N f32 atomics stray on their own (the twin's
                 # index_add_ too): the gate takes the twin's terms summed in
                 # float64, and the twin's own error against them is shown.
-                ref, against = k2_tables_f64(ffc, args), "the twin's terms summed in float64"
+                def twin(p):
+                    lines, ws, _ = ffc.density_mlp_bwd_plain(res, feat, tables, w0, b0, w1, x[p], g[p])
+                    return [lines, *ws]
+
+                lines, *ws = f64_chunk_sum(twin, x.shape[0])
+                ref, against = (lines, tuple(ws), None), "the twin's terms summed in float64"
                 drift = " ".join(f"{rel_err(a, b):.2e}" for a, b in zip([want[0], *want[1]], [ref[0], *ref[1]]))
                 print(f"phase 4 K2 {name} one cell N={x.shape[0]}: the twin's own norm-rel err against its terms "
                       f"summed in float64 (lines, dW0, db0, dW1, db1) {drift}; the kernel's against the twin "
@@ -1220,9 +1290,9 @@ PROFILE_GROUPS = [
     ("K1", ("density_kernel",)),
     ("K2", ("density_bwd_tables_kernel", "density_bwd_coords_kernel")),
     ("K3", ("encode_kernel",)),
-    ("K4", ("encode_bwd_kernel",)),
+    ("K4", ("encode_bwd_tables_kernel", "encode_bwd_coords_kernel")),
     ("K5", ("grad_dot_kernel",)),
-    ("K6", ("grad_dot_bwd_kernel",)),
+    ("K6", ("grad_dot_bwd_tables_kernel", "grad_dot_bwd_coords_kernel")),
     ("LPIPS convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd", "fft")),
 ]
 
@@ -1283,8 +1353,9 @@ def phase_profile(torch, card: str, data: Path, ckpt_dir: Path) -> None:
     print(
         f"phase 13 profile, {PROFILE_STEPS} warm signerf steps of {SIGNERF_RAYS} rays: span "
         f"{span_ms:.3f} ms a step, device busy {busy:.3f} ms ({busy / span_ms:.1%}, idle "
-        f"{1 - busy / span_ms:.1%}); {parts}; other kernels {other:.3f} ms ({other / busy:.1%}); "
-        f"LPIPS forward + backward over 16 patches alone {lpips_ms:.3f} ms; on {card}",
+        f"{1 - busy / span_ms:.1%}); {parts}; other kernels {other:.3f} ms ({other / busy:.1%}); K4 "
+        f"{groups['K4'] / SIGNERF_MICRO:.3f} and K6 {groups['K6'] / SIGNERF_MICRO:.3f} ms a call ({SIGNERF_MICRO} "
+        f"a step); LPIPS forward + backward over 16 patches alone {lpips_ms:.3f} ms; on {card}",
         flush=True,
     )
 
@@ -1342,7 +1413,7 @@ def phase_grad_entry_points(torch, card: str, data: Path, ckpt_dir: Path) -> dic
     cfg, lines = enc.config, enc.get_lines()
     flat = [t for axes in lines for t in axes]
     gen = torch.Generator().manual_seed(11)
-    (_, _, _, x), _, _ = encode_case(torch, SIGNERF_SAMPLES, gen, dev, clustered=True)
+    (_, _, _, x), _, _ = encode_case(torch, SIGNERF_SAMPLES, gen, dev, "clustered")
     n, d = x.shape[0], cfg.out_dim
     ct = torch.randn(n, 3, d, generator=gen).to(dev)
     g = torch.randn(n, d, generator=gen).to(dev)

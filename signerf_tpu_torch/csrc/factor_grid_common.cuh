@@ -167,6 +167,37 @@ __device__ __forceinline__ void red_add_row(float* dst, const float* v) {
     atomicAdd(reinterpret_cast<float4*>(dst) + q, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
 }
 
+// One level and axis of a line-grad scatter (K4's and K6's tables halves):
+// v[0, F) goes to row `row` of `line_grad` and v[F, 2F) to row `row` + 1,
+// summed first over each run of lanes on the same row (warp_run_sum), then
+// added by the run's first lane with vector reductions. A lane with nothing
+// to add (past the last sample) passes row -1 and zeros: no valid lane uses
+// that key, so its run is its own and is not written. line_grad + row F
+// must be 16-byte aligned: with F in {8, 16} it is whenever line_grad is.
+// Every lane of the warp must call it.
+template <int F>
+__device__ __forceinline__ void scatter_two_rows(float* __restrict__ line_grad, int row, float (&v)[2 * F]) {
+  if (warp_run_sum(row, v) && row >= 0) {
+    float* dst = line_grad + row * F;
+    red_add_row<F>(dst, v);
+    red_add_row<F>(dst + F, v + F);
+  }
+}
+
+// F f32 values from a 16-byte-aligned row.
+template <int F>
+__device__ __forceinline__ void load_row_f32(const float* __restrict__ row, float* out) {
+  const float4* src = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int q = 0; q < F / 4; ++q) {
+    const float4 x = src[q];
+    out[4 * q] = x.x;
+    out[4 * q + 1] = x.y;
+    out[4 * q + 2] = x.z;
+    out[4 * q + 3] = x.w;
+  }
+}
+
 // Sum over the L consecutive lanes that hold one sample's levels.
 template <int L>
 __device__ __forceinline__ float sum_levels(float v) {

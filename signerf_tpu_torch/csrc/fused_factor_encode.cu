@@ -22,24 +22,38 @@
 // F = 16, tables of 391 KB that stay in L2): K3 writes N x 512 bytes (about
 // 100 MB for one signerf micro-batch of 196,608 samples) and reads little,
 // so the write is the bound; K4's tables half reads g (the same 100 MB) and
-// makes 2 x 3 x 8 x 16 scattered f32 additions per sample, and those
-// atomics are its bound; K4's coords half is a read of g.
+// makes 2 x 3 x 8 x 16 scattered f32 additions per sample, which bound it
+// unless runs of lanes share them; K4's coords half is a read of g.
 //
-// The design: one thread per (sample, level) item, item = n L + l, so a
-// thread gathers two 32-byte rows per axis and owns the 64 contiguous bytes
-// of feat or g at item * F; consecutive threads cover consecutive bytes.
-// K3 stores each warp's 2 KB span cooperatively through shared memory
-// (factor_grid::warp_store), so every store instruction writes 512
-// contiguous bytes. K4 reads g the same way (four 16-byte loads per
-// thread). K4's tables half keeps K2's scheme: line grads of the first
-// levels, as many as fit 48 KB (the base field's levels up to res 128),
-// are summed with shared-memory atomics by blocks that walk over tiles and
-// flush once; the larger levels add straight into device memory. Its
-// coords half sums a sample's levels with warp shuffles (the L items of a
-// sample are L neighbouring lanes) and has no atomics.
+// The design of K3 and K4's coords half: one thread per (sample, level)
+// item, item = n L + l, so a thread gathers two 32-byte rows per axis and
+// owns the 64 contiguous bytes of feat or g at item * F; consecutive
+// threads cover consecutive bytes. K3 stores each warp's 2 KB span
+// cooperatively through shared memory (factor_grid::warp_store), so every
+// store instruction writes 512 contiguous bytes. The coords half reads g
+// the same way (four 16-byte loads per thread) and sums a sample's levels
+// with warp shuffles (the L items of a sample are L neighbouring lanes).
 //
-// Determinism: the tables half's atomics add in an order that changes from
-// run to run (f32 rounding, not bitwise); K3 and the coords half are
+// K4's tables half is K2's scatter (fused_factor_density_bwd.cu): one
+// thread per sample, the levels in a loop, so the lanes of a warp are 32
+// consecutive samples. A train step lays its samples out ray by ray (48 a
+// ray in the base field), so at the coarse levels a warp's lanes fall on
+// one or two runs of the same row. Per level and axis each lane forms
+// (1 - w) G and w G, factor_grid::scatter_two_rows sums them over each run
+// of lanes on one row with shuffles (warp_run_sum), and the run's first
+// lane adds the sums into device memory with 16-byte vector reductions
+// (red_add_row, resolved in L2; the line grads, 0.8 MB for the base field,
+// stay there). No shared memory and no scalar atomics: the shared f32
+// atomicAdd of the first design compiled to a compare-and-swap loop on
+// sm_90a, on which the lanes of a ray serialized. A thread reads its
+// sample's g row of each level (64 bytes, two whole sectors) at a 512-byte
+// stride from its neighbours'. ptxas gives it 125 registers (base field)
+// and 72 (proposal fields), no spills, so it takes K2's mapping, one code
+// shape for K2, K4 and K6, over a warp per level (32 samples of one level
+// a warp).
+//
+// Determinism: the tables half's reductions add in an order that changes
+// from run to run (f32 rounding, not bitwise); K3 and the coords half are
 // deterministic.
 //
 // K10, the early dense-hat encode, replaces the TPU kernel
@@ -53,9 +67,10 @@
 // K3's. K10's backward is K4 (signerf_tpu_torch/ops/factor_grid_kernel.py).
 //
 // K3 is instantiated for the base field (F = 16, 8 levels); K10 and K4 for
-// the base field and the proposal fields (F = 8, 5 levels). With 5 levels a
-// sample's items do not tile a warp, so K4's coords half adds its levels
-// with device-memory atomics into zeroed coords grads instead of shuffles.
+// the base field and the proposal fields (F = 8, 5 levels; K4's tables half
+// takes them through the same code). With 5 levels a sample's items do not
+// tile a warp, so K4's coords half adds its levels with device-memory
+// atomics into zeroed coords grads instead of shuffles.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
@@ -74,7 +89,6 @@ using factor_grid::Schedule;
 
 constexpr int kThreads = 128;
 constexpr int kBwdThreads = 256;
-constexpr int kSmallBytes = 48 * 1024;
 
 // K10's value of one level and axis: the Pallas kernel's hat row has two
 // nonzero entries, at i and i + 1, each rounded to bf16.
@@ -123,21 +137,63 @@ encode_kernel(const float* __restrict__ coords, int n, const __nv_bfloat16* __re
   factor_grid::warp_store<F>(stage[threadIdx.x / 32], feat, out, item - (threadIdx.x & 31), n_items);
 }
 
-template <int F, int L, bool kTables>
-__global__ void __launch_bounds__(kBwdThreads)
-encode_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
-                  const __nv_bfloat16* __restrict__ tables, Schedule s,
-                  float* __restrict__ g_tables,   // packed like `tables`
-                  float* __restrict__ g_coords) { // [N, 3]
-  // With L | 32 a sample's L items are neighbouring lanes of one warp, and
-  // a thread keeps its level across tiles.
-  constexpr bool kShuffle = 32 % L == 0;
-  extern __shared__ __align__(16) float s_small[];
-  const int t = threadIdx.x;
-  if constexpr (kTables) {
-    for (int e = t; e < s.small_elems; e += kBwdThreads) s_small[e] = 0.f;
-    __syncthreads();
+// K4's tables half: one thread per sample, the levels in a loop (K2's
+// mapping, see the header); every level's line grads through
+// scatter_two_rows.
+template <int F, int L>
+__global__ void __launch_bounds__(kThreads)
+encode_bwd_tables_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
+                         const __nv_bfloat16* __restrict__ tables, Schedule s,
+                         float* __restrict__ g_tables) {  // packed like `tables`
+  const int64_t sample = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool valid = sample < n;
+  // Past the last sample: u = 0, g = 0 and row -1 (every lane scatters).
+  float u[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) u[a] = valid ? fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f) : 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    float fa[3][F], wa[3];
+    int ia[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      float sl;
+      interp<F, false>(tables + s.offset[l][a], u[a], s.res[l], ia[a], wa[a], sl, fa[a], nullptr);
+    }
+    float gv[F];
+    if (valid) {
+      factor_grid::load_row_f32<F>(grad + (sample * L + l) * F, gv);
+    } else {
+#pragma unroll
+      for (int k = 0; k < F; ++k) gv[k] = 0.f;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int b = (a + 1) % 3, c = (a + 2) % 3;
+      const float w = wa[a];
+      float v[2 * F];  // (1 - w) G for row i, then w G for row i + 1
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        const float G = gv[k] * fa[b][k] * fa[c][k];
+        v[k] = (1.f - w) * G;
+        v[F + k] = w * G;
+      }
+      // g_tables comes from torch.zeros (aligned), offsets are multiples of F.
+      factor_grid::scatter_two_rows<F>(g_tables + s.offset[l][a], valid ? ia[a] : -1, v);
+    }
   }
+}
+
+// K4's coords half: one thread per (sample, level) item, blocks walking
+// over tiles.
+template <int F, int L>
+__global__ void __launch_bounds__(kBwdThreads)
+encode_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
+                         const __nv_bfloat16* __restrict__ tables, Schedule s,
+                         float* __restrict__ g_coords) {  // [N, 3]
+  // With L | 32 a sample's L items are neighbouring lanes of one warp.
+  constexpr bool kShuffle = 32 % L == 0;
+  const int t = threadIdx.x;
   const int64_t n_items = static_cast<int64_t>(n) * L;
   const int64_t num_tiles = (n_items + kBwdThreads - 1) / kBwdThreads;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
@@ -146,7 +202,6 @@ encode_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ gr
     const int64_t sample = item / L;
     const int l = static_cast<int>(item % L);
     const int res = s.res[l];
-    const bool small = l < s.n_small;
     float gu[3] = {0.f, 0.f, 0.f};
     if (valid) {
       float fa[3][F], da[3][F], wa[3], sa[3];
@@ -154,56 +209,32 @@ encode_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ gr
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const float u = fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f);
-        interp<F, !kTables>(tables + s.offset[l][a], u, res, ia[a], wa[a], sa[a], fa[a], da[a]);
+        interp<F, true>(tables + s.offset[l][a], u, res, ia[a], wa[a], sa[a], fa[a], da[a]);
       }
       float gv[F];
-      const float4* g4 = reinterpret_cast<const float4*>(grad + item * F);
-#pragma unroll
-      for (int q = 0; q < F / 4; ++q) {
-        const float4 v = g4[q];
-        gv[4 * q] = v.x;
-        gv[4 * q + 1] = v.y;
-        gv[4 * q + 2] = v.z;
-        gv[4 * q + 3] = v.w;
-      }
+      factor_grid::load_row_f32<F>(grad + item * F, gv);
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const int b = (a + 1) % 3, c = (a + 2) % 3;
-        if constexpr (kTables) {
-          const int off = s.offset[l][a] + ia[a] * F;
-          float* dst = small ? s_small + off : g_tables + off;
-          const float w = wa[a];
+        float acc = 0.f;
 #pragma unroll
-          for (int k = 0; k < F; ++k) {
-            const float G = gv[k] * fa[b][k] * fa[c][k];
-            atomicAdd(dst + k, (1.f - w) * G);
-            atomicAdd(dst + F + k, w * G);
-          }
-        } else {
-          float acc = 0.f;
-#pragma unroll
-          for (int k = 0; k < F; ++k) acc = fmaf(gv[k] * fa[b][k] * fa[c][k], da[a][k], acc);
-          gu[a] = acc;
-        }
+        for (int k = 0; k < F; ++k) acc = fmaf(gv[k] * fa[b][k] * fa[c][k], da[a][k], acc);
+        gu[a] = acc;
       }
     }
-    if constexpr (!kTables && kShuffle) {
+    if constexpr (kShuffle) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
       if (valid && l == 0) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
       }
-    } else if constexpr (!kTables) {  // g_coords zeroed by the caller
+    } else {  // g_coords zeroed by the caller
       if (valid) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) atomicAdd(g_coords + sample * 3 + a, gu[a]);
       }
     }
-  }
-  if constexpr (kTables) {
-    __syncthreads();
-    for (int e = t; e < s.small_elems; e += kBwdThreads) atomicAdd(g_tables + e, s_small[e]);
   }
 }
 
@@ -216,20 +247,24 @@ int launch_forward(const float* c, int n, const __nv_bfloat16* t, const Schedule
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int F, int L, bool kTables>
-int launch_backward(const float* c, const float* g, int n, const __nv_bfloat16* t,
-                    const Schedule& s, float* gt, float* gc, cudaStream_t stream) {
-  auto kernel = encode_bwd_kernel<F, L, kTables>;
-  const size_t bytes = kTables ? static_cast<size_t>(s.small_elems) * sizeof(float) : 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int F, int L>
+int launch_tables(const float* c, const float* g, int n, const __nv_bfloat16* t, const Schedule& s, float* gt,
+                  cudaStream_t stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  encode_bwd_tables_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, g, n, t, s, gt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int F, int L>
+int launch_coords(const float* c, const float* g, int n, const __nv_bfloat16* t, const Schedule& s, float* gc,
+                  cudaStream_t stream) {
+  auto kernel = encode_bwd_coords_kernel<F, L>;
   int resident = 0;
-  if ((err = factor_grid::resident_blocks(kernel, kBwdThreads, bytes, resident)) != cudaSuccess)
-    return static_cast<int>(err);
+  const cudaError_t err = factor_grid::resident_blocks(kernel, kBwdThreads, 0, resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = (static_cast<int64_t>(n) * L + kBwdThreads - 1) / kBwdThreads;
   const int grid = static_cast<int>(tiles < resident ? tiles : resident);
-  kernel<<<grid, kBwdThreads, bytes, stream>>>(c, g, n, t, s, gt, gc);
+  kernel<<<grid, kBwdThreads, 0, stream>>>(c, g, n, t, s, gc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,7 +279,7 @@ extern "C" int fused_factor_encode_forward(const void* coords, int n, const void
                                            const int* resolutions, int num_levels, int feat,
                                            void* out, void* stream) {
   Schedule s;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -261,7 +296,7 @@ extern "C" int factor_dense_encode_forward(const void* coords, int n, const void
                                            const int* resolutions, int num_levels, int feat,
                                            void* out, void* stream) {
   Schedule s;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -283,7 +318,7 @@ extern "C" int fused_factor_encode_backward(const void* coords, const void* grad
                                             void* g_coords, int mode, void* stream) {
   Schedule s;
   if (n < 0 || (mode != 0 && mode != 1) ||
-      !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -293,12 +328,12 @@ extern "C" int fused_factor_encode_backward(const void* coords, const void* grad
   auto* gc = static_cast<float*>(g_coords);
   auto st = static_cast<cudaStream_t>(stream);
   if (feat == 16 && num_levels == 8) {  // base field
-    if (mode == 0) return launch_backward<16, 8, true>(c, g, n, t, s, gt, gc, st);
-    return launch_backward<16, 8, false>(c, g, n, t, s, gt, gc, st);
+    if (mode == 0) return launch_tables<16, 8>(c, g, n, t, s, gt, st);
+    return launch_coords<16, 8>(c, g, n, t, s, gc, st);
   }
   if (feat == 8 && num_levels == 5) {  // proposal fields (K10's backward)
-    if (mode == 0) return launch_backward<8, 5, true>(c, g, n, t, s, gt, gc, st);
-    return launch_backward<8, 5, false>(c, g, n, t, s, gt, gc, st);
+    if (mode == 0) return launch_tables<8, 5>(c, g, n, t, s, gt, st);
+    return launch_coords<8, 5>(c, g, n, t, s, gc, st);
   }
   return cudaErrorInvalidValue;
 }

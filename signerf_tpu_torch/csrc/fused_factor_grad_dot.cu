@@ -35,18 +35,35 @@
 // F = 16, tables in L2): K5 reads g, N x 512 bytes (about 100 MB per
 // signerf micro-batch), and writes 12 bytes a sample, so it is a read of
 // g; K6's tables half reads g, writes grad_g (another 100 MB) and makes
-// 2 x 3 x 8 x 16 scattered f32 additions per sample, which bound it.
+// 2 x 3 x 8 x 16 scattered f32 additions per sample, which bound it unless
+// runs of lanes share them.
 //
-// The design is K3 and K4's (fused_factor_encode.cu): one thread per
-// (sample, level) item, item = n L + l, reading its 64 contiguous bytes of
-// g; a sample's L items are neighbouring lanes, summed with warp shuffles
-// (K5, K6 coords, no atomics); grad_g is stored cooperatively per warp
-// through shared memory; line grads of the first levels (up to 48 KB) are
-// summed with shared-memory atomics by blocks that walk over tiles and
-// flush once, the larger levels' straight into device memory.
+// The design of K5 and K6's coords half is K3's (fused_factor_encode.cu):
+// one thread per (sample, level) item, item = n L + l, reading its 64
+// contiguous bytes of g; a sample's L items are neighbouring lanes, summed
+// with warp shuffles (no atomics).
+//
+// K6's tables half is K2's scatter (fused_factor_density_bwd.cu), as K4's:
+// one thread per sample and the levels in a loop, so a warp's lanes are 32
+// consecutive samples, which a train step lays out ray by ray (48 a ray),
+// and at the coarse levels fall on one or two runs of the same row. Per
+// level and axis each lane forms its two rows' values, (1 - w) G_hat -
+// s G_dhat and w G_hat + s G_dhat, factor_grid::scatter_two_rows sums them
+// over each run of lanes on one row with shuffles (warp_run_sum) and the
+// run's first lane adds the sums into device memory with 16-byte vector
+// reductions (red_add_row, resolved in L2). No shared memory and no scalar
+// atomics (the first design's shared f32 atomicAdd was a compare-and-swap
+// loop on sm_90a, on which a ray's lanes serialized). A thread reads its
+// sample's g row of each level and writes its grad_g row (64 bytes each,
+// two whole sectors) at a 512-byte stride from its neighbours'. A thread
+// holds fa[3][F], da[3][F], g[F] and the two rows' values v[2 F] of one
+// level: ptxas gives the base field's kernel 194 registers and no spills
+// (two 4-warp blocks an SM), so it takes K2's mapping, one code shape for
+// K2, K4 and K6, over a warp per level (32 samples of one level a warp).
 //
 // Determinism: K5 and the coords half are deterministic; the tables
-// half's line grads are reproducible to f32 rounding only (atomics).
+// half's line grads are reproducible to f32 rounding only (the reductions
+// add in an order that changes from run to run); grad_g is deterministic.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
@@ -65,21 +82,6 @@ using factor_grid::Schedule;
 
 constexpr int kThreads = 128;
 constexpr int kBwdThreads = 256;
-constexpr int kSmallBytes = 48 * 1024;
-
-// One item's g row (F floats at item * F).
-template <int F>
-__device__ __forceinline__ void load_g(const float* __restrict__ grad, int64_t item, float* gv) {
-  const float4* g4 = reinterpret_cast<const float4*>(grad + item * F);
-#pragma unroll
-  for (int q = 0; q < F / 4; ++q) {
-    const float4 v = g4[q];
-    gv[4 * q] = v.x;
-    gv[4 * q + 1] = v.y;
-    gv[4 * q + 2] = v.z;
-    gv[4 * q + 3] = v.w;
-  }
-}
 
 template <int F>
 __device__ __forceinline__ void interp3(const __nv_bfloat16* __restrict__ tables, const Schedule& s,
@@ -107,7 +109,7 @@ grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad
     float fa[3][F], da[3][F], wa[3], sa[3], gv[F];
     int ia[3];
     interp3<F>(tables, s, l, coords, sample, ia, wa, sa, fa, da);
-    load_g<F>(grad, item, gv);
+    factor_grid::load_row_f32<F>(grad + item * F, gv);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const int b = (a + 1) % 3, c = (a + 2) % 3;
@@ -123,24 +125,80 @@ grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad
   }
 }
 
-template <int F, int L, bool kTables>
-__global__ void __launch_bounds__(kBwdThreads)
-grad_dot_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
-                    const float* __restrict__ ct, int n, const __nv_bfloat16* __restrict__ tables,
-                    Schedule s,
-                    float* __restrict__ g_tables,   // packed like `tables`
-                    float* __restrict__ g_g,        // [N, L F]
-                    float* __restrict__ g_coords) { // [N, 3]
-  static_assert(kBwdThreads % L == 0, "a thread keeps its level across tiles");
-  __shared__ __align__(16) float stage[kTables ? kBwdThreads / 32 : 1][32 * (F + 4)];
-  extern __shared__ __align__(16) float s_small[];
-  const int t = threadIdx.x;
-  if constexpr (kTables) {
-    for (int e = t; e < s.small_elems; e += kBwdThreads) s_small[e] = 0.f;
-    __syncthreads();
+// K6's tables half and grad_g: one thread per sample, the levels in a loop
+// (K2's mapping, see the header); every level's line grads through
+// scatter_two_rows.
+template <int F, int L>
+__global__ void __launch_bounds__(kThreads)
+grad_dot_bwd_tables_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
+                           const float* __restrict__ ct, int n, const __nv_bfloat16* __restrict__ tables,
+                           Schedule s,
+                           float* __restrict__ g_tables,  // packed like `tables`
+                           float* __restrict__ g_g) {     // [N, L F]
+  const int64_t sample = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool valid = sample < n;
+  // Past the last sample: u = 0, ct = 0 and row -1 (every lane scatters).
+  float u[3], cv[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    u[a] = valid ? fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f) : 0.f;
+    cv[a] = valid ? ct[sample * 3 + a] : 0.f;
   }
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    float fa[3][F], da[3][F], wa[3], sa[3], gv[F];
+    int ia[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      interp<F, true>(tables + s.offset[l][a], u[a], s.res[l], ia[a], wa[a], sa[a], fa[a], da[a]);
+    const int64_t item = sample * L + l;
+    if (valid) {
+      factor_grid::load_row_f32<F>(grad + item * F, gv);
+      float4* out = reinterpret_cast<float4*>(g_g + item * F);
+#pragma unroll
+      for (int q = 0; q < F / 4; ++q) {
+        float gg[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 4 * q + e;
+          gg[e] = cv[0] * da[0][k] * fa[1][k] * fa[2][k] + cv[1] * fa[0][k] * da[1][k] * fa[2][k] +
+                  cv[2] * fa[0][k] * fa[1][k] * da[2][k];
+        }
+        out[q] = make_float4(gg[0], gg[1], gg[2], gg[3]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < F; ++k) gv[k] = 0.f;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int b = (a + 1) % 3, c = (a + 2) % 3;
+      const float w = wa[a], sl = sa[a];
+      float v[2 * F];  // row i's value, then row i + 1's
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        const float g_hat = cv[b] * gv[k] * da[b][k] * fa[c][k] + cv[c] * gv[k] * da[c][k] * fa[b][k];
+        const float g_dhat = cv[a] * gv[k] * fa[b][k] * fa[c][k];
+        v[k] = (1.f - w) * g_hat - sl * g_dhat;
+        v[F + k] = w * g_hat + sl * g_dhat;
+      }
+      // g_tables comes from torch.zeros (aligned), offsets are multiples of F.
+      factor_grid::scatter_two_rows<F>(g_tables + s.offset[l][a], valid ? ia[a] : -1, v);
+    }
+  }
+}
+
+// K6's coords half: one thread per (sample, level) item, blocks walking
+// over tiles; a sample's levels summed with shuffles.
+template <int F, int L>
+__global__ void __launch_bounds__(kBwdThreads)
+grad_dot_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
+                           const float* __restrict__ ct, int n, const __nv_bfloat16* __restrict__ tables,
+                           Schedule s,
+                           float* __restrict__ g_coords) {  // [N, 3]
+  static_assert(kBwdThreads % L == 0, "a thread keeps its level across tiles");
+  const int t = threadIdx.x;
   const int l = t % L;
-  const bool small = l < s.n_small;
   const int64_t n_items = static_cast<int64_t>(n) * L;
   const int64_t num_tiles = (n_items + kBwdThreads - 1) / kBwdThreads;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
@@ -151,59 +209,28 @@ grad_dot_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ 
     int ia[3];
     if (valid) {
       interp3<F>(tables, s, l, coords, sample, ia, wa, sa, fa, da);
-      load_g<F>(grad, item, gv);
+      factor_grid::load_row_f32<F>(grad + item * F, gv);
 #pragma unroll
       for (int a = 0; a < 3; ++a) cv[a] = ct[sample * 3 + a];
     }
-    if constexpr (kTables) {
-      float gg[F];
+    float gu[3] = {0.f, 0.f, 0.f};
+    if (valid) {
 #pragma unroll
-      for (int k = 0; k < F; ++k) {
-        gg[k] = valid ? cv[0] * da[0][k] * fa[1][k] * fa[2][k] + cv[1] * fa[0][k] * da[1][k] * fa[2][k] +
-                            cv[2] * fa[0][k] * fa[1][k] * da[2][k]
-                      : 0.f;
-      }
-      factor_grid::warp_store<F>(stage[t / 32], gg, g_g, item - (t & 31), n_items);
-      if (valid) {
+      for (int a = 0; a < 3; ++a) {
+        const int b = (a + 1) % 3, c = (a + 2) % 3;
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const int b = (a + 1) % 3, c = (a + 2) % 3;
-          const int off = s.offset[l][a] + ia[a] * F;
-          float* dst = small ? s_small + off : g_tables + off;
-          const float w = wa[a], sl = sa[a];
-#pragma unroll
-          for (int k = 0; k < F; ++k) {
-            const float g_hat = cv[b] * gv[k] * da[b][k] * fa[c][k] + cv[c] * gv[k] * da[c][k] * fa[b][k];
-            const float g_dhat = cv[a] * gv[k] * fa[b][k] * fa[c][k];
-            atomicAdd(dst + k, (1.f - w) * g_hat - sl * g_dhat);
-            atomicAdd(dst + F + k, w * g_hat + sl * g_dhat);
-          }
+        for (int k = 0; k < F; ++k) {
+          const float g_hat = cv[b] * gv[k] * da[b][k] * fa[c][k] + cv[c] * gv[k] * da[c][k] * fa[b][k];
+          gu[a] = fmaf(g_hat, da[a][k], gu[a]);
         }
-      }
-    } else {
-      float gu[3] = {0.f, 0.f, 0.f};
-      if (valid) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const int b = (a + 1) % 3, c = (a + 2) % 3;
-#pragma unroll
-          for (int k = 0; k < F; ++k) {
-            const float g_hat = cv[b] * gv[k] * da[b][k] * fa[c][k] + cv[c] * gv[k] * da[c][k] * fa[b][k];
-            gu[a] = fmaf(g_hat, da[a][k], gu[a]);
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
-      if (valid && l == 0) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
       }
     }
-  }
-  if constexpr (kTables) {
-    __syncthreads();
-    for (int e = t; e < s.small_elems; e += kBwdThreads) atomicAdd(g_tables + e, s_small[e]);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
+    if (valid && l == 0) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
+    }
   }
 }
 
@@ -216,20 +243,24 @@ int launch_forward(const float* c, const float* g, int n, const __nv_bfloat16* t
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int F, int L, bool kTables>
-int launch_backward(const float* c, const float* g, const float* ct, int n, const __nv_bfloat16* t,
-                    const Schedule& s, float* gt, float* gg, float* gc, cudaStream_t stream) {
-  auto kernel = grad_dot_bwd_kernel<F, L, kTables>;
-  const size_t bytes = kTables ? static_cast<size_t>(s.small_elems) * sizeof(float) : 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int F, int L>
+int launch_tables(const float* c, const float* g, const float* ct, int n, const __nv_bfloat16* t,
+                  const Schedule& s, float* gt, float* gg, cudaStream_t stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  grad_dot_bwd_tables_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, g, ct, n, t, s, gt, gg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int F, int L>
+int launch_coords(const float* c, const float* g, const float* ct, int n, const __nv_bfloat16* t,
+                  const Schedule& s, float* gc, cudaStream_t stream) {
+  auto kernel = grad_dot_bwd_coords_kernel<F, L>;
   int resident = 0;
-  if ((err = factor_grid::resident_blocks(kernel, kBwdThreads, bytes, resident)) != cudaSuccess)
-    return static_cast<int>(err);
+  const cudaError_t err = factor_grid::resident_blocks(kernel, kBwdThreads, 0, resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = (static_cast<int64_t>(n) * L + kBwdThreads - 1) / kBwdThreads;
   const int grid = static_cast<int>(tiles < resident ? tiles : resident);
-  kernel<<<grid, kBwdThreads, bytes, stream>>>(c, g, ct, n, t, s, gt, gg, gc);
+  kernel<<<grid, kBwdThreads, 0, stream>>>(c, g, ct, n, t, s, gc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,7 +275,7 @@ extern "C" int fused_factor_grad_dot_forward(const void* coords, const void* gra
                                              const void* tables, const int* resolutions,
                                              int num_levels, int feat, void* out, void* stream) {
   Schedule s;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -266,7 +297,7 @@ extern "C" int fused_factor_grad_dot_backward(const void* coords, const void* gr
                                               void* g_coords, int mode, void* stream) {
   Schedule s;
   if (n < 0 || (mode != 0 && mode != 1) ||
-      !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -278,8 +309,8 @@ extern "C" int fused_factor_grad_dot_backward(const void* coords, const void* gr
   auto* gc = static_cast<float*>(g_coords);
   auto st = static_cast<cudaStream_t>(stream);
   if (feat == 16 && num_levels == 8) {  // base field
-    if (mode == 0) return launch_backward<16, 8, true>(c, g, k, n, t, s, gt, gg, gc, st);
-    return launch_backward<16, 8, false>(c, g, k, n, t, s, gt, gg, gc, st);
+    if (mode == 0) return launch_tables<16, 8>(c, g, k, n, t, s, gt, gg, st);
+    return launch_coords<16, 8>(c, g, k, n, t, s, gc, st);
   }
   return cudaErrorInvalidValue;
 }

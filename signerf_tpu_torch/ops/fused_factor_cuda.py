@@ -28,13 +28,14 @@ sample, takes the MLP VJP at the Pallas kernel's bf16 rounding points with
 the MLP products on the tensor cores, keeps dW/db per block and flushes
 them once per block, and sums the line grads over runs of lanes on the
 same row before adding them into device memory with vector reductions (so
-its sums are reproducible to f32 rounding, not bitwise). K3 to K6 run one
-thread per (sample, level), keep K1's taps and f32 contract, and K4 and K6
-sum their small levels' line grads with shared-memory atomics and the
-large levels' with device-memory atomics. K5, K6 and the
-coords halves of K4 and K6 take the derivative of an axis' value as 0 at
-an exact knot, as both JAX versions do (K2's coords half takes the slope
-of the cell K1 reads there).
+its sums are reproducible to f32 rounding, not bitwise). K3, K5 and the
+coords halves of K4 and K6 run one thread per (sample, level). The tables
+halves of K4 and K6 take K2's scatter: one thread per sample with the
+levels in a loop, the line grads summed over runs of lanes on one row and
+added with vector reductions into L2, no shared-memory atomics. All keep
+K1's taps and f32 contract. K5, K6 and the coords halves of K4 and K6 take
+the derivative of an axis' value as 0 at an exact knot, as both JAX
+versions do (K2's coords half takes the slope of the cell K1 reads there).
 
 The TPU kernels' dense-hat block GEMM, 9-row one-hot GEMM, transposed
 [D, N] layout and packed small/large grad layout existed only because the
@@ -307,6 +308,7 @@ def encode_bwd_cuda(
     common = (x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat)
     g_tables = g_coords = None
     if tables_half:
+        # torch.zeros is 16-byte aligned, as the float4 reductions into its rows need
         g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=device)
         _launch("fused_factor_encode", "fused_factor_encode_backward", device,
                 *common, g_tables.data_ptr(), None, 0)
@@ -358,6 +360,7 @@ def grad_dot_bwd_cuda(
               len(resolutions), feat)
     g_tables = g_g = g_coords = None
     if tables_half:
+        # torch.zeros is 16-byte aligned, as the float4 reductions into its rows need
         g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=device)
         g_g = torch.empty_like(g)
         _launch("fused_factor_grad_dot", "fused_factor_grad_dot_backward", device,

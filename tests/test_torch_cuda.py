@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: K1 to K10 against their plain
 twins, their input checks, one model chunk through K1, one train step
-through K1 and K2, K2's tables half at ray-ordered and one-cell coordinates
-and its run-to-run spread, K7 at every ragged tail of its tiles on strided
-views, one `signerf` micro-batch and eval chunk through K1 to K6, K8 and K9
-against K5 and K6, and the entry points of K8 to K10.
+through K1 and K2, the tables halves of K2, K4 and K6 at ray-ordered and
+one-cell coordinates and their run-to-run spread, K7 at every ragged tail
+of its tiles on strided views, one `signerf` micro-batch and eval chunk
+through K1 to K6, K8 and K9 against K5 and K6, and the entry points of K8
+to K10.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -190,14 +191,13 @@ def k2_layout_args(name, layout, device):
     return res, feat, tables, w0, b0, w1, x.to(device), g.to(device)
 
 
-def k2_tables_f64(args, chunk=2048):
-    """The tables half from the plain twin with the sums over samples in
-    float64: the twin on chunks of `chunk` samples, added in float64."""
-    res, feat, tables, w0, b0, w1, x, g = args
+def f64_chunk_sum(twin, n, chunk=2048):
+    """A plain twin's sums over samples in float64: `twin(part)` gives a list
+    of tensors for the samples in slice `part`, run on chunks of `chunk`
+    samples and added in float64."""
     total = None
-    for s in range(0, x.shape[0], chunk):
-        lines, ws, _ = ffc.density_mlp_bwd_plain(res, feat, tables, w0, b0, w1, x[s : s + chunk], g[s : s + chunk])
-        part = [lines.double(), *(t.double() for t in ws)]
+    for s in range(0, n, chunk):
+        part = [t.double() for t in twin(slice(s, s + chunk))]
         total = part if total is None else [a + b for a, b in zip(total, part)]
     return total
 
@@ -215,8 +215,13 @@ def test_k2_tables_half_at_ray_ordered_and_one_cell_coordinates(cuda, name, layo
     got = ffc.density_mlp_bwd_cuda(*args)
     torch.cuda.synchronize()
     assert ffc.bwd_table_launches == t0 + 1
-    want = ffc.density_mlp_bwd_plain(*args)
-    want = [want[0], *want[1]] if layout == "ray-ordered" else k2_tables_f64(args)
+    res, feat, tables, w0, b0, w1, x, g = args
+
+    def twin(p):
+        lines, ws, _ = ffc.density_mlp_bwd_plain(res, feat, tables, w0, b0, w1, x[p], g[p])
+        return [lines, *ws]
+
+    want = twin(slice(None)) if layout == "ray-ordered" else f64_chunk_sum(twin, x.shape[0])
     for a, b in zip([got[0], *got[1]], want):
         assert a.shape == b.shape and bool(torch.isfinite(a).all())
         assert rel(a, b) < 1e-4  # f32 sums in another order, per leaf
@@ -342,6 +347,68 @@ def test_k4_and_k6_match_plain_twins(cuda, n):
         assert rel(a, b) < 1e-4
     only_tables = ffc.grad_dot_bwd_cuda(*args, g, ct)
     assert only_tables[2] is None and only_tables[1] is not None
+
+
+def k46_layout_args(name, layout, device, seed=5):
+    """Tables of `name`'s schedule, x01 at `layout` (the train step's samples
+    a ray: 48 for the base field, 256 for the proposal), g and ct."""
+    if name == "final":
+        (res, feat, tables, _), _, _ = encode_args(4, device, seed)
+    else:
+        res, feat, tables, *_ = make_args(name, 4, device, seed)
+    x = ray_ordered_x01(1024, K2_PER_RAY[name], seed) if layout == "ray-ordered" else one_cell_x01(100_003, res, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn(x.shape[0], len(res) * feat, generator=gen)
+    ct = torch.randn(x.shape[0], 3, generator=gen)
+    return (res, feat, tables, x.to(device)), g.to(device), ct.to(device)
+
+
+@pytest.mark.parametrize("layout", ["ray-ordered", "one cell"])
+@pytest.mark.parametrize("name", ["final", "proposal"])
+def test_k4_and_k6_tables_halves_at_ray_ordered_and_one_cell_coordinates(cuda, name, layout):
+    """The tables halves where their warp-aggregated scatter matters: each
+    ray's samples on consecutive lanes, and every sample on the same two
+    rows of each level and axis (there against the twin's terms summed in
+    float64, since N f32 additions into one row stray on their own). K6 and
+    grad_g on the base field; K4 also at the proposal schedule (K10's
+    backward)."""
+    args, g, ct = k46_layout_args(name, layout, cuda)
+    t4, t6 = ffc.encode_bwd_table_launches, ffc.grad_dot_bwd_table_launches
+    got = {"K4": ffc.encode_bwd_cuda(*args, g)[0]}
+    if name == "final":
+        got["K6"], got["grad_g"], _ = ffc.grad_dot_bwd_cuda(*args, g, ct)
+    torch.cuda.synchronize()
+    assert ffc.encode_bwd_table_launches == t4 + 1
+    assert ffc.grad_dot_bwd_table_launches == t6 + (name == "final")
+    if layout == "ray-ordered":
+        want = {"K4": ffc.encode_bwd_plain(*args, g)[0]}
+        if name == "final":
+            want["K6"], want["grad_g"], _ = ffc.grad_dot_bwd_plain(*args, g, ct)
+    else:
+        res, feat, tables, x = args
+        want = {"K4": f64_chunk_sum(lambda p: [ffc.encode_bwd_plain(res, feat, tables, x[p], g[p])[0]], len(x))[0]}
+        if name == "final":
+            want["K6"] = f64_chunk_sum(lambda p: [ffc.grad_dot_bwd_plain(res, feat, tables, x[p], g[p], ct[p])[0]],
+                                       len(x))[0]
+            want["grad_g"] = ffc.grad_dot_bwd_plain(*args, g, ct)[1]
+    for leaf, a in got.items():
+        assert a.shape == want[leaf].shape and bool(torch.isfinite(a).all())
+        assert rel(a, want[leaf]) < 1e-4, leaf  # f32 sums in another order, per leaf
+
+
+def test_k4_and_k6_run_to_run_spread_is_f32_rounding(cuda):
+    """The same ray-ordered inputs twice: the vector reductions add in
+    another order each run, so the line grads differ, but only by f32
+    rounding of the twin's scale; grad_g is the same bit for bit."""
+    args, g, ct = k46_layout_args("final", "ray-ordered", cuda)
+    first4, second4 = ffc.encode_bwd_cuda(*args, g)[0], ffc.encode_bwd_cuda(*args, g)[0]
+    first6, second6 = ffc.grad_dot_bwd_cuda(*args, g, ct)[:2], ffc.grad_dot_bwd_cuda(*args, g, ct)[:2]
+    torch.cuda.synchronize()
+    want4 = ffc.encode_bwd_plain(*args, g)[0]
+    want6 = ffc.grad_dot_bwd_plain(*args, g, ct)[0]
+    assert float((first4 - second4).abs().max()) <= 1e-5 * float(want4.abs().max())
+    assert float((first6[0] - second6[0]).abs().max()) <= 1e-5 * float(want6.abs().max())
+    assert torch.equal(first6[1], second6[1])
 
 
 def test_k3_to_k6_refuse_what_they_do_not_take(cuda):

@@ -1,7 +1,8 @@
 """The gradient-normals slice on the CPU: the plain twins of K3 to K6 (the
 contracts the CUDA kernels follow) against the JAX package's XLA
-expressions and against its Pallas TPU kernels in interpret mode; the
-autograd Functions around them; the closed-form Jacobian of the scene
+expressions and against its Pallas TPU kernels in interpret mode (K4 and
+K6 also at the layouts their tables halves' scatter is built for: samples
+in ray order and all in one cell); the autograd Functions around them; the closed-form Jacobian of the scene
 contraction; and `factor_density_geo_and_grad` in both of its routes.
 
 Inputs are made with numpy from a seed and handed to both frameworks. The
@@ -11,6 +12,8 @@ Pallas kernels round hat, dhat and their GEMM operands to bf16 on the small
 levels. Gradient-like outputs are compared per leaf by norm-relative error:
 one flipped bf16 rounding moves single elements by O(value).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -207,6 +210,64 @@ def test_k6_twin_matches_pallas_interpret():
         assert rel(a, b) < 0.01, rel(a, b)  # bf16 GEMM operands there: measured up to 0.0030
     assert rel(g_g, gg) < 0.01  # measured 0.00015
     assert rel(g_x, gx) < 0.01  # the same knot rule, boundary rows included: measured 1.4e-5
+
+
+# ---------------------------------------------------------------------------
+# K4 and K6 at the layouts their tables halves' scatter is built for
+# ---------------------------------------------------------------------------
+
+LAYOUTS = ["ray-ordered", "one cell"]
+# Line grads, twin against interpret-mode Pallas, per leaf: Pallas rounds G
+# (or w G) or its GEMM operands to bf16, 2^-9 of each term. In one cell all
+# 256 samples' terms of random sign meet in two rows, so that rounding is
+# measured against a sum smaller than its terms: measured up to 0.0045
+# (ray-ordered) and 0.0157 (one cell) over seeds 20 to 22.
+LINES_TOL = {"ray-ordered": 0.01, "one cell": 0.03}
+
+
+def layout_case(layout, seed, n=256):
+    """make_case with other sample positions: in ray order (32 consecutive
+    samples a "ray", in order along a line between two random points of
+    the cube), or all inside one cell of every level."""
+    jcfg, tcfg, lines, _, g, ct = make_case(n=n, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    if layout == "ray-ordered":
+        a, b = rng.random((n // 32, 1, 3)), rng.random((n // 32, 1, 3))
+        t = np.sort(rng.random((n // 32, 32, 1)), axis=1)
+        return jcfg, tcfg, lines, (a + (b - a) * t).reshape(n, 3).astype(np.float32), g, ct
+    width = 1e-4
+    for k in range(1000):
+        c = 0.3 + 1e-3 * k
+        if all(math.floor(c * (r - 1)) == math.floor((c + width) * (r - 1)) and c * (r - 1) % 1 > 1e-3
+               for r in tcfg.resolutions):
+            return jcfg, tcfg, lines, (c + width * rng.random((n, 3))).astype(np.float32), g, ct
+    raise AssertionError("no point lies inside one cell of every level")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k4_twin_matches_pallas_interpret_at_layout(layout):
+    jcfg, tcfg, lines, x, g, _ = layout_case(layout, seed=20)
+    grad_packed, gx = ffp.fused_factor_encode_bwd_tpu(
+        jcfg.resolutions, F, ffp.pack_tables(jcfg.resolutions, jlines(lines)), jnp.asarray(x), jnp.asarray(g), True)
+    gl = ffp.unpack_table_grads(jcfg.resolutions, grad_packed, F)
+    g_tables, g_x = ffc.encode_bwd_plain(*packed(tcfg, lines), torch.from_numpy(x), torch.from_numpy(g), True, True)
+    for a, b in zip(leaves(unpack(tcfg, g_tables)), leaves(gl)):
+        assert rel(a, b) < LINES_TOL[layout], rel(a, b)
+    assert rel(g_x.numpy(), np.asarray(gx)) < 0.01  # measured up to 0.0011
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k6_twin_matches_pallas_interpret_at_layout(layout):
+    jcfg, tcfg, lines, x, g, ct = layout_case(layout, seed=21)
+    grad_packed, gx, gg = ffp.fused_factor_grad_dot_bwd_tpu(
+        jcfg.resolutions, F, ffp.pack_tables(jcfg.resolutions, jlines(lines)), jnp.asarray(x),
+        jnp.asarray(g), jnp.asarray(ct), True)
+    gl = ffp.unpack_table_grads(jcfg.resolutions, grad_packed, F)
+    lines_t, g_x, g_g = _k6_twin(tcfg, lines, x, g, ct)
+    for a, b in zip(lines_t, leaves(gl)):
+        assert rel(a, b) < LINES_TOL[layout], rel(a, b)
+    assert rel(g_g, gg) < 0.01  # measured up to 0.0011
+    assert rel(g_x, gx) < 0.01  # measured up to 2.4e-5
 
 
 # ---------------------------------------------------------------------------
