@@ -14,13 +14,14 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// One table row of F bf16 values (F * 2 bytes, a multiple of 16) -> f32.
-template <int F>
+// One table row of F bf16 values (F * 2 bytes, a multiple of 16) -> f32,
+// through the read-only path (kGlobal) or from shared memory.
+template <int F, bool kGlobal = true>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* row, float* out) {
   const uint4* src = reinterpret_cast<const uint4*>(row);
 #pragma unroll
   for (int v = 0; v < F / 8; ++v) {
-    const uint4 raw = __ldg(src + v);
+    const uint4 raw = kGlobal ? __ldg(src + v) : src[v];
     const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -66,6 +67,69 @@ __device__ __forceinline__ void interp(const __nv_bfloat16* __restrict__ line, f
   }
 }
 
+// (1 - w) r0 + w r1 with each product rounded, as the plain twin takes
+// it: a contracted FMA rounds once, and that flips the bf16 rounding of
+// some features against the twin's (one value for every sample of a cell).
+// K1's features and K2's recompute of them take it, so bf16(feat) is the
+// twin's bit for bit in both.
+__device__ __forceinline__ float lerp(float r0, float r1, float w) {
+  return __fadd_rn(__fmul_rn(1.f - w, r0), __fmul_rn(w, r1));
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core helpers (K1, K2): mma.sync.m16n8k16 bf16 and its ldmatrix
+// fragments, on bf16 tiles in shared memory.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a b: a 16x16 (row fragment), b 16x8 (column fragment), f32 sums.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  if constexpr (kTrans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(p)));
+  }
+}
+
+// The A fragment of rows [m0, m0 + 16) x cols [k0, k0 + 16) of a matrix
+// stored [m][k] (row stride `ld` values).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s, int ld, int m0, int k0, int lane) {
+  ldsm<false>(a, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 + (lane >> 4) * 8);
+}
+// ... of a matrix stored transposed, [k][m].
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const __nv_bfloat16* s, int ld, int m0, int k0, int lane) {
+  ldsm<true>(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8);
+}
+// The B fragments of k [k0, k0 + 16) x n [n0, n0 + 16) (two n-tiles of 8:
+// b[0], b[1] for n0 and b[2], b[3] for n0 + 8) of a matrix stored [k][n].
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16* s, int ld, int k0, int n0, int lane) {
+  ldsm<true>(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+}
+// ... of a matrix stored [n][k].
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16* s, int ld, int k0, int n0, int lane) {
+  ldsm<false>(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
+}
+
 // The packed tables' level schedule: resolutions and the element offset of
 // each [R_l, F] table (level-major, then axis), and the prefix of levels
 // whose line grads fit `small_bytes` of shared memory.
@@ -100,35 +164,132 @@ inline bool make_schedule(const int* resolutions, int num_levels, int feat, int 
   return true;
 }
 
-// Work items are (sample, level) pairs, item = sample * L + level, one per
-// thread, so the F values of an item sit at out[item * F] of an [N, L * F]
-// row-major output and a warp's 32 items cover one contiguous span. The
-// warp stores that span cooperatively: each lane parks its F values in
-// `stage` (32 x (F + 4) floats of shared memory, rows padded so that the
-// quarter-warps' 16-byte stores hit distinct banks), then every lane
-// writes consecutive 16-byte pieces of the span, so each store
-// instruction covers 512 contiguous bytes. Items at or past `n_items` are
-// not written. Every lane of the warp must call it.
-template <int F>
-__device__ __forceinline__ void warp_store(float* stage, const float* v, float* __restrict__ out,
-                                           int64_t warp_item0, int64_t n_items) {
-  static_assert(F % 4 == 0, "16-byte pieces");
-  constexpr int S = F + 4;
-  constexpr int Q = F / 4;
-  const int lane = threadIdx.x & 31;
-  float4* mine = reinterpret_cast<float4*>(stage + lane * S);
+// ---------------------------------------------------------------------------
+// The encode tile (K1, K3, K10): the features of kTile samples, computed by
+// kThreads threads into a tile in shared memory.
+
+// Eight features of one level and axis: columns [c, c + 8) of rows i and
+// i + 1 of `line` ([R, F] bf16), one 16-byte load each, at K1's taps. K1
+// and K3 take the rounded lerp; K10 (kDenseHat) the dense-hat contract, its
+// two hat weights rounded to bf16 and the exact products summed in f32.
+template <bool kDenseHat, bool kGlobal>
+__device__ __forceinline__ void axis8(const __nv_bfloat16* line, int feat, int c, float u, int res,
+                                      float (&f)[8]) {
+  int i;
+  float w;
+  tap(u, res, i, w);
+  float r0[8], r1[8];
+  load_row<8, kGlobal>(line + i * feat + c, r0);
+  load_row<8, kGlobal>(line + (i + 1) * feat + c, r1);
+  if constexpr (kDenseHat) {
+    const float x = __fmul_rn(u, static_cast<float>(res - 1));
+    const float h0 = round_bf16(1.f - fabsf(x - static_cast<float>(i)));
+    const float h1 = round_bf16(1.f - fabsf(x - static_cast<float>(i + 1)));
 #pragma unroll
-  for (int q = 0; q < Q; ++q) mine[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  __syncwarp();
-  float4* dst = reinterpret_cast<float4*>(out + warp_item0 * F);
+    for (int k = 0; k < 8; ++k) f[k] = fmaf(h0, r0[k], h1 * r1[k]);  // exact products
+  } else {
 #pragma unroll
-  for (int k = 0; k < Q; ++k) {
-    const int j = k * 32 + lane;
-    const int src = j / Q;
-    if (warp_item0 + src < n_items) dst[j] = reinterpret_cast<const float4*>(stage + src * S)[j % Q];
+    for (int k = 0; k < 8; ++k) f[k] = lerp(r0[k], r1[k], w);
   }
-  __syncwarp();
 }
+
+// Features [c, c + 8) of level l at coordinates u[0, 3): the three axes'
+// values multiplied in the twin's order, (f_x f_y) f_z. `tab` is packed as
+// the tables are, in device memory (kGlobal) or shared memory.
+template <int F, bool kDenseHat, bool kGlobal>
+__device__ __forceinline__ void part8(const __nv_bfloat16* tab, const Schedule& sc, int l, int c, const float* u,
+                                      float (&v)[8]) {
+  const int res = sc.res[l];
+  axis8<kDenseHat, kGlobal>(tab + sc.offset[l][0], F, c, u[0], res, v);
+#pragma unroll
+  for (int a = 1; a < 3; ++a) {
+    float f[8];
+    axis8<kDenseHat, kGlobal>(tab + sc.offset[l][a], F, c, u[a], res, f);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] *= f[k];
+  }
+}
+
+// The features of the kTile samples whose clamped coordinates are in
+// s_u [kTile][3], in parts of eight: part (s, l, h) is features
+// [8 h, 8 h + 8) of level l of sample s, so each of its six rows (two per
+// axis) is one 16-byte load, and the two parts of an F = 16 level read each
+// 32-byte row (one sector) whole from neighbouring lanes. The parts are
+// level-major: the lanes of a warp take consecutive samples at one level,
+// so samples in ray order, and every sample at the coarse levels, meet on a
+// few rows (fewer cache lines a load instruction). Each thread keeps one
+// sample and part and walks over the levels of its group of threads (all
+// levels when the block has one thread a part of a level, so that each
+// level's schedule entries are constants of the unrolled loop).
+// `store(s, l, h, v)` puts part (s, l, h) away as 8 f32 values v. With
+// kShared, levels [0, n_shared) read their tables from `s_tab` (shared
+// memory, packed as `tables`); without, that branch is not compiled
+// (compiled in, it slowed K1 on the H100; PERF.md).
+template <int F, int L, int kTile, int kThreads, bool kDenseHat, bool kShared, typename Store>
+__device__ __forceinline__ void encode_tile(const float* s_u, const __nv_bfloat16* __restrict__ tables,
+                                            const __nv_bfloat16* s_tab, int n_shared, const Schedule& sc,
+                                            Store&& store) {
+  static_assert(F % 8 == 0, "parts of 8 features");
+  constexpr int P = F / 8;                  // parts of a level
+  constexpr int G = kThreads / (kTile * P);  // groups of threads, each on every G-th level
+  static_assert(G * kTile * P == kThreads && L % G == 0, "a whole number of levels a thread");
+  const int t = threadIdx.x;
+  const int h = t % P, s = t / P % kTile, g = t / (kTile * P);
+  const float u[3] = {s_u[3 * s], s_u[3 * s + 1], s_u[3 * s + 2]};
+#pragma unroll
+  for (int j = 0; j < L / G; ++j) {
+    const int l = j * G + g;
+    float v[8];
+    if (kShared && l < n_shared) {
+      part8<F, kDenseHat, false>(s_tab, sc, l, 8 * h, u, v);
+    } else {
+      part8<F, kDenseHat, true>(tables, sc, l, 8 * h, u, v);
+    }
+    store(s, l, h, v);
+  }
+}
+
+// Coordinates of samples [s0, s0 + kTile) of coords [n, 3], clamped to
+// [0, 1], into s_u [kTile][3] (one coalesced pass); samples past n get 0.
+template <int kTile, int kThreads>
+__device__ __forceinline__ void stage_coords(float* s_u, const float* __restrict__ coords, int64_t s0, int n) {
+  const int64_t base = s0 * 3, end = static_cast<int64_t>(n) * 3;
+  for (int j = threadIdx.x; j < kTile * 3; j += kThreads)
+    s_u[j] = base + j < end ? fminf(fmaxf(__ldg(coords + base + j), 0.f), 1.f) : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies (sm_90).
+
+// 16 bytes global -> shared, bypassing L1 (cp.async; both 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Make this thread's writes to shared memory visible to the bulk copies
+// (the async proxy) that a later barrier releases.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One bulk copy shared -> global of `bytes` (a multiple of 16, both ends
+// 16-byte aligned) by the Tensor Memory Accelerator, in this thread's
+// current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until all of this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // Warp-aggregated sums for a scatter whose lanes often hit the same row:
 // every run of consecutive lanes holding the same `key` gets v summed over

@@ -95,7 +95,14 @@
 
 namespace {
 
+using factor_grid::lerp;
+using factor_grid::load_a;
+using factor_grid::load_a_t;
+using factor_grid::load_b_kn;
+using factor_grid::load_b_nk;
 using factor_grid::load_row;
+using factor_grid::mma;
+using factor_grid::pack_bf16;
 using factor_grid::red_add_row;
 using factor_grid::round_bf16;
 using factor_grid::Schedule;
@@ -111,66 +118,6 @@ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 // The largest D x H whose layer 0 is recomputed per sample on f32 FMAs
 // (the proposal fields' 640) rather than on the MMA (the base field's 8,192).
 constexpr int kRowForwardMax = 1024;
-
-// ---------------------------------------------------------------------------
-// Tensor-core helpers: mma.sync.m16n8k16 bf16 and its ldmatrix fragments.
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// c += a b: a 16x16 (row fragment), b 16x8 (column fragment), f32 sums.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <bool kTrans>
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  if constexpr (kTrans) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-  } else {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p)));
-  }
-}
-
-// The A fragment of rows [m0, m0 + 16) x cols [k0, k0 + 16) of a matrix
-// stored [m][k] (row stride `ld` values).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0, int lane) {
-  ldsm<false>(a, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 + (lane >> 4) * 8);
-}
-// ... of a matrix stored transposed, [k][m].
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* s, int ld, int m0, int k0, int lane) {
-  ldsm<true>(a, s + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8);
-}
-// The B fragments of k [k0, k0 + 16) x n [n0, n0 + 16) (two n-tiles of 8:
-// b[0], b[1] for n0 and b[2], b[3] for n0 + 8) of a matrix stored [k][n].
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0, int lane) {
-  ldsm<true>(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
-}
-// ... of a matrix stored [n][k].
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* s, int ld, int k0, int n0, int lane) {
-  ldsm<false>(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// (1 - w) r0 + w r1 with each product rounded, as the plain twin takes
-// it: a contracted FMA rounds once, and that flips the bf16 rounding of
-// some features against the twin's (one value for every sample of a cell).
-__device__ __forceinline__ float lerp(float r0, float r1, float w) {
-  return __fadd_rn(__fmul_rn(1.f - w, r0), __fmul_rn(w, r1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ---------------------------------------------------------------------------
 // Tables mode.

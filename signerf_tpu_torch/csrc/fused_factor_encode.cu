@@ -6,8 +6,8 @@
 // signerf_tpu/ops/fused_factor_pallas.py. With F features per level and
 // K1's taps (fused_factor_density.cu), for each sample n and level l:
 //
-//   K3:  f_a  = (1 - w_a) line_{l,a}[i_a] + w_a line_{l,a}[i_a + 1]    (f32)
-//        feat[n, l F : (l + 1) F] = f_x f_y f_z                         (f32)
+//   K3:  f_a  = (1 - w_a) line_{l,a}[i_a] + w_a line_{l,a}[i_a + 1]    (f32, each product rounded)
+//        feat[n, l F : (l + 1) F] = (f_x f_y) f_z                       (f32)
 //   K4, given g = d loss / d feat [N, L F] f32, for axis a and the other
 //   axes b, c:
 //        G_a = g_l f_b f_c                                               (f32)
@@ -25,13 +25,28 @@
 // makes 2 x 3 x 8 x 16 scattered f32 additions per sample, which bound it
 // unless runs of lanes share them; K4's coords half is a read of g.
 //
-// The design of K3 and K4's coords half: one thread per (sample, level)
+// The design of K3 (and K10): persistent blocks of 256 threads walk over
+// tiles of 64 samples (the proposal schedule's K10: 128 threads, 128
+// samples). The shared encode routine (factor_grid::encode_tile, as K1
+// takes it) gathers a tile's features into an f32 stage [64][L F] in shared
+// memory, 8 features a part, level-major (a warp's lanes on consecutive
+// samples at one level, so that samples in ray order and the coarse levels
+// meet on few cache lines). The stage's rows are the output's rows, so one
+// bulk copy by the Tensor Memory Accelerator (cp.async.bulk, 32 KB for a
+// full base-field tile) writes the tile to device memory; the stage is
+// double-buffered, so that store runs while the block gathers the next
+// tile. Levels 0 to 3 (23 KB of the base field's tables) are read from a
+// copy in shared memory made once per block, which leaves L1 to the finer
+// levels: 89 KB a block, two blocks an SM. On the H100 these choices beat
+// one 512-thread block an SM with 128-sample tiles at uniform and
+// ray-ordered coordinates, and the shared levels cost nothing ray-ordered
+// (PERF.md has the times). The lerps are rounded as in K1, so K3's
+// features are the plain twin's bit for bit.
+//
+// K4's coords half: one thread per (sample, level)
 // item, item = n L + l, so a thread gathers two 32-byte rows per axis and
-// owns the 64 contiguous bytes of feat or g at item * F; consecutive
-// threads cover consecutive bytes. K3 stores each warp's 2 KB span
-// cooperatively through shared memory (factor_grid::warp_store), so every
-// store instruction writes 512 contiguous bytes. The coords half reads g
-// the same way (four 16-byte loads per thread) and sums a sample's levels
+// reads the 64 contiguous bytes of g at item * F (four 16-byte loads);
+// consecutive threads cover consecutive bytes. It sums a sample's levels
 // with warp shuffles (the L items of a sample are L neighbouring lanes).
 //
 // K4's tables half is K2's scatter (fused_factor_density_bwd.cu): one
@@ -87,54 +102,64 @@ namespace {
 using factor_grid::interp;
 using factor_grid::Schedule;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // K4's tables half
 constexpr int kBwdThreads = 256;
 
-// K10's value of one level and axis: the Pallas kernel's hat row has two
-// nonzero entries, at i and i + 1, each rounded to bf16.
-template <int F>
-__device__ __forceinline__ void dense_hat_interp(const __nv_bfloat16* __restrict__ line, float u, int res,
-                                                 float* f) {
-  const float x = __fmul_rn(u, static_cast<float>(res - 1));
-  const int i = max(0, min(static_cast<int>(floorf(x)), res - 2));
-  const float h0 = factor_grid::round_bf16(1.f - fabsf(x - static_cast<float>(i)));
-  const float h1 = factor_grid::round_bf16(1.f - fabsf(x - static_cast<float>(i + 1)));
-  float r0[F], r1[F];
-  factor_grid::load_row<F>(line + i * F, r0);
-  factor_grid::load_row<F>(line + (i + 1) * F, r1);
-#pragma unroll
-  for (int k = 0; k < F; ++k) f[k] = fmaf(h0, r0[k], h1 * r1[k]);  // exact products
+// K3 and K10: persistent blocks of enc_threads threads walk over tiles of
+// enc_tile samples, with a double-buffered f32 stage of [tile][L F]; the
+// tile's parts (factor_grid::encode_tile) are a whole number a thread.
+constexpr int enc_threads(int f, int l) { return f * l > 64 ? 256 : 128; }
+constexpr int enc_tile(int f, int l) { return f * l > 64 ? 64 : 128; }
+// The coarse levels, up to kEncSharedLevels of them whose tables fit
+// kEncSharedBytes (levels 0 to 3 of the base field, 23 KB), read their
+// tables from a copy in shared memory staged once per block.
+constexpr int kEncSharedLevels = 4;
+constexpr int kEncSharedBytes = 24 * 1024;
+
+template <int F, int L>
+constexpr int encode_smem_bytes(int shared_table_bytes) {
+  return 2 * enc_tile(F, L) * L * F * 4 + enc_tile(F, L) * 3 * 4 + shared_table_bytes;
 }
 
-template <int F, int L, bool kDenseHat>
-__global__ void __launch_bounds__(kThreads)
-encode_kernel(const float* __restrict__ coords, int n, const __nv_bfloat16* __restrict__ tables,
-              Schedule s, float* __restrict__ out) {  // [N, L F]
-  __shared__ __align__(16) float stage[kThreads / 32][32 * (F + 4)];
-  const int64_t n_items = static_cast<int64_t>(n) * L;
-  const int64_t item = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  float feat[F];
-#pragma unroll
-  for (int k = 0; k < F; ++k) feat[k] = 1.f;
-  if (item < n_items) {
-    const int64_t sample = item / L;
-    const int l = static_cast<int>(item % L);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float u = fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f);
-      float f[F];
-      if constexpr (kDenseHat) {
-        dense_hat_interp<F>(tables + s.offset[l][a], u, s.res[l], f);
-      } else {
-        int i;
-        float w, sl;
-        interp<F, false>(tables + s.offset[l][a], u, s.res[l], i, w, sl, f, nullptr);
-      }
-#pragma unroll
-      for (int k = 0; k < F; ++k) feat[k] *= f[k];
+template <int F, int L, bool kDenseHat, int kEncThreads = enc_threads(F, L), int kEncTile = enc_tile(F, L)>
+__global__ void __launch_bounds__(kEncThreads, 1)
+encode_kernel(const float* __restrict__ coords, int n, const __nv_bfloat16* __restrict__ tables, Schedule s,
+              int n_shared, int shared_elems, float* __restrict__ out) {  // [N, L F]
+  constexpr int D = L * F;
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* stage = reinterpret_cast<float*>(smem);  // [2][kEncTile][D]
+  float* s_u = stage + 2 * kEncTile * D;          // [kEncTile][3]
+  __nv_bfloat16* s_tab = reinterpret_cast<__nv_bfloat16*>(s_u + kEncTile * 3);
+  const int t = threadIdx.x;
+  for (int i = t; i < shared_elems / 8; i += kEncThreads) factor_grid::cp_async16(s_tab + 8 * i, tables + 8 * i);
+  factor_grid::cp_async_wait_all();
+  const int num_tiles = (n + kEncTile - 1) / kEncTile;
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, buf ^= 1) {
+    const int64_t s0 = static_cast<int64_t>(tile) * kEncTile;
+    if (t == 0) factor_grid::bulk_wait_read<1>();  // the store that last read this buffer is done reading
+    factor_grid::stage_coords<kEncTile, kEncThreads>(s_u, coords, s0, n);
+    __syncthreads();
+    float* st = stage + buf * kEncTile * D;
+    factor_grid::encode_tile<F, L, kEncTile, kEncThreads, kDenseHat, true>(
+        s_u, tables, s_tab, n_shared, s, [&](int smp, int l, int h, const float (&v)[8]) {
+          // The two 16-byte halves in an order that alternates with the
+          // sample, so that neighbouring lanes' stores meet on fewer banks.
+          float4* dst = reinterpret_cast<float4*>(st + smp * D + l * F + 8 * h);
+          const float4 lo = make_float4(v[0], v[1], v[2], v[3]), hi = make_float4(v[4], v[5], v[6], v[7]);
+          const int odd = smp & 1;
+          dst[odd] = odd ? hi : lo;
+          dst[1 - odd] = odd ? lo : hi;
+        });
+    factor_grid::fence_proxy_async();
+    __syncthreads();  // the stage is complete (and s_u free)
+    if (t == 0) {
+      const int64_t rows = n - s0 < kEncTile ? n - s0 : kEncTile;
+      factor_grid::bulk_store(out + s0 * D, st, static_cast<int>(rows) * D * 4);
+      factor_grid::bulk_commit();
     }
   }
-  factor_grid::warp_store<F>(stage[threadIdx.x / 32], feat, out, item - (threadIdx.x & 31), n_items);
+  if (t == 0) factor_grid::bulk_wait_all();
 }
 
 // K4's tables half: one thread per sample, the levels in a loop (K2's
@@ -241,9 +266,20 @@ encode_bwd_coords_kernel(const float* __restrict__ coords, const float* __restri
 template <int F, int L, bool kDenseHat>
 int launch_forward(const float* c, int n, const __nv_bfloat16* t, const Schedule& s, float* out,
                    cudaStream_t stream) {
-  const int64_t items = static_cast<int64_t>(n) * L;
-  const int blocks = static_cast<int>((items + kThreads - 1) / kThreads);
-  encode_kernel<F, L, kDenseHat><<<blocks, kThreads, 0, stream>>>(c, n, t, s, out);
+  auto kernel = encode_kernel<F, L, kDenseHat>;
+  int n_shared = 0, shared_elems = 0;  // levels [0, n_shared) and their packed tables
+  while (n_shared < kEncSharedLevels && n_shared < L &&
+         (shared_elems + 3 * s.res[n_shared] * F) * 2 <= kEncSharedBytes)
+    shared_elems += 3 * s.res[n_shared++] * F;
+  const int smem = encode_smem_bytes<F, L>(shared_elems * 2);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  constexpr int kEncThreads = enc_threads(F, L), kEncTile = enc_tile(F, L);
+  if ((err = factor_grid::resident_blocks(kernel, kEncThreads, smem, resident)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int tiles = (n + kEncTile - 1) / kEncTile;
+  kernel<<<tiles < resident ? tiles : resident, kEncThreads, smem, stream>>>(c, n, t, s, n_shared, shared_elems, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,12 +23,16 @@ they replace:
   in `csrc/fused_factor_encode.cu` beside K3; its backward is K4.
 
 Each source's header says what it computes, what bounds it on an H100 and
-what the design does about it. In short, K2 recomputes K1's features per
-sample, takes the MLP VJP at the Pallas kernel's bf16 rounding points with
+what the design does about it. In short, K1, K3 and K10 gather a tile of
+128 samples' features into shared memory in persistent blocks (one shared
+encode routine, `factor_grid::encode_tile`); K1 runs its MLP on the tensor
+cores from there, K3 and K10 write the tile with one bulk copy. K2
+recomputes K1's features per sample (bit for bit: the same rounded lerps),
+takes the MLP VJP at the Pallas kernel's bf16 rounding points with
 the MLP products on the tensor cores, keeps dW/db per block and flushes
 them once per block, and sums the line grads over runs of lanes on the
 same row before adding them into device memory with vector reductions (so
-its sums are reproducible to f32 rounding, not bitwise). K3, K5 and the
+its sums are reproducible to f32 rounding, not bitwise). K5 and the
 coords halves of K4 and K6 run one thread per (sample, level). The tables
 halves of K4 and K6 take K2's scatter: one thread per sample with the
 levels in a loop, the line grads summed over runs of lanes on one row and
@@ -164,6 +168,8 @@ def density_mlp_cuda(
     global launches
     n, hidden, out_dim = _check_common(resolutions, feat, tables, w0, b0, w1, x01)
     _check("b1", b1, torch.bfloat16, (out_dim,), x01.device)
+    if w0.data_ptr() % 16 or w1.data_ptr() % 16:
+        raise ValueError("w0 and w1 must be 16-byte aligned for the kernel's weight copies")
     out = torch.empty((n, out_dim), dtype=torch.float32, device=x01.device)
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     _launch("fused_factor_density", "fused_factor_density_forward", x01.device,

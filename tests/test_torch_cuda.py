@@ -60,6 +60,18 @@ def make_args(name, n, device, seed=0):
     ]
 
 
+# K1 vs its twin, max abs error over max|ref|: the same bf16 features bit
+# for bit, but the tensor cores' f32 sums run in another order than the
+# twin's, which can flip a bf16 rounding of h or of the output
+# (chip_smoke.py's KERNEL_TOL: measured worst 0.0066 plus a margin).
+K1_TOL = 0.01
+
+
+def assert_k1_close(got, want):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=K1_TOL * float(want.abs().max()))
+
+
 @pytest.mark.parametrize("name", list(SCHEDULES))
 def test_kernel_matches_plain_twin(cuda, name):
     args = make_args(name, 100_003, cuda)
@@ -67,11 +79,61 @@ def test_kernel_matches_plain_twin(cuda, name):
     got = ffc.density_mlp_cuda(*args)
     torch.cuda.synchronize()
     assert ffc.launches == before + 1
-    want = ffc.density_mlp_plain(*args)
-    assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    # Same contract; FMA contraction and summation order can flip a bf16
-    # rounding of a layer output: 2% of the output range at most.
-    torch.testing.assert_close(got, want, rtol=0, atol=0.02 * float(want.abs().max()))
+    assert_k1_close(got, ffc.density_mlp_plain(*args))
+
+
+@pytest.mark.parametrize("n", [0, 1, 300_007])
+@pytest.mark.parametrize("name", ["proposal", "final"])
+def test_kernel_ragged_tiles_and_no_samples(cuda, name, n):
+    """300,007 samples are several 128-sample tiles for every persistent
+    block, the last one ragged; one sample; none."""
+    args = make_args(name, max(n, 4), cuda)
+    args[-1] = args[-1][:n].contiguous()
+    got = ffc.density_mlp_cuda(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (n, args[5].shape[1])
+    if n:
+        assert_k1_close(got, ffc.density_mlp_plain(*args))
+
+
+def selection_cases(levels, feat, hidden, out):
+    """(sel0, sel1) pairs of 0/1 selection matrices: hidden unit j reads
+    feature sel0[j], output o reads hidden unit sel1[o]; over the cases
+    the outputs read every level (tests/test_torch_factor_grid.py holds the
+    twin to the same identity on the CPU)."""
+    d = levels * feat
+    if out == 1:
+        return [([lvl * feat + lvl % feat] * hidden, [lvl % hidden]) for lvl in range(levels)]
+    return [([(2 * j + s) % d for j in range(hidden)], [(4 * o + q) % hidden for o in range(out)])
+            for s, q in ((0, 0), (1, 3))]
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_kernel_is_exact_under_selection_matrices(cuda, name):
+    """W0 and W1 0/1 selection matrices, zero biases, positive tables: each
+    sum of the MLP has one nonzero term, exact in any order, so K1's output
+    is relu(bf16(feat)) at the selected features exactly. That pins K1's
+    bf16 features, at every level, to the twin's (and K2's recompute) bit
+    for bit."""
+    levels, max_res, feat, hidden, out = SCHEDULES[name]
+    g = torch.Generator().manual_seed(9)
+    cfg = fg.FactorGridConfig(num_levels=levels, base_res=16, max_res=max_res, features_per_level=feat)
+    lines = [[torch.randn(r, feat, generator=g).abs() * 0.2 + 0.01 for _ in range(3)] for r in cfg.resolutions]
+    tables = fg.pack_tables(lines).to(cuda)
+    x = torch.cat([torch.rand(50_000, 3, generator=g), ray_ordered_x01(256, K2_PER_RAY[name], 9)]).to(cuda)
+    enc = ffc.encode_plain(cfg.resolutions, feat, tables, x).to(torch.bfloat16).float()
+    bf = torch.bfloat16
+    for sel0, sel1 in selection_cases(levels, feat, hidden, out):
+        w0 = torch.zeros(levels * feat, hidden)
+        w0[sel0, list(range(hidden))] = 1.0
+        w1 = torch.zeros(hidden, out)
+        w1[sel1, list(range(out))] = 1.0
+        args = (cfg.resolutions, feat, tables, w0.to(cuda, bf), torch.zeros(hidden, device=cuda, dtype=bf),
+                w1.to(cuda, bf), torch.zeros(out, device=cuda, dtype=bf), x)
+        got = ffc.density_mlp_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, torch.relu(enc[:, [sel0[j] for j in sel1]]))
+        assert torch.equal(got, ffc.density_mlp_plain(*args))
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -92,6 +154,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     other[1] = 4  # features_per_level without an instantiation
     with pytest.raises(ValueError, match="no kernel"):
         ffc.density_mlp_cuda(*other)
+    misaligned = list(args)  # the weight copies take 16-byte pieces
+    misaligned[3] = torch.empty(args[3].numel() + 1, device=cuda, dtype=args[3].dtype)[1:].view(args[3].shape)
+    misaligned[3].copy_(args[3])
+    with pytest.raises(ValueError, match="aligned"):
+        ffc.density_mlp_cuda(*misaligned)
 
 
 def test_model_chunk_launches_k1_three_times(cuda):
@@ -200,6 +267,29 @@ def f64_chunk_sum(twin, n, chunk=2048):
         part = [t.double() for t in twin(slice(s, s + chunk))]
         total = part if total is None else [a + b for a, b in zip(total, part)]
     return total
+
+
+@pytest.mark.parametrize("layout", ["ray-ordered", "one cell"])
+@pytest.mark.parametrize("name", ["proposal", "final"])
+def test_k1_k3_and_k10_at_ray_ordered_and_one_cell_coordinates(cuda, name, layout):
+    """K1, and the encode kernels on the same tile routine (K3 for the base
+    field, K10 for both), where a warp's lanes meet on the same rows."""
+    res, feat, tables, w0, b0, w1, b1, _ = make_args(name, 4, cuda)
+    x = ray_ordered_x01(1024, K2_PER_RAY[name], 6) if layout == "ray-ordered" else one_cell_x01(100_003, res, 6)
+    x = x.to(cuda)
+    args = (res, feat, tables, w0, b0, w1, b1, x)
+    got = ffc.density_mlp_cuda(*args)
+    torch.cuda.synchronize()
+    assert_k1_close(got, ffc.density_mlp_plain(*args))
+    encoders = [(ffc.dense_encode_cuda, ffc.dense_encode_plain)]
+    if name == "final":
+        encoders.append((ffc.encode_cuda, ffc.encode_plain))
+    for kernel, plain in encoders:
+        feats = kernel(res, feat, tables, x)
+        torch.cuda.synchronize()
+        want = plain(res, feat, tables, x)
+        # chip_smoke.py's K3_TOL
+        torch.testing.assert_close(feats, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("layout", ["ray-ordered", "one cell"])

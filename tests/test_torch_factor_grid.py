@@ -169,6 +169,39 @@ def test_plain_twin_is_the_stated_gather():
     torch.testing.assert_close(got, want, rtol=0, atol=2**-8 * float(want.abs().max()))
 
 
+def selection_cases(levels, feat, hidden, out):
+    """(sel0, sel1) pairs of 0/1 selection matrices: hidden unit j reads
+    feature sel0[j], output o reads hidden unit sel1[o]; over the cases
+    the outputs read every level."""
+    d = levels * feat
+    if out == 1:
+        return [([lvl * feat + lvl % feat] * hidden, [lvl % hidden]) for lvl in range(levels)]
+    return [([(2 * j + s) % d for j in range(hidden)], [(4 * o + q) % hidden for o in range(out)])
+            for s, q in ((0, 0), (1, 3))]
+
+
+@pytest.mark.parametrize("name", list(SCHEDULES))
+def test_plain_twin_under_selection_matrices_is_the_bf16_encode(name):
+    """With 0/1 selection matrices for W0 and W1 and zero biases every
+    product of the MLP is exact and every sum has one nonzero term, so the
+    output is relu(bf16(feat)) at the selected features exactly: the
+    contract that K1's card test holds the kernel to."""
+    levels, _, feat, hidden, out = SCHEDULES[name]
+    _, tcfg, lines, _, x = make_case(name, n=509, seed=7)
+    tl = [[torch.from_numpy(np.abs(a) + 0.01) for a in axes] for axes in lines]  # positive features
+    tables, tx = tfg.pack_tables(tl), torch.from_numpy(x)
+    enc = ffc.encode_plain(tcfg.resolutions, feat, tables, tx).to(torch.bfloat16).float()
+    bf = torch.bfloat16
+    for sel0, sel1 in selection_cases(levels, feat, hidden, out):
+        w0 = torch.zeros(levels * feat, hidden)
+        w0[sel0, list(range(hidden))] = 1.0
+        w1 = torch.zeros(hidden, out)
+        w1[sel1, list(range(out))] = 1.0
+        got = ffc.density_mlp_plain(tcfg.resolutions, feat, tables, w0.to(bf), torch.zeros(hidden, dtype=bf),
+                                    w1.to(bf), torch.zeros(out, dtype=bf), tx)
+        assert torch.equal(got, torch.relu(enc[:, [sel0[j] for j in sel1]]))
+
+
 def test_pack_tables_layout():
     _, tcfg, lines, ws, x = make_case("prop256", n=4)
     tl, _, _ = to_torch(lines, ws, x)
