@@ -11,7 +11,8 @@ the result line):
   2. build K1 to K10 (signerf_tpu_torch/csrc/fused_factor_{density,
      density_bwd,encode,grad_dot,grad}.cu and flash_attention.cu), all six
      nvcc processes at once, with ptxas's registers, shared memory, spills
-     and warnings (K7 fails on C7508 or C7513; K1, K3 and K10 on spills);
+     and warnings (K7 fails on C7508 or C7513; K1, K3, K5, K10 and K9's
+     tables half on spills), and a line for K5's and K9's tables kernels;
   3. K1 against its plain PyTorch twin on the card, per call for each of
      the three density fields at the sample counts of one 8192-ray render
      chunk and of one 4096-ray train step, each at three layouts of the
@@ -26,17 +27,21 @@ the result line):
      tables kernel's shared memory and blocks per SM;
   5. K3, K4 (both halves), K5 and K6 (both halves) against their plain twins
      at one `signerf` micro-batch's base-field shapes (N = 196,608, uniform
-     and clustered coordinates) and at N = 257 with u in {0, 1}: error and
-     CUDA-event times; then the tables halves of K4 and K6 (and grad_g) at
-     three layouts, uniform, ray-ordered (48 samples a ray in ray order)
-     and every sample in one cell (there against the twin's terms summed
-     in float64, beside the twin's own error): error, run-to-run spread of
-     the line grads and times; K3 at the three layouts, and K3 and K5 at
-     the `signerf` eval render's chunk (N = 393,216);
+     and clustered coordinates) and at N = 257 and 1003 with u in {0, 1}
+     (K5 exactly 0 on an axis at a knot): error and CUDA-event times; then
+     the tables halves of K4 and K6 (and grad_g) at three layouts, uniform,
+     ray-ordered (48 samples a ray in ray order) and every sample in one
+     cell (there against the twin's terms summed in float64, beside the
+     twin's own error): error, run-to-run spread of the line grads and
+     times; K3 and K5 at the three layouts with their shares of the bound,
+     and K3 and K5 at the `signerf` eval render's chunk (N = 393,216);
  5b. K8, K9 (both halves) and K10 against their plain twins at the same
      shapes, with the cross-checks K8 . g = K5, K9 on ct = g (x) c = K6 and
-     K10 = K3 within the bf16 rounding of K10's tap weights; K10 and K4 at
-     the proposal schedule (their 5-level instantiations);
+     K10 = K3 within the bf16 rounding of K10's tap weights; K9's tables
+     half at the three layouts (in one cell against the twin's terms
+     summed in float64), with the run-to-run spread of its line grads and
+     its share of the bound; K10 and K4 at the proposal schedule (their
+     5-level instantiations);
   6. the render CLI at the full width of `signerf_nerfacto` on a synthetic
      512x512 scene (--arc 2 --device cuda, seeded random weights): K1's
      launches must be 3 x chunks; the PNGs must equal a direct render's
@@ -341,12 +346,23 @@ def phase_build():
     ]
     print(f"phase 2 build K1 to K10 ({len(cuda_build.SOURCES)} nvcc at once): {secs:.2f} s into "
           f"{cuda_build.BUILD_DIR} | " + " | ".join(usage))
-    # K1's and K3's (and K10's) kernels keep their tiles' registers: no spills.
+    # The kernels on the encode tile (K1, K3, K5, K10) and K9's tables half
+    # keep their registers: no spills.
+    reports = {}
     for i, ln in enumerate(log):
-        if "Compiling entry" in ln and ("density_kernel" in ln or "encode_kernel" in ln):
-            spill = next((x for x in log[i + 1 : i + 4] if "spill stores" in x), "")
+        if "Compiling entry" in ln and any(k in ln for k in ("density_kernel", "encode_kernel", "grad_dot_kernel",
+                                                              "grad_bwd_tables_kernel")):
+            rest = [x.strip().removeprefix("ptxas info    : ") for x in log[i + 1 : i + 4]
+                    if "registers" in x or "spill" in x]
+            spill = next((x for x in rest if "spill stores" in x), "")
             if spill and " 0 bytes spill stores" not in spill:
-                fail(f"ptxas spills in {ln.split(chr(39))[1]}: {spill.strip()}")
+                fail(f"ptxas spills in {ln.split(chr(39))[1]}: {spill}")
+            for k in ("grad_dot_kernel", "grad_bwd_tables_kernel"):
+                if k in ln:
+                    reports[k] = "; ".join(rest)
+    if reports:
+        print("phase 2 K5 grad_dot_kernel: " + reports.get("grad_dot_kernel", "no report") + " | K9 tables half "
+              "grad_bwd_tables_kernel: " + reports.get("grad_bwd_tables_kernel", "no report"), flush=True)
     entry = next((i for i, ln in enumerate(log) if "Compiling entry" in ln and "flash_attention_kernel" in ln), None)
     if entry is None:
         print("phase 2 K7: flash_attention.so came from the cache of an earlier build, its ptxas report was "
@@ -469,7 +485,7 @@ def encode_case(torch, n, gen, dev, layout="uniform"):
     cameras at radius 2 through the scene's centre (rays in random order);
     ray-ordered, 48 a ray laid out as a train step lays them out
     (`ray_ordered_coords`); or all in one cell (`one_cell_coords`). N = 257
-    starts with rows on u = 0 and u = 1."""
+    and 1003 start with rows on u = 0 and u = 1."""
     from signerf_tpu_torch.ops import factor_grid as fg
     from signerf_tpu_torch.ops.contraction import contract_to_unit
 
@@ -490,7 +506,7 @@ def encode_case(torch, n, gen, dev, layout="uniform"):
         x = contract_to_unit(origin[:, None] + d[:, None] * t[..., None]).reshape(-1, 3)
     else:
         x = torch.rand(n, 3, generator=gen)
-    if n == 257:
+    if n in (257, 1003):
         x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]])
     g = torch.randn(n, cfg.out_dim, generator=gen)
     ct = torch.randn(n, 3, generator=gen)
@@ -508,14 +524,15 @@ def twin_ms(torch, kernel, plain, iters: int = 20):
 
 def phase_k3_k6(torch) -> dict:
     """K3 to K6 against their plain twins at one signerf micro-batch's
-    base-field shapes and at N = 257."""
+    base-field shapes and at N = 257 and 1003."""
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
     names = ["K3", "K4 tables", "K4 coords", "K5", "K6 tables", "K6 coords"]
     result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
-    for label, n in [("uniform", SIGNERF_SAMPLES), ("clustered", SIGNERF_SAMPLES), ("boundary", 257)]:
+    for label, n in [("uniform", SIGNERF_SAMPLES), ("clustered", SIGNERF_SAMPLES), ("boundary", 257),
+                     ("boundary", 1003)]:
         args, g, ct = encode_case(torch, n, gen, dev, "uniform" if label == "boundary" else label)
         calls = {
             "K3": (lambda f: f(*args), ffc.encode_cuda, ffc.encode_plain),
@@ -544,9 +561,13 @@ def phase_k3_k6(torch) -> dict:
                 errs.append(f"{leaf} {err:.2e}")
                 entry = result.get(leaf, result.get("K6 tables"))
                 entry["max_abs_err"] = max(entry["max_abs_err"], float((a - b).abs().max()))
+                # K5 is exactly 0 on an axis at a knot of every level (u = 0 or 1).
+                if k == "K5" and label == "boundary" and not (bool((a[:2] == 0).all()) and float(a[2, 1]) == 0.0
+                                                              and float(a[3, 1]) == 0.0):
+                    fail(f"K5 N={n}: not exactly 0 on an axis at a knot: {a[:4].tolist()}")
             line.append(", ".join(errs))
-        print(" ".join(line), flush=True)
-        if n == 257:
+        print(" ".join(line) + (" (K5 exactly 0 at the knots)" if label == "boundary" else ""), flush=True)
+        if label == "boundary":
             continue
         times = {
             "K3": (lambda: ffc.encode_cuda(*args), lambda: ffc.encode_plain(*args)),
@@ -569,10 +590,11 @@ def phase_k3_k6(torch) -> dict:
         print(" ".join(line), flush=True)
         del args, g, ct
     torch.cuda.empty_cache()
-    # K3 at the three layouts; K3 and K5 at the `signerf` eval render's chunk.
-    line = [f"phase 5 K3 N={SIGNERF_SAMPLES}, kernel ms at three layouts:"]
+    # K3 and K5 at the three layouts; K3 and K5 at the `signerf` eval render's chunk.
+    lines = {k: [f"phase 5 {k} N={SIGNERF_SAMPLES}, kernel ms at three layouts:"] for k in ("K3", "K5")}
     for layout in LAYOUTS:
-        args, _, _ = encode_case(torch, SIGNERF_SAMPLES, gen, dev, layout)
+        args, g, _ = encode_case(torch, SIGNERF_SAMPLES, gen, dev, layout)
+        bounds = factor_bounds(args[0], args[1], args[2], SIGNERF_SAMPLES)
         got = ffc.encode_cuda(*args)
         torch.cuda.synchronize()
         want = ffc.encode_plain(*args)
@@ -581,11 +603,19 @@ def phase_k3_k6(torch) -> dict:
             fail(f"K3 {layout} N={SIGNERF_SAMPLES}: error {err:.3g} > {K3_TOL}")
         run = lambda: ffc.encode_cuda(*args)  # noqa: E731
         ms = (cuda_ms(run, 20) + cuda_ms(run, 20)) / 2
-        b_ms = factor_bounds(args[0], args[1], args[2], SIGNERF_SAMPLES)["K3"][0]
-        line.append(f"{layout} {ms:.4f} ({b_ms / ms:.1%} of the bound), error {err:.2e} of max|ref| "
-                    f"({int((got != want).sum())} values differ);")
-        del args, got, want
-    print(" ".join(line), flush=True)
+        lines["K3"].append(f"{layout} {ms:.4f} ({bounds['K3'][0] / ms:.1%} of the bound), error {err:.2e} of "
+                           f"max|ref| ({int((got != want).sum())} values differ);")
+        got = ffc.grad_dot_cuda(*args, g)
+        torch.cuda.synchronize()
+        err = rel_err(got, ffc.grad_dot_plain(*args, g))
+        if err > K456_TOL or not bool(torch.isfinite(got).all()):
+            fail(f"K5 {layout} N={SIGNERF_SAMPLES}: norm-relative error {err:.3g} > {K456_TOL}")
+        run = lambda: ffc.grad_dot_cuda(*args, g)  # noqa: E731
+        ms = (cuda_ms(run, 20) + cuda_ms(run, 20)) / 2
+        lines["K5"].append(f"{layout} {ms:.4f} ({bounds['K5'][0] / ms:.1%} of the bound), norm-rel error {err:.2e};")
+        del args, g, got, want
+    for line in lines.values():
+        print(" ".join(line), flush=True)
     n = CHUNK * 48
     args, g, _ = encode_case(torch, n, gen, dev)
     line = [f"phase 5 the signerf eval chunk's base field, N={n}, uniform:"]
@@ -663,7 +693,8 @@ def tables_halves_layouts(torch, ffc, gen, dev, result) -> None:
 def phase_k8_k10(torch) -> dict:
     """K8, K9 and K10 against their plain twins at one signerf
     micro-batch's base-field shapes and at N = 257, the cross-checks
-    against K5, K6 and K3, and K10 and K4 at the proposal schedule."""
+    against K5, K6 and K3, K9's tables half at the three layouts, and K10
+    and K4 at the proposal schedule."""
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
     dev = torch.device("cuda")
@@ -731,6 +762,7 @@ def phase_k8_k10(torch) -> dict:
         del args, g, c, ct
         torch.cuda.empty_cache()
 
+    k9_tables_layouts(torch, ffc, gen, dev, result)
     # The proposal schedule (5 levels, F = 8): K10 and K4, its backward.
     for n in (257, CHUNK * 256):
         res, feat, tables, *_, x = make_case(torch, 5, 128, 8, 16, 1, n, gen, dev)
@@ -750,6 +782,45 @@ def phase_k8_k10(torch) -> dict:
         del res, tables, x, g, a, b, got4, want4
     torch.cuda.empty_cache()
     return result
+
+
+def k9_tables_layouts(torch, ffc, gen, dev, result) -> None:
+    """K9's tables half at one signerf micro-batch in the three layouts, as
+    `tables_halves_layouts` holds K4's and K6's: against the twin, in one
+    cell against the twin's terms summed in float64; the run-to-run spread
+    of the line grads; times and the share of the bound."""
+    n = SIGNERF_SAMPLES
+    for layout in LAYOUTS:
+        args, _, _ = encode_case(torch, n, gen, dev, layout)
+        ct = torch.randn(n, 3, BASE_SCHEDULE[0] * BASE_SCHEDULE[2], generator=gen).to(dev)
+        got = ffc.grad_bwd_cuda(*args, ct)[0]
+        torch.cuda.synchronize()
+        want = ffc.grad_bwd_plain(*args, ct)[0]
+        line = f"phase 5b K9 tables half {layout} N={n}:"
+        ref, against = want, "the twin"
+        if layout == "one cell":
+            res, feat, tables, x = args
+            ref = f64_chunk_sum(lambda p: [ffc.grad_bwd_plain(res, feat, tables, x[p], ct[p])[0]], n)[0]
+            against = "the twin's terms summed in float64"
+            line += (f" the twin's own norm-rel err against its terms summed in float64 {rel_err(want, ref):.2e}, "
+                     f"the kernel's against the twin {rel_err(got, want):.2e};")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"K9 tables {layout} N={n}: non-finite output")
+        err = rel_err(got, ref)
+        if err > K456_TOL:
+            fail(f"K9 tables {layout} N={n}: norm-relative error {err:.3g} against {against} > {K456_TOL}")
+        entry = result["K9 tables"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], float((got.double() - ref.double()).abs().max()))
+        # The same inputs twice: the vector reductions' order varies.
+        d = float((ffc.grad_bwd_cuda(*args, ct)[0] - got).abs().max())
+        run = lambda: ffc.grad_bwd_cuda(*args, ct)  # noqa: E731
+        ms = (cuda_ms(run, 10) + cuda_ms(run, 10)) / 2
+        b_ms = grad_bounds(args[0], args[1], args[2], n)["K9 tables"][0]
+        print(line + f" norm-rel err against {against} {err:.2e} (bound {K456_TOL}); run to run max |d| line "
+              f"grads {d:.3g} (max |lines| {float(got.abs().max()):.3g}) | kernel {ms:.4f} ms ({b_ms / ms:.1%} of "
+              f"the bound {b_ms:.4f})", flush=True)
+        del args, ct, got, want, ref
+    torch.cuda.empty_cache()
 
 
 def sphere_views(backdrop: float = 1.0):

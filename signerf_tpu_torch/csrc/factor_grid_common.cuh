@@ -131,34 +131,22 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16*
 }
 
 // The packed tables' level schedule: resolutions and the element offset of
-// each [R_l, F] table (level-major, then axis), and the prefix of levels
-// whose line grads fit `small_bytes` of shared memory.
+// each [R_l, F] table (level-major, then axis).
 struct Schedule {
   int res[kMaxLevels];
   int offset[kMaxLevels][3];
-  int n_small;      // levels [0, n_small) accumulate in shared memory
-  int small_elems;  // their element count: a prefix of the packed grads
 };
 
-inline bool make_schedule(const int* resolutions, int num_levels, int feat, int small_bytes,
-                          Schedule& s) {
+inline bool make_schedule(const int* resolutions, int num_levels, int feat, Schedule& s) {
   if (num_levels < 1 || num_levels > kMaxLevels) return false;
   s = {};
   int offset = 0;
-  bool small = true;
   for (int l = 0; l < num_levels; ++l) {
     if (resolutions[l] < 2) return false;
     s.res[l] = resolutions[l];
     for (int a = 0; a < 3; ++a) {
       s.offset[l][a] = offset;
       offset += resolutions[l] * feat;
-    }
-    const int elems = 3 * resolutions[l] * feat;
-    if (small && (s.small_elems + elems) * static_cast<int>(sizeof(float)) <= small_bytes) {
-      s.small_elems += elems;
-      s.n_small = l + 1;
-    } else {
-      small = false;
     }
   }
   return true;
@@ -208,6 +196,53 @@ __device__ __forceinline__ void part8(const __nv_bfloat16* tab, const Schedule& 
 #pragma unroll
     for (int k = 0; k < 8; ++k) v[k] *= f[k];
   }
+}
+
+// Eight features of one level and axis and their differences (K5, K9):
+// K1's taps (i, w), the slope factor s under the knot rule, and from
+// columns [c, c + 8) of rows i and i + 1 the difference r1 - r0 and the
+// value f = r0 + w (r1 - r0) (a few ulps from the rounded lerp K1 and K3
+// take). The slope is d = (r1 - r0) s, exactly 0 at a knot.
+template <bool kGlobal>
+__device__ __forceinline__ void axis8_diff(const __nv_bfloat16* line, int feat, int c, float u, int res, int& i,
+                                           float& w, float& s, float (&f)[8], float (&diff)[8]) {
+  tap(u, res, i, w);
+  s = slope_scale(w, res);
+  float r0[8], r1[8];
+  load_row<8, kGlobal>(line + i * feat + c, r0);
+  load_row<8, kGlobal>(line + (i + 1) * feat + c, r1);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    diff[k] = r1[k] - r0[k];
+    f[k] = fmaf(w, diff[k], r0[k]);
+  }
+}
+
+// K5's part: acc[a] += s_a sum_k (r1 - r0)_a f_b f_c g[k] = sum_k d_a f_b
+// f_c g[k] over features [c, c + 8) of one level at coordinates u[0, 3),
+// from the level's three [R, F] tables `line` (in device memory when
+// kGlobal, else in shared memory). The slope factor multiplies the part's
+// sum once, so an axis at a knot (s = 0) adds exactly nothing.
+template <int F, bool kGlobal>
+__device__ __forceinline__ void part8_dot(const __nv_bfloat16* const (&line)[3], int res, int c, const float* u,
+                                          const float (&g)[8], float (&acc)[3]) {
+  float f[3][8], diff[3][8], s[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    int i;
+    float w;
+    axis8_diff<kGlobal>(line[a], F, c, u[a], res, i, w, s[a], f[a], diff[a]);
+  }
+  float q[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float f0g = f[0][k] * g[k], f1g = f[1][k] * g[k];
+    q[0] = fmaf(diff[0][k], f[2][k] * f1g, q[0]);
+    q[1] = fmaf(diff[1][k], f[2][k] * f0g, q[1]);
+    q[2] = fmaf(diff[2][k], f[1][k] * f0g, q[2]);
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) acc[a] = fmaf(s[a], q[a], acc[a]);
 }
 
 // The features of the kTile samples whose clamped coordinates are in
@@ -291,6 +326,43 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Wait until all of this thread's bulk groups are complete.
 __device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
+// mbarriers (one phase per use) and bulk copies global -> shared that
+// complete on one.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// Make the barriers' initialisation visible to the async proxy and the block
+// (a __syncthreads must follow before other threads wait on them).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrive once and expect `bytes` more of transactions on `bar`.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) global -> shared
+// by the Tensor Memory Accelerator, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
 // Warp-aggregated sums for a scatter whose lanes often hit the same row:
 // every run of consecutive lanes holding the same `key` gets v summed over
 // the run, element by element, into the run's first lane, which returns
@@ -328,20 +400,22 @@ __device__ __forceinline__ void red_add_row(float* dst, const float* v) {
     atomicAdd(reinterpret_cast<float4*>(dst) + q, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
 }
 
-// One level and axis of a line-grad scatter (K4's and K6's tables halves):
-// v[0, F) goes to row `row` of `line_grad` and v[F, 2F) to row `row` + 1,
-// summed first over each run of lanes on the same row (warp_run_sum), then
-// added by the run's first lane with vector reductions. A lane with nothing
-// to add (past the last sample) passes row -1 and zeros: no valid lane uses
-// that key, so its run is its own and is not written. line_grad + row F
-// must be 16-byte aligned: with F in {8, 16} it is whenever line_grad is.
-// Every lane of the warp must call it.
-template <int F>
-__device__ __forceinline__ void scatter_two_rows(float* __restrict__ line_grad, int row, float (&v)[2 * F]) {
+// One level and axis of a line-grad scatter (the tables halves of K4, K6
+// and K9): v[0, W) goes to row `row` of `line_grad` (rows of F floats) and
+// v[W, 2W) to row `row` + 1, summed first over each run of lanes on the
+// same row (warp_run_sum), then added by the run's first lane with vector
+// reductions. W = F scatters whole rows; W < F a part of each, from the
+// column `line_grad` is offset by. A lane with nothing to add (past the
+// last sample) passes row -1 and zeros: no valid lane uses that key, so its
+// run is its own and is not written. line_grad + row F must be 16-byte
+// aligned: with F in {8, 16} and a column a multiple of 4 it is whenever
+// the packed grads are. Every lane of the warp must call it.
+template <int W, int F = W>
+__device__ __forceinline__ void scatter_two_rows(float* __restrict__ line_grad, int row, float (&v)[2 * W]) {
   if (warp_run_sum(row, v) && row >= 0) {
     float* dst = line_grad + row * F;
-    red_add_row<F>(dst, v);
-    red_add_row<F>(dst + F, v + F);
+    red_add_row<W>(dst, v);
+    red_add_row<W>(dst + F, v + W);
   }
 }
 

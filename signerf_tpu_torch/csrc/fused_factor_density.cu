@@ -257,7 +257,7 @@ extern "C" int fused_factor_density_forward(const void* coords, int n, const voi
                                             const void* b0, const void* w1, const void* b1,
                                             void* out, void* stream) {
   Schedule lv;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, 0, lv)) return cudaErrorInvalidValue;
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, lv)) return cudaErrorInvalidValue;
   const auto* c = static_cast<const float*>(coords);
   const auto* t = static_cast<const bf16*>(tables);
   const auto* pw0 = static_cast<const bf16*>(w0);

@@ -734,7 +734,7 @@ extern "C" int fused_factor_density_backward(const void* coords, const void* gra
   const void* kernel = nullptr;
   int smem_bytes = 0;
   if (n < 0 || (mode != 0 && mode != 1) ||
-      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, lv) ||
+      !factor_grid::make_schedule(resolutions, num_levels, feat, lv) ||
       !pick_any(feat, hidden, out_dim, num_levels, mode, kernel, smem_bytes))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
@@ -758,7 +758,7 @@ extern "C" int fused_factor_density_backward_occupancy(const int* resolutions, i
   Schedule lv;
   const void* kernel = nullptr;
   if ((mode != 0 && mode != 1) ||
-      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, lv) ||
+      !factor_grid::make_schedule(resolutions, num_levels, feat, lv) ||
       !pick_any(feat, hidden, out_dim, num_levels, mode, kernel, *smem_bytes))
     return cudaErrorInvalidValue;
   int sms = 0;

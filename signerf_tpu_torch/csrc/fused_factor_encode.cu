@@ -315,7 +315,7 @@ extern "C" int fused_factor_encode_forward(const void* coords, int n, const void
                                            const int* resolutions, int num_levels, int feat,
                                            void* out, void* stream) {
   Schedule s;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -332,7 +332,7 @@ extern "C" int factor_dense_encode_forward(const void* coords, int n, const void
                                            const int* resolutions, int num_levels, int feat,
                                            void* out, void* stream) {
   Schedule s;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -354,7 +354,7 @@ extern "C" int fused_factor_encode_backward(const void* coords, const void* grad
                                             void* g_coords, int mode, void* stream) {
   Schedule s;
   if (n < 0 || (mode != 0 && mode != 1) ||
-      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
+      !factor_grid::make_schedule(resolutions, num_levels, feat, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);

@@ -38,19 +38,36 @@
 // and its tables half makes 2 x 3 x 8 x 16 scattered f32 additions per
 // sample on top.
 //
-// The design is K3 and K6's (fused_factor_encode.cu, fused_factor_grad_dot.cu):
-// one thread per (sample, level) item, item = n L + l, gathering two 32-byte
-// rows per axis. K8 stores each axis through shared memory per warp, so a
-// store instruction writes 512 contiguous bytes (one sample's D floats of
-// one axis); the TPU kernel's one-hot GEMM and transposed [3D, N] layout
-// stood in for a gather and are gone. K9 reads its three 64-byte cotangent
-// rows per item (neighbouring lanes read neighbouring rows), sums the small
-// levels' line grads (up to 48 KB) with shared-memory atomics in blocks that
-// walk over tiles and flush once, the large levels' straight into device
-// memory, and sums the coords half's levels with warp shuffles.
+// K8 and K9's coords half take the port's first factor-grid design: one thread
+// per (sample, level) item, item = n L + l, gathering two 32-byte rows per
+// axis. K8 stores each axis through shared memory per warp, so a store
+// instruction writes 512 contiguous bytes (one sample's D floats of one
+// axis); the TPU kernel's one-hot GEMM and transposed [3D, N] layout stood
+// in for a gather and are gone. The coords half reads its three 64-byte
+// cotangent rows per item (neighbouring lanes read neighbouring rows) and
+// sums a sample's levels with warp shuffles.
+//
+// K9's tables half is K2's scatter (fused_factor_density_bwd.cu), as the
+// tables halves of K4 and K6 take it: one thread per sample and the levels
+// in a loop, so a warp's lanes are 32 consecutive samples, which a train
+// step lays out ray by ray, and at the coarse levels fall on one or two
+// runs of the same row. Each level goes in its two parts of 8 features
+// (factor_grid::axis8_diff), so that a thread holds
+// f, d and the three cotangent rows' values of one part (3 x 3 x 8 floats)
+// and not of a whole level: per part and axis each lane forms its two
+// rows' values, (1 - w) G_hat - s G_dhat and w G_hat + s G_dhat, and
+// factor_grid::scatter_two_rows sums them over each run of lanes on one
+// row with shuffles (warp_run_sum); the run's first lane adds the sums
+// into device memory with 16-byte vector reductions (red_add_row, resolved
+// in L2; the line grads, 0.8 MB for the base field, stay there). No shared
+// memory and no scalar atomics (the first design's shared f32 atomicAdd
+// was a compare-and-swap loop on sm_90a, on which a ray's lanes
+// serialized). A thread reads its sample's three cotangent rows of a part,
+// 32 bytes each, at a 1536-byte stride from its neighbours'.
 //
 // Determinism: K8 and the coords half are deterministic; the tables half's
-// line grads are reproducible to f32 rounding only (atomics).
+// line grads are reproducible to f32 rounding only (the L2 reductions add
+// in an order that changes from run to run).
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
@@ -69,7 +86,6 @@ using factor_grid::Schedule;
 
 constexpr int kThreads = 128;
 constexpr int kBwdThreads = 256;
-constexpr int kSmallBytes = 48 * 1024;
 
 // Row `row` of F f32 values.
 template <int F>
@@ -160,22 +176,71 @@ grad_kernel(const float* __restrict__ coords, int n, const __nv_bfloat16* __rest
   }
 }
 
-template <int F, int L, bool kTables>
+// K9's tables half: one thread per sample, the levels in a loop and each
+// level in its parts of 8 features (see the header); every part's line
+// grads through scatter_two_rows.
+template <int F, int L>
+__global__ void __launch_bounds__(kThreads)
+grad_bwd_tables_kernel(const float* __restrict__ coords, const float* __restrict__ ct, int n,
+                       const __nv_bfloat16* __restrict__ tables, Schedule s,
+                       float* __restrict__ g_tables) {  // packed like `tables`
+  static_assert(F % 8 == 0, "parts of 8 features");
+  const int64_t sample = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool valid = sample < n;
+  // Past the last sample: u = 0, ct = 0 and row -1 (every lane scatters).
+  float u[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) u[a] = valid ? fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f) : 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    const int64_t item = sample * L + l;
+#pragma unroll 1
+    for (int c = 0; c < F; c += 8) {
+      float fa[3][8], da[3][8], cv[3][8], wa[3], sa[3];
+      int ia[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        factor_grid::axis8_diff<true>(tables + s.offset[l][a], F, c, u[a], s.res[l], ia[a], wa[a], sa[a], fa[a],
+                                      da[a]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) da[a][k] *= sa[a];
+        if (valid) {
+          factor_grid::load_row_f32<8>(ct + axis_row<L>(item, a) * F + c, cv[a]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) cv[a][k] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int b = (a + 1) % 3, cc = (a + 2) % 3;
+        const float w = wa[a], sl = sa[a];
+        float v[16];  // row i's part, then row i + 1's
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float g_hat = cv[b][k] * da[b][k] * fa[cc][k] + cv[cc][k] * da[cc][k] * fa[b][k];
+          const float g_dhat = cv[a][k] * fa[b][k] * fa[cc][k];
+          v[k] = (1.f - w) * g_hat - sl * g_dhat;
+          v[8 + k] = w * g_hat + sl * g_dhat;
+        }
+        // g_tables comes from torch.zeros (aligned), offsets are multiples of F.
+        factor_grid::scatter_two_rows<8, F>(g_tables + s.offset[l][a] + c, valid ? ia[a] : -1, v);
+      }
+    }
+  }
+}
+
+// K9's coords half: one thread per (sample, level) item, blocks walking
+// over tiles; a sample's levels summed with shuffles.
+template <int F, int L>
 __global__ void __launch_bounds__(kBwdThreads)
-grad_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ ct, int n,
-                const __nv_bfloat16* __restrict__ tables, Schedule s,
-                float* __restrict__ g_tables,   // packed like `tables`
-                float* __restrict__ g_coords) { // [N, 3]
+grad_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ ct, int n,
+                       const __nv_bfloat16* __restrict__ tables, Schedule s,
+                       float* __restrict__ g_coords) {  // [N, 3]
   static_assert(kBwdThreads % L == 0, "a thread keeps its level across tiles");
   static_assert(32 % L == 0, "a sample's levels are neighbouring lanes of one warp");
-  extern __shared__ __align__(16) float s_small[];
   const int t = threadIdx.x;
-  if constexpr (kTables) {
-    for (int e = t; e < s.small_elems; e += kBwdThreads) s_small[e] = 0.f;
-    __syncthreads();
-  }
   const int l = t % L;
-  const bool small = l < s.n_small;
   const int64_t n_items = static_cast<int64_t>(n) * L;
   const int64_t num_tiles = (n_items + kBwdThreads - 1) / kBwdThreads;
   for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
@@ -192,40 +257,21 @@ grad_bwd_kernel(const float* __restrict__ coords, const float* __restrict__ ct, 
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const int b = (a + 1) % 3, c = (a + 2) % 3;
-        if constexpr (kTables) {
-          const int off = s.offset[l][a] + ia[a] * F;
-          float* dst = small ? s_small + off : g_tables + off;
-          const float w = wa[a], sl = sa[a];
+        float acc = 0.f;
 #pragma unroll
-          for (int k = 0; k < F; ++k) {
-            const float g_hat = cv[b][k] * da[b][k] * fa[c][k] + cv[c][k] * da[c][k] * fa[b][k];
-            const float g_dhat = cv[a][k] * fa[b][k] * fa[c][k];
-            atomicAdd(dst + k, (1.f - w) * g_hat - sl * g_dhat);
-            atomicAdd(dst + F + k, w * g_hat + sl * g_dhat);
-          }
-        } else {
-          float acc = 0.f;
-#pragma unroll
-          for (int k = 0; k < F; ++k) {
-            const float g_hat = cv[b][k] * da[b][k] * fa[c][k] + cv[c][k] * da[c][k] * fa[b][k];
-            acc = fmaf(g_hat, da[a][k], acc);
-          }
-          gu[a] = acc;
+        for (int k = 0; k < F; ++k) {
+          const float g_hat = cv[b][k] * da[b][k] * fa[c][k] + cv[c][k] * da[c][k] * fa[b][k];
+          acc = fmaf(g_hat, da[a][k], acc);
         }
+        gu[a] = acc;
       }
     }
-    if constexpr (!kTables) {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
-      if (valid && l == 0) {
+    for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
+    if (valid && l == 0) {
 #pragma unroll
-        for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
-      }
+      for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
     }
-  }
-  if constexpr (kTables) {
-    __syncthreads();
-    for (int e = t; e < s.small_elems; e += kBwdThreads) atomicAdd(g_tables + e, s_small[e]);
   }
 }
 
@@ -238,20 +284,24 @@ int launch_forward(const float* c, int n, const __nv_bfloat16* t, const Schedule
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int F, int L, bool kTables>
-int launch_backward(const float* c, const float* ct, int n, const __nv_bfloat16* t, const Schedule& s,
-                    float* gt, float* gc, cudaStream_t stream) {
-  auto kernel = grad_bwd_kernel<F, L, kTables>;
-  const size_t bytes = kTables ? static_cast<size_t>(s.small_elems) * sizeof(float) : 0;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+template <int F, int L>
+int launch_tables(const float* c, const float* ct, int n, const __nv_bfloat16* t, const Schedule& s, float* gt,
+                  cudaStream_t stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  grad_bwd_tables_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, ct, n, t, s, gt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int F, int L>
+int launch_coords(const float* c, const float* ct, int n, const __nv_bfloat16* t, const Schedule& s, float* gc,
+                  cudaStream_t stream) {
+  auto kernel = grad_bwd_coords_kernel<F, L>;
   int resident = 0;
-  if ((err = factor_grid::resident_blocks(kernel, kBwdThreads, bytes, resident)) != cudaSuccess)
-    return static_cast<int>(err);
+  const cudaError_t err = factor_grid::resident_blocks(kernel, kBwdThreads, 0, resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = (static_cast<int64_t>(n) * L + kBwdThreads - 1) / kBwdThreads;
   const int grid = static_cast<int>(tiles < resident ? tiles : resident);
-  kernel<<<grid, kBwdThreads, bytes, stream>>>(c, ct, n, t, s, gt, gc);
+  kernel<<<grid, kBwdThreads, 0, stream>>>(c, ct, n, t, s, gc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,7 +316,7 @@ extern "C" int fused_factor_grad_forward(const void* coords, int n, const void* 
                                          const int* resolutions, int num_levels, int feat, void* out,
                                          void* stream) {
   Schedule s;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -285,7 +335,7 @@ extern "C" int fused_factor_grad_backward(const void* coords, const void* ct, in
                                           void* g_tables, void* g_coords, int mode, void* stream) {
   Schedule s;
   if (n < 0 || (mode != 0 && mode != 1) ||
-      !factor_grid::make_schedule(resolutions, num_levels, feat, kSmallBytes, s))
+      !factor_grid::make_schedule(resolutions, num_levels, feat, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -295,8 +345,8 @@ extern "C" int fused_factor_grad_backward(const void* coords, const void* ct, in
   auto* gc = static_cast<float*>(g_coords);
   auto st = static_cast<cudaStream_t>(stream);
   if (feat == 16 && num_levels == 8) {  // base field
-    if (mode == 0) return launch_backward<16, 8, true>(c, k, n, t, s, gt, gc, st);
-    return launch_backward<16, 8, false>(c, k, n, t, s, gt, gc, st);
+    if (mode == 0) return launch_tables<16, 8>(c, k, n, t, s, gt, st);
+    return launch_coords<16, 8>(c, k, n, t, s, gc, st);
   }
   return cudaErrorInvalidValue;
 }

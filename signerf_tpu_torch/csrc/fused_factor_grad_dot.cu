@@ -38,10 +38,35 @@
 // 2 x 3 x 8 x 16 scattered f32 additions per sample, which bound it unless
 // runs of lanes share them.
 //
-// The design of K5 and K6's coords half is K3's (fused_factor_encode.cu):
-// one thread per (sample, level) item, item = n L + l, reading its 64
-// contiguous bytes of g; a sample's L items are neighbouring lanes, summed
-// with warp shuffles (no atomics).
+// The design of K5 is K3's (fused_factor_encode.cu) mirrored for a read:
+// persistent blocks of 256 threads walk over tiles of 32 samples, three
+// blocks an SM. Each tile's g (32 x 512 bytes for the base field) comes
+// into shared memory by one bulk copy of the Tensor Memory Accelerator
+// (cp.async.bulk) that completes on an mbarrier; g and the coordinates are
+// double-buffered, so the next tile's arrive while the block gathers this
+// one, and one __syncthreads a tile orders every buffer. A tile's parts
+// are K3's, 8 features of one level of one sample, level-major (a warp's
+// lanes on 16 consecutive samples at one level, the two parts of a level
+// on neighbouring lanes, so that they read each 32-byte row whole and
+// samples in ray order meet on few cache lines), each thread keeping one
+// sample and part and walking over the levels of its group of threads (2
+// of 8 for the base field). factor_grid::part8_dot forms a part's three
+// sums, f = r0 + w (r1 - r0) sharing the difference with the slope, and
+// the slope factor s applied once to each sum, so an axis at a knot of
+// every level gives exactly 0. Levels 0 to 3 (23 KB of the base field's
+// tables) are read from a copy in shared memory made once per block, which
+// leaves L1 to the finer levels. The threads that hold one sample's parts
+// reduce their three sums (shuffles between the two parts of a level,
+// shared memory between the groups), and the tile writes one [32, 3]
+// block. On the H100 this is faster than the first design (one thread per
+// (sample, level) item) at every layout; tiles of 64 samples (two blocks
+// an SM), rows of g padded against bank conflicts (one bulk copy a row),
+// plain 16-byte loads of g from device memory, and samples on consecutive
+// lanes at one part were slower (PERF.md).
+//
+// K6's coords half: one thread per (sample, level) item, item = n L + l,
+// reading its 64 contiguous bytes of g; a sample's L items are
+// neighbouring lanes, summed with warp shuffles (no atomics).
 //
 // K6's tables half is K2's scatter (fused_factor_density_bwd.cu), as K4's:
 // one thread per sample and the levels in a loop, so a warp's lanes are 32
@@ -62,8 +87,9 @@
 // K2, K4 and K6, over a warp per level (32 samples of one level a warp).
 //
 // Determinism: K5 and the coords half are deterministic; the tables
-// half's line grads are reproducible to f32 rounding only (the reductions
-// add in an order that changes from run to run); grad_g is deterministic.
+// half's line grads are reproducible to f32 rounding only (the L2
+// reductions add in an order that changes from run to run); grad_g is
+// deterministic.
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
@@ -80,8 +106,16 @@ namespace {
 using factor_grid::interp;
 using factor_grid::Schedule;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // K6's tables half
 constexpr int kBwdThreads = 256;
+// K5: persistent blocks of kDotThreads threads, tiles of kDotTile samples;
+// the coarse levels, up to kDotSharedLevels of them whose tables fit
+// kDotSharedBytes (levels 0 to 3 of the base field, 23 KB), read their
+// tables from a copy in shared memory.
+constexpr int kDotThreads = 256;
+constexpr int kDotTile = 32;
+constexpr int kDotSharedLevels = 4;
+constexpr int kDotSharedBytes = 24 * 1024;
 
 template <int F>
 __device__ __forceinline__ void interp3(const __nv_bfloat16* __restrict__ tables, const Schedule& s,
@@ -94,34 +128,124 @@ __device__ __forceinline__ void interp3(const __nv_bfloat16* __restrict__ tables
   }
 }
 
+// K5: persistent blocks of kDotThreads threads walk over tiles of kDotTile
+// samples (see the header). Shared memory: g [2][kDotTile][L F] f32, the
+// tiles' coordinates [2][kDotTile][3], the groups' sums
+// [2][G][kDotTile][3], two mbarriers, each level's resolution and three
+// table offsets [L][4] (read with a level index that differs between
+// warps, the schedule would otherwise be copied to local memory), then the
+// coarse levels' tables (shared_elems bf16, levels [0, n_shared)). Each
+// buffer serves every other tile, so one __syncthreads a tile orders them
+// all.
+template <int F>
+__host__ __device__ constexpr int dot_groups() { return kDotThreads / (kDotTile * (F / 8)); }
+
 template <int F, int L>
-__global__ void __launch_bounds__(kThreads)
+constexpr int dot_smem_bytes(int shared_table_bytes) {
+  return (2 * kDotTile * L * F + 2 * kDotTile * 3 + 2 * dot_groups<F>() * kDotTile * 3) * 4 + 2 * 8 + L * 16 +
+         shared_table_bytes;
+}
+
+// Tile `tile` of g [N, L F] into `dst`, completing on `bar` (one thread).
+template <int D>
+__device__ __forceinline__ void load_g_tile(float* dst, const float* __restrict__ grad, int tile, int n,
+                                            uint64_t* bar) {
+  const int64_t s0 = static_cast<int64_t>(tile) * kDotTile;
+  const int rows = n - s0 < kDotTile ? static_cast<int>(n - s0) : kDotTile;
+  const uint32_t bytes = static_cast<uint32_t>(rows) * D * 4;
+  factor_grid::mbar_expect_tx(bar, bytes);
+  factor_grid::bulk_load(dst, grad + s0 * D, bytes, bar);
+}
+
+template <int F, int L>
+__global__ void __launch_bounds__(kDotThreads, 3)
 grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
-                const __nv_bfloat16* __restrict__ tables, Schedule s,
+                const __nv_bfloat16* __restrict__ tables, Schedule s, int n_shared, int shared_elems,
                 float* __restrict__ out) {  // [N, 3]
-  const int64_t n_items = static_cast<int64_t>(n) * L;
-  const int64_t item = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool valid = item < n_items;
-  const int64_t sample = item / L;
-  const int l = static_cast<int>(item % L);
-  float acc[3] = {0.f, 0.f, 0.f};
-  if (valid) {
-    float fa[3][F], da[3][F], wa[3], sa[3], gv[F];
-    int ia[3];
-    interp3<F>(tables, s, l, coords, sample, ia, wa, sa, fa, da);
-    factor_grid::load_row_f32<F>(grad + item * F, gv);
+  constexpr int D = L * F;
+  constexpr int P = F / 8;            // parts of a level
+  constexpr int G = dot_groups<F>();  // groups of threads, each on every G-th level
+  static_assert(F % 8 == 0 && G * kDotTile * P == kDotThreads && L % G == 0, "a whole number of levels a thread");
+  static_assert(kDotTile * 3 <= kDotThreads, "a thread a coordinate");
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* s_g = reinterpret_cast<float*>(smem);  // [2][kDotTile][D]
+  float* s_u = s_g + 2 * kDotTile * D;          // [2][kDotTile][3]
+  float* s_sum = s_u + 2 * kDotTile * 3;        // [2][G][kDotTile][3]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_sum + 2 * G * kDotTile * 3);  // [2]
+  int* s_lv = reinterpret_cast<int*>(bar + 2);  // [L][4]
+  __nv_bfloat16* s_tab = reinterpret_cast<__nv_bfloat16*>(s_lv + 4 * L);
+  const int t = threadIdx.x;
+  const int h = t % P, smp = t / P % kDotTile, grp = t / (kDotTile * P);
+  const int num_tiles = (n + kDotTile - 1) / kDotTile;
+  for (int i = t; i < shared_elems / 8; i += kDotThreads) factor_grid::cp_async16(s_tab + 8 * i, tables + 8 * i);
+  if (t == 0) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      s_lv[4 * l] = s.res[l];
+      s_lv[4 * l + 1] = s.offset[l][0];
+      s_lv[4 * l + 2] = s.offset[l][1];
+      s_lv[4 * l + 3] = s.offset[l][2];
+    }
+    factor_grid::mbar_init(bar, 1);
+    factor_grid::mbar_init(bar + 1, 1);
+    factor_grid::fence_mbar_init();
+    load_g_tile<D>(s_g, grad, blockIdx.x, n, bar);  // the grid has at most num_tiles blocks
+  }
+  factor_grid::stage_coords<kDotTile, kDotThreads>(s_u, coords, static_cast<int64_t>(blockIdx.x) * kDotTile, n);
+  factor_grid::cp_async_wait_all();
+  __syncthreads();  // barriers, tables and the first tile's coordinates ready
+  int it = 0;
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, ++it) {
+    const int buf = it & 1;
+    const int next = tile + gridDim.x;
+    const int64_t s0 = static_cast<int64_t>(tile) * kDotTile;
+    // The next tile's g and coordinates come in while this one is gathered:
+    // g into the other buffer (last read before the previous tile's
+    // __syncthreads), the coordinates into a register until then.
+    if (t == 0 && next < num_tiles) load_g_tile<D>(s_g + (buf ^ 1) * kDotTile * D, grad, next, n, bar + (buf ^ 1));
+    const int64_t u_at = static_cast<int64_t>(next) * kDotTile * 3 + t;
+    const float u_next = t < kDotTile * 3 && next < num_tiles && u_at < static_cast<int64_t>(n) * 3
+                             ? fminf(fmaxf(__ldg(coords + u_at), 0.f), 1.f)
+                             : 0.f;
+    const float* tu = s_u + buf * kDotTile * 3 + 3 * smp;
+    const float u[3] = {tu[0], tu[1], tu[2]};
+    factor_grid::mbar_wait(bar + buf, (it >> 1) & 1);
+    const float* g_row = s_g + (buf * kDotTile + smp) * D;
+    float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < L / G; ++j) {
+      const int l = j * G + grp;
+      const float4* src = reinterpret_cast<const float4*>(g_row + l * F + 8 * h);
+      const float4 lo = src[0], hi = src[1];
+      const float gv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      // l >= j G: past the shared levels for every thread once j G is.
+      const int4 lv = reinterpret_cast<const int4*>(s_lv)[l];
+      if (j * G < kDotSharedLevels && l < n_shared) {
+        const __nv_bfloat16* const line[3] = {s_tab + lv.y, s_tab + lv.z, s_tab + lv.w};
+        factor_grid::part8_dot<F, false>(line, lv.x, 8 * h, u, gv, acc);
+      } else {
+        const __nv_bfloat16* const line[3] = {tables + lv.y, tables + lv.z, tables + lv.w};
+        factor_grid::part8_dot<F, true>(line, lv.x, 8 * h, u, gv, acc);
+      }
+    }
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const int b = (a + 1) % 3, c = (a + 2) % 3;
 #pragma unroll
-      for (int k = 0; k < F; ++k) acc[a] = fmaf(da[a][k] * fa[b][k] * fa[c][k], gv[k], acc[a]);
+      for (int o = P / 2; o > 0; o >>= 1) acc[a] += __shfl_xor_sync(0xffffffffu, acc[a], o);
     }
-  }
+    float* sums = s_sum + buf * G * kDotTile * 3;
+    if (h == 0) {
 #pragma unroll
-  for (int a = 0; a < 3; ++a) acc[a] = factor_grid::sum_levels<L>(acc[a]);
-  if (valid && l == 0) {
+      for (int a = 0; a < 3; ++a) sums[(grp * kDotTile + smp) * 3 + a] = acc[a];
+    }
+    if (t < kDotTile * 3) s_u[(buf ^ 1) * kDotTile * 3 + t] = u_next;
+    __syncthreads();  // this tile's sums and the next tile's coordinates are in
+    if (t < kDotTile * 3 && s0 * 3 + t < static_cast<int64_t>(n) * 3) {
+      float v = sums[t];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) out[sample * 3 + a] = acc[a];
+      for (int q = 1; q < G; ++q) v += sums[q * kDotTile * 3 + t];
+      out[s0 * 3 + t] = v;
+    }
   }
 }
 
@@ -237,9 +361,20 @@ grad_dot_bwd_coords_kernel(const float* __restrict__ coords, const float* __rest
 template <int F, int L>
 int launch_forward(const float* c, const float* g, int n, const __nv_bfloat16* t, const Schedule& s,
                    float* out, cudaStream_t stream) {
-  const int64_t items = static_cast<int64_t>(n) * L;
-  const int blocks = static_cast<int>((items + kThreads - 1) / kThreads);
-  grad_dot_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, g, n, t, s, out);
+  auto kernel = grad_dot_kernel<F, L>;
+  int n_shared = 0, shared_elems = 0;  // levels [0, n_shared) and their packed tables
+  while (n_shared < kDotSharedLevels && n_shared < L &&
+         (shared_elems + 3 * s.res[n_shared] * F) * 2 <= kDotSharedBytes)
+    shared_elems += 3 * s.res[n_shared++] * F;
+  const int smem = dot_smem_bytes<F, L>(shared_elems * 2);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int resident = 0;
+  if ((err = factor_grid::resident_blocks(kernel, kDotThreads, smem, resident)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int tiles = (n + kDotTile - 1) / kDotTile;
+  kernel<<<tiles < resident ? tiles : resident, kDotThreads, smem, stream>>>(c, g, n, t, s, n_shared, shared_elems,
+                                                                             out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -275,7 +410,7 @@ extern "C" int fused_factor_grad_dot_forward(const void* coords, const void* gra
                                              const void* tables, const int* resolutions,
                                              int num_levels, int feat, void* out, void* stream) {
   Schedule s;
-  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
+  if (n < 0 || !factor_grid::make_schedule(resolutions, num_levels, feat, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);
@@ -297,7 +432,7 @@ extern "C" int fused_factor_grad_dot_backward(const void* coords, const void* gr
                                               void* g_coords, int mode, void* stream) {
   Schedule s;
   if (n < 0 || (mode != 0 && mode != 1) ||
-      !factor_grid::make_schedule(resolutions, num_levels, feat, 0, s))
+      !factor_grid::make_schedule(resolutions, num_levels, feat, s))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const auto* c = static_cast<const float*>(coords);

@@ -32,14 +32,16 @@ takes the MLP VJP at the Pallas kernel's bf16 rounding points with
 the MLP products on the tensor cores, keeps dW/db per block and flushes
 them once per block, and sums the line grads over runs of lanes on the
 same row before adding them into device memory with vector reductions (so
-its sums are reproducible to f32 rounding, not bitwise). K5 and the
-coords halves of K4 and K6 run one thread per (sample, level). The tables
-halves of K4 and K6 take K2's scatter: one thread per sample with the
-levels in a loop, the line grads summed over runs of lanes on one row and
-added with vector reductions into L2, no shared-memory atomics. All keep
-K1's taps and f32 contract. K5, K6 and the coords halves of K4 and K6 take
-the derivative of an axis' value as 0 at an exact knot, as both JAX
-versions do (K2's coords half takes the slope of the cell K1 reads there).
+its sums are reproducible to f32 rounding, not bitwise). K5 walks K3's
+tiles and parts, with each tile's g brought into shared memory by one bulk
+copy. K8 and the coords halves of K4, K6 and K9 run one thread per
+(sample, level). The tables halves of K4, K6 and K9 take K2's scatter: one
+thread per sample with the levels in a loop, the line grads summed over
+runs of lanes on one row and added with vector reductions into L2, no
+shared-memory atomics. All keep K1's taps and f32 contract. K5, K6, K8,
+K9 and the coords half of K4 take the derivative of an axis' value as 0 at
+an exact knot, as both JAX versions do (K2's coords half takes the slope
+of the cell K1 reads there).
 
 The TPU kernels' dense-hat block GEMM, 9-row one-hot GEMM, transposed
 [D, N] layout and packed small/large grad layout existed only because the

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: K1 to K10 against their plain
 twins, their input checks, one model chunk through K1, one train step
-through K1 and K2, the tables halves of K2, K4 and K6 at ray-ordered and
-one-cell coordinates and their run-to-run spread, K7 at every ragged tail
+through K1 and K2, the tables halves of K2, K4, K6 and K9 at ray-ordered
+and one-cell coordinates and their run-to-run spread, K5 at three layouts
+with its exact zeros at the knots, K7 at every ragged tail
 of its tiles on strided views, one `signerf` micro-batch and eval chunk
 through K1 to K6, K8 and K9 against K5 and K6, and the entry points of K8
 to K10.
@@ -499,6 +500,62 @@ def test_k4_and_k6_run_to_run_spread_is_f32_rounding(cuda):
     assert float((first4 - second4).abs().max()) <= 1e-5 * float(want4.abs().max())
     assert float((first6[0] - second6[0]).abs().max()) <= 1e-5 * float(want6.abs().max())
     assert torch.equal(first6[1], second6[1])
+
+
+@pytest.mark.parametrize("layout", ["uniform", "ray-ordered", "one cell"])
+def test_k5_at_three_layouts_with_exact_zeros_at_knots(cuda, layout):
+    """K5 on its shared encode tile where a warp's lanes meet on the same
+    rows (each ray's samples in order; every sample in one cell) and at
+    uniform coordinates, with four rows on knots of every level."""
+    args, g, _ = k46_layout_args("final", layout, cuda, seed=9) if layout != "uniform" else encode_args(
+        100_003, cuda, seed=9)
+    res, feat, tables, x = args
+    x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]], device=cuda)
+    c5 = ffc.grad_dot_launches
+    s = ffc.grad_dot_cuda(*args, g)
+    torch.cuda.synchronize()
+    assert ffc.grad_dot_launches == c5 + 1
+    want = ffc.grad_dot_plain(*args, g)
+    assert s.shape == want.shape and bool(torch.isfinite(s).all())
+    assert rel(s, want) < 1e-4  # f32 sums in another order (chip_smoke.py's K456_TOL)
+    assert bool((s[:2] == 0).all()) and float(s[2, 1]) == 0.0 and float(s[3, 1]) == 0.0
+
+
+def k9_layout_args(layout, device, seed=7):
+    """Base-field tables, x01 at `layout` and a cotangent ct [N, 3, L F]."""
+    args, _, _ = k46_layout_args("final", layout, device, seed)
+    ct = torch.randn(args[3].shape[0], 3, 128, generator=torch.Generator().manual_seed(seed + 2))
+    return args, ct.to(device)
+
+
+@pytest.mark.parametrize("layout", ["ray-ordered", "one cell"])
+def test_k9_tables_half_at_ray_ordered_and_one_cell_coordinates(cuda, layout):
+    """K9's tables half where its warp-aggregated scatter matters, as the
+    tables halves of K4 and K6: in one cell against the twin's terms summed
+    in float64, since N f32 additions into one row stray on their own."""
+    args, ct = k9_layout_args(layout, cuda)
+    t9 = ffc.grad_bwd_table_launches
+    got = ffc.grad_bwd_cuda(*args, ct)[0]
+    torch.cuda.synchronize()
+    assert ffc.grad_bwd_table_launches == t9 + 1
+    res, feat, tables, x = args
+    if layout == "ray-ordered":
+        want = ffc.grad_bwd_plain(*args, ct)[0]
+    else:
+        want = f64_chunk_sum(lambda p: [ffc.grad_bwd_plain(res, feat, tables, x[p], ct[p])[0]], len(x))[0]
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert rel(got, want) < 1e-4  # f32 sums in another order
+
+
+def test_k9_run_to_run_spread_is_f32_rounding(cuda):
+    """The same ray-ordered inputs twice: K9's L2 vector reductions add in
+    another order each run, so the line grads differ, but only by f32
+    rounding of the twin's scale."""
+    args, ct = k9_layout_args("ray-ordered", cuda)
+    first, second = ffc.grad_bwd_cuda(*args, ct)[0], ffc.grad_bwd_cuda(*args, ct)[0]
+    torch.cuda.synchronize()
+    want = ffc.grad_bwd_plain(*args, ct)[0]
+    assert float((first - second).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_k3_to_k6_refuse_what_they_do_not_take(cuda):

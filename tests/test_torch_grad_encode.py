@@ -1,8 +1,9 @@
 """The last three factor-grid kernels on the CPU: the plain twins of K8
 (the encode's uncontracted spatial derivative), K9 (its backward) and K10
 (the early dense-hat encode) against the JAX package's XLA expressions and
-its Pallas TPU kernels in interpret mode; the autograd Functions around
-them (`grad_encode_fused`, `fused_factor_grad`, `factor_encode_kernel`).
+its Pallas TPU kernels in interpret mode (K9 also with samples in ray order
+and all in one cell); the autograd Functions around them
+(`grad_encode_fused`, `fused_factor_grad`, `factor_encode_kernel`).
 
 Inputs are made with numpy from a seed and handed to both frameworks. The
 schedules are the base field (F = 16) and a proposal field (F = 8) cut to
@@ -11,6 +12,8 @@ three levels, with resolutions past the Pallas kernels' small-level limit
 per leaf by norm-relative error: one flipped bf16 rounding moves single
 elements by O(value).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -135,6 +138,47 @@ def test_k9_twin_matches_pallas_interpret(name):
     # The same knot rule, boundary rows included (measured up to 1.9e-4).
     assert rel(g_x.numpy(), np.asarray(gx)) < 1e-3, rel(g_x.numpy(), np.asarray(gx))
     np.testing.assert_array_equal(g_x.numpy()[:2], 0.0)
+
+
+def layout_x(layout, resolutions, n, seed):
+    """[n, 3] sample positions in ray order (32 consecutive samples a "ray",
+    in order along a line between two random points of the cube) or all
+    inside one cell of every level, as tests/test_torch_normals.py lays
+    them out."""
+    rng = np.random.default_rng(seed + 100)
+    if layout == "ray-ordered":
+        a, b = rng.random((n // 32, 1, 3)), rng.random((n // 32, 1, 3))
+        t = np.sort(rng.random((n // 32, 32, 1)), axis=1)
+        return (a + (b - a) * t).reshape(n, 3).astype(np.float32)
+    width = 1e-4
+    for k in range(1000):
+        c = 0.3 + 1e-3 * k
+        if all(math.floor(c * (r - 1)) == math.floor((c + width) * (r - 1)) and c * (r - 1) % 1 > 1e-3
+               for r in resolutions):
+            return (c + width * rng.random((n, 3))).astype(np.float32)
+    raise AssertionError("no point lies inside one cell of every level")
+
+
+@pytest.mark.parametrize("layout", ["uniform", "ray-ordered", "one cell"])
+def test_k9_twin_matches_pallas_interpret_at_layout(layout):
+    """K9's twin at the layouts its tables half's scatter is built for (base
+    field; uniform keeps make_case's boundary rows)."""
+    jcfg, tcfg, lines, x, ct = make_case("base", n=256, seed=30)
+    if layout != "uniform":
+        x = layout_x(layout, tcfg.resolutions, len(x), seed=30)
+    feat = jcfg.features_per_level
+    grad_packed, gx = ffp.fused_factor_grad_bwd_tpu(
+        jcfg.resolutions, feat, ffp.pack_tables(jcfg.resolutions, jlines(lines)), jnp.asarray(x),
+        jnp.asarray(ct), True)
+    gl = ffp.unpack_table_grads(jcfg.resolutions, grad_packed, feat)
+    g_tables, g_x = ffc.grad_bwd_plain(*packed(tcfg, lines), torch.from_numpy(x), torch.from_numpy(ct), True, True)
+    for a, b in zip(leaves(unpack(tcfg, g_tables)), leaves(gl)):
+        # Pallas rounds G_hat, G_dhat (or the tap-weighted sums) to bf16
+        # before its GEMMs: measured up to 0.0046 (one cell) over seeds 30
+        # to 32.
+        assert rel(a, b) < 0.01, rel(a, b)
+    # The same knot rule (measured up to 1.1e-4).
+    assert rel(g_x.numpy(), np.asarray(gx)) < 1e-3, rel(g_x.numpy(), np.asarray(gx))
 
 
 @pytest.mark.parametrize("name", list(SCHEDULES))
