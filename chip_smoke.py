@@ -41,7 +41,8 @@ the result line):
      half at the three layouts (in one cell against the twin's terms
      summed in float64), with the run-to-run spread of its line grads and
      its share of the bound; K10 and K4 at the proposal schedule (their
-     5-level instantiations);
+     5-level instantiations), K10 there also timed against its twin and
+     its bound;
   6. the render CLI at the full width of `signerf_nerfacto` on a synthetic
      512x512 scene (--arc 2 --device cuda, seeded random weights): K1's
      launches must be 3 x chunks; the PNGs must equal a direct render's
@@ -85,12 +86,32 @@ the result line):
      raster, dilation and compose times, `resize_mask` flips against the
      CPU at 512 -> 256; no cell's mask may be empty; phase 7's NeRF under
      the same box, for comparison;
+ 14d. the edit pass, SIGNeRF's product path, through the trainer API on
+     phase 14c's scene: `signerf_nerfacto` at its defaults trained 300
+     steps; `generate_dataset` at the generator's defaults (2x3 sheet of
+     256 px cells, downscale 2, generation_batch_size 4,
+     lastcell_vae_window) and the Diffuser's (torch_sdxl, 20 steps,
+     strength 0.9, CFG 7, ControlNet 0.8) on SDXL at random init, with 5
+     reference poses on a circle and the 8 cameras' PNGs as originals;
+     `exchange_training_dataset`; 300 refinement steps. Checks
+     transforms.json (5 + 8 frames), every PNG of the schema at full and
+     cell size, the dataparser's read-back, step 0 and the surgery after
+     the exchange (proposal networks from the seeded init, the rest the
+     checkpoint's), a finite, falling refinement loss, and exact launches:
+     K1 3 x chunks x 13 renders, K7 from the pipeline's schedule, K1 and
+     K2's tables half 3 x steps in training and refinement; walls of each
+     phase and chunk, peak memory;
+ 14e. the headless train CLI on the generated dataset (`--skip-interface
+     True --skip-generation True`, 50 steps), `export pointcloud` and
+     `export mesh` on the refined checkpoint, each with exact K1 launches;
  15. K7 (signerf_tpu_torch/csrc/flash_attention.cu) against its plain twin
      and an f32 reference at (B, S, H) = (1, 9216, 10), (1, 2304, 20),
-     (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1);
-     CUDA-event times of the kernel, the twin and scaled_dot_product_attention
-     (a yardstick the port never calls) beside the bound; a line for each
-     sheet shape: kernel, SDPA, their ratio, TFLOP/s and share of the bound;
+     (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1) and
+     the edit pass's (2, 1536, 10), (2, 384, 20), (8, 1536, 10),
+     (8, 384, 20); CUDA-event times of the kernel, the twin and
+     scaled_dot_product_attention (a yardstick the port never calls) beside
+     the bound; a line for each sheet and edit-pass shape: kernel, SDPA,
+     their ratio, TFLOP/s and share of the bound;
  16. the full SDXL + ControlNet-depth stack at random init in bf16 on the
      card, then `Diffuser.diffuse` at the defaults (20 steps, strength 0.9,
      CFG 7, ControlNet 0.8, Euler a) on phase 14c's 1536 px reference
@@ -105,10 +126,10 @@ the result line):
      share, the top kernels;
  20. a JSON line per kernel, then {"ok": true, "device": {...}} last. A
      kernel's launches are summed over the main path's phases that run it
-     (K1: 6, 7, 11 and 14; K2's tables half: 7 and 11; K3 and K5: 11 and
-     14), and its times and bound are per call, each kind of call weighted
-     by its launches, so that launches x (ms - bound_ms) is the time the
-     path loses to it.
+     (K1: 6, 7, 11, 14, 14d and 14e; K2's tables half: 7, 11, 14d and 14e;
+     K3 and K5: 11 and 14; K7: 16 and 14d), and its times and bound are per
+     call, each kind of call weighted by its launches, so that launches x
+     (ms - bound_ms) is the time the path loses to it.
 
 The script imports torch and the port only.
 """
@@ -455,6 +476,17 @@ def phase_kernel(torch) -> dict:
                 line[-1] = line[-1][:-1] + f", {b_ms / k_ms:.1%} of the bound;"
             print(" ".join(line), flush=True)
             del args
+        if name == "final":
+            # the mesh export's density calls: one a chunk of 65,536 grid points
+            n = 1 << 16
+            args = list(make_case(torch, *shape, n, gen, dev))
+            b_ms, b_by = factor_bounds(args[0], shape[2], args[2], n, shape[3], shape[4])["K1"]
+            err = check(f"{name} N={n}", args)
+            k_ms, p_ms = twin_ms(torch, lambda: ffc.density_mlp_cuda(*args), lambda: ffc.density_mlp_plain(*args))
+            per_call[(name, "mesh")] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+            print(f"phase 3 K1 {name} per call at the mesh export's N={n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                  f"ms, {err}, {b_ms / k_ms:.1%} of the bound ({b_ms:.4f} ms, {b_by})", flush=True)
+            del args
     torch.cuda.empty_cache()
     chunk = {k: sum(per_call[(name, "chunk")][k] for name, _, _ in TRAIN_SCHEDULES) for k in ("ms", "plain_ms", "bound_ms")}
     print(f"phase 3 K1 per {CHUNK}-ray render chunk (its 3 calls, uniform): kernel {chunk['ms']:.4f} ms, plain "
@@ -470,7 +502,8 @@ def per_call(label: str, calls, max_abs_err: float) -> dict:
     that launches x (ms - bound_ms) is the time the path loses to it."""
     total = sum(w for w, _ in calls)
     out = {"launches": total, "max_abs_err": max_abs_err}
-    for key in ("ms", "plain_ms", "bound_ms"):
+    keys = ("ms", "plain_ms", "bound_ms") + (("library_ms",) if all("library_ms" in c for _, c in calls) else ())
+    for key in keys:
         out[key] = sum(w * c[key] for w, c in calls) / max(total, 1)
     out["bound_by"] = max(calls, key=lambda wc: wc[0] * wc[1]["bound_ms"])[1]["bound_by"]
     print(f"phase 20 {label}: {total} launches; per call, weighted by launches: kernel {out['ms']:.4f} ms, plain "
@@ -775,8 +808,15 @@ def phase_k8_k10(torch) -> dict:
         want4 = ffc.encode_bwd_plain(res, feat, tables, x, g, True, True)
         e10 = float((a - b).abs().max()) / float(b.abs().max())
         e4 = [rel_err(u, v) for u, v in zip(got4, want4)]
+        timing = ""
+        if n != 257:
+            k_ms, p_ms = twin_ms(torch, lambda: ffc.dense_encode_cuda(res, feat, tables, x),
+                                 lambda: ffc.dense_encode_plain(res, feat, tables, x))
+            b_ms, b_by = grad_bounds(res, feat, tables, n)["K10"]
+            timing = (f"; K10 {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / k_ms:.1%} "
+                      f"of it)")
         print(f"phase 5b proposal schedule N={n}: K10 {e10:.2e} of max|ref| (bound {K3_TOL}); its backward, "
-              f"K4 tables {e4[0]:.2e}, coords {e4[1]:.2e} (bound {K456_TOL})", flush=True)
+              f"K4 tables {e4[0]:.2e}, coords {e4[1]:.2e} (bound {K456_TOL}){timing}", flush=True)
         if e10 > K3_TOL or max(e4) > K456_TOL or not bool(torch.isfinite(a).all()):
             fail(f"K10 or K4 at the proposal schedule, N={n}, disagrees with its twin")
         del res, tables, x, g, a, b, got4, want4
@@ -1784,7 +1824,337 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
           f"accumulation " + ", ".join(f"{a:.4f}" for a in white_acc) + ", AABB masks cover "
           + ", ".join(f"{c:.3f}" for c in white_cov) + f"; on {card}", flush=True)
     return {"layout": layout, "image_sheet": image_sheet, "mask_sheet": mask_sheet, "cond_sheet": cond_sheet,
-            "target": scaled[TARGET_VIEW], "count": len(refs), "coverage": coverage}
+            "target": scaled[TARGET_VIEW], "count": len(refs), "coverage": coverage, "data": data}
+
+
+# The edit pass (phase 14d): SIGNeRF's product path through the trainer API
+# on phase 14c's grey-backdrop scene, at the generator's defaults (a 2 x 3
+# sheet, downscale 2: cells of 256 px, a 512 x 768 sheet, latent 64 x 96)
+# and the diffuser's. Its reference poses are a circle in the scene's frame:
+# the dataset cameras' ring at their first 5 azimuths (a NeRF trained 300
+# steps on 8 views renders floaters in front of poses between or off them,
+# and their masks come out empty: 2 of 5 at 72-degree steps on this ring,
+# all 5 on a ring at 60 degrees).
+EDIT_STEPS = TRAIN_STEPS
+EDIT_REFERENCES = 5
+EDIT_REFERENCE_RING = dict(radius=2.0, theta=70.0, phi=(0.0, 180.0))
+EDIT_CLI_STEPS = 50
+EDIT_MESH_RESOLUTION = 64
+EDIT_MESH_ISO = "p90"
+# Self-attention calls of one UNet + ControlNet pass by head count: 14 with
+# 10 heads at latent / 2 (UNet 10, ControlNet 4), 90 with 20 heads at
+# latent / 4 (UNet 60, ControlNet 30).
+K7_PASS_CALLS = {10: 14, 20: 90}
+K7_LAYERS = sum(K7_PASS_CALLS.values())
+
+
+def k7_pass_shapes(h: int, w: int, batch: int) -> dict:
+    """{(B, S, H): calls} of one UNet + ControlNet pass on an h x w image."""
+    return {(batch, (h // 16) * (w // 16), 10): K7_PASS_CALLS[10], (batch, (h // 32) * (w // 32), 20): K7_PASS_CALLS[20]}
+
+
+# The edit pass's shapes: at 512 x 768 CFG is batched (the pipeline's
+# einsum-memory gate), so the sheet call runs B = 2 and a chunk of 4 views
+# B = 8 (4 views x 2 branches). Phase 15 times them; phase 14d fails if the
+# pipeline scheduled others.
+K7_EDIT_SHAPES = tuple(k7_pass_shapes(512, 768, 2)) + tuple(k7_pass_shapes(512, 768, 8))
+
+
+def scene_poses_to_world(parsed, c2w):
+    """Scene-frame camera poses [n, 3|4, 4] -> the NeRF's world frame [n, 3, 4]
+    (the dataparser's transform, then its scale on the translation)."""
+    import numpy as np
+
+    rot = np.asarray(parsed.dataparser_transform, np.float64)[:3, :3]
+    c2w = np.asarray(c2w, np.float64)
+    return np.concatenate([rot @ c2w[:, :3, :3], to_world(parsed, c2w[:, :3, 3])[..., None]], 2).astype(np.float32)
+
+
+def recording_diffuser(diffuser, calls: list):
+    """Record, after each `diffuse` / `diffuse_batch` call, its image count
+    and the in-process pipeline's `last_run` (what it scheduled)."""
+
+    def wrap(fn, batched):
+        def call(images, *args, **kw):
+            out = fn(images, *args, **kw)
+            calls.append((len(images) if batched else 1, dict(diffuser.pipeline.last_run)))
+            return out
+
+        return call
+
+    diffuser.diffuse = wrap(diffuser.diffuse, False)
+    diffuser.diffuse_batch = wrap(diffuser.diffuse_batch, True)
+    return diffuser
+
+
+def k7_launches(calls: list, h: int, w: int) -> dict:
+    """{(B, S, H): launches} of the recorded diffuse calls on h x w sheets:
+    a call runs its sampler steps, each one pass per CFG branch when CFG is
+    sequential, one pass over both otherwise; serial views run each view as
+    its own call."""
+    shapes = {}
+    for k, run in calls:
+        views, batch = (k, 1) if run["serial_views"] else (1, k)
+        branches, batch = (2, batch) if run["sequential_cfg"] else (1, 2 * batch)
+        for shape, n in k7_pass_shapes(h, w, batch).items():
+            shapes[shape] = shapes.get(shape, 0) + n * run["sampler_steps"] * branches * views
+    return shapes
+
+
+def phase_edit_pass(torch, card: str, tmp: Path, ref: dict) -> dict:
+    """SIGNeRF's edit pass through the trainer API at full width: train
+    `signerf_nerfacto`, generate the edited dataset (reference sheet,
+    per-view regeneration in chunks of 4, PNGs, transforms.json), hot-swap
+    it, refine; then the headless train CLI on the generated dataset and
+    both export subcommands on the refined checkpoint."""
+    import gc
+    import itertools
+    import warnings
+
+    import numpy as np
+
+    from signerf_tpu_torch.cameras.poses import circle_poses
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser
+    from signerf_tpu_torch.engine import train_step as tts
+    from signerf_tpu_torch.engine.checkpoints import load_checkpoint
+    from signerf_tpu_torch.engine.trainer import SIGNeRFTrainer
+    from signerf_tpu_torch.method_configs import signerf_nerfacto_method
+    from signerf_tpu_torch.ops import flash_attention as fa
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+    from signerf_tpu_torch.pipeline import SURGERY_SEED, seeded_model
+
+    dev = torch.device("cuda")
+    data = ref["data"]
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    corners = to_world(parsed, list(itertools.product(*zip(*SHEET_AABB_SCENE))))
+    cfg = signerf_nerfacto_method()
+    cfg.output_dir = tmp / "edit"
+    cfg.pipeline.datamanager.dataparser.data = data
+    cfg.pipeline.model.background_color = REFERENCE_FLAGS[1]
+    cfg.max_num_iterations = cfg.steps_per_save = EDIT_STEPS
+    gen_cfg = cfg.pipeline.dataset_generator
+    gen_cfg.path = tmp / "generations"
+    gen_cfg.aabb_min, gen_cfg.aabb_max = tuple(corners.min(0)), tuple(corners.max(0))
+    h, w = SCENE["height"], SCENE["width"]
+    chunks = -(-(h * w) // CHUNK)
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    diffuse_calls = []
+    trainer = SIGNeRFTrainer(cfg, dev)
+    trainer.setup(diffuser=recording_diffuser(Diffuser(gen_cfg.diffuser, device=dev), diffuse_calls))
+    zero_counts(ffc)
+    t0 = synced()
+    trainer.train()
+    train_s = synced() - t0
+    if counts(ffc) != NERFACTO_COUNTS(EDIT_STEPS):
+        fail(f"edit pass: training launched {counts(ffc)}, expected {NERFACTO_COUNTS(EDIT_STEPS)}")
+
+    ring = circle_poses(EDIT_REFERENCES, **EDIT_REFERENCE_RING).numpy()
+    references = scene_poses_to_world(parsed, ring)
+    zero_counts(ffc)
+    fa.launches = 0
+    t0 = synced()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        generated = trainer.generate_dataset(reference_camera_to_worlds=references)
+    gen_s = synced() - t0
+    gen = trainer.pipeline.dataset_generator
+    timings = dict(gen.last_timings)
+    views = len(parsed.image_filenames)
+    sheet_h, sheet_w = gen._layout().height, gen._layout().width
+    k7_shapes = k7_launches(diffuse_calls, sheet_h, sheet_w)
+    k7_expected = sum(k7_shapes.values())
+    got = counts(ffc)
+    if not any("RANDOM-INIT" in str(x.message) for x in caught):
+        fail("edit pass: SDXL ran at random init without the uncalibrated warning")
+    if got != expect_counts(K1=3)(chunks * (EDIT_REFERENCES + views)):
+        fail(f"edit pass: generation launched {got}, expected K1 3 x {chunks} chunks x {EDIT_REFERENCES + views} "
+             f"renders")
+    if fa.launches != k7_expected or set(k7_shapes) - set(K7_EDIT_SHAPES):
+        fail(f"edit pass: K7 launched {fa.launches} times, expected {k7_expected} from the pipeline's schedule "
+             f"{k7_shapes} (phase 15 times {K7_EDIT_SHAPES})")
+
+    meta = json.loads((generated / "transforms.json").read_text())
+    refs, gens = list(range(EDIT_REFERENCES)), list(range(EDIT_REFERENCES, EDIT_REFERENCES + views))
+    if (len(meta["frames"]), meta["reference_indices"], meta["generated_indices"]) != (len(refs + gens), refs, gens):
+        fail(f"edit pass: transforms.json has {len(meta['frames'])} frames, reference_indices "
+             f"{meta.get('reference_indices')}, generated_indices {meta.get('generated_indices')}")
+    cell_h, cell_w = h // gen_cfg.downscale_factor, w // gen_cfg.downscale_factor
+    ds = gen_cfg.downscale_factor
+    expected = {f"references/{k}_reference_sheet.png": (sheet_h, sheet_w) for k in ("image", "mask", "condition",
+                                                                                    "edited")}
+    for i in refs + gens:
+        for sub, name in (("images", "image"), ("masks", "mask"), ("conditions", "condition")):
+            expected[f"{sub}/{name}_{i}.png"] = (h, w)
+            expected[f"{sub}_{ds}/{name}_{i}.png"] = (cell_h, cell_w)
+        expected[f"{'rendered' if i in refs else 'originals'}/image_{i}.png"] = (h, w)
+        expected[f"rendered_{ds}/image_{i}.png"] = (cell_h, cell_w)
+    written = {p.relative_to(generated).as_posix() for p in generated.rglob("*.png")}
+    if written != set(expected):
+        fail(f"edit pass: PNGs missing {sorted(set(expected) - written)[:5]}, unexpected "
+             f"{sorted(written - set(expected))[:5]}")
+    for name, hw in expected.items():
+        if read_png(generated / name).shape[:2] != hw:
+            fail(f"edit pass: {name} is not {hw}")
+    coverage = [float(read_png(generated / f"masks_{ds}/mask_{i}.png").mean()) / 255.0 for i in refs + gens]
+    reread = parse_transforms(SIGNeRFDataParserConfig(data=generated))
+    if len(reread.image_filenames) != len(refs + gens) or (reread.cameras.height, reread.cameras.width) != (h, w):
+        fail(f"edit pass: the dataparser read {len(reread.image_filenames)} frames of "
+             f"{reread.cameras.width}x{reread.cameras.height} back")
+
+    ckpt_before = {k: v.detach().cpu().clone() for k, v in trainer.pipeline.model.state_dict().items()}
+    losses = []
+    real_loss = tts.default_loss_fn
+
+    def recording_loss(model, outputs, batch):
+        total, ld = real_loss(model, outputs, batch)
+        losses.append(total.detach())
+        return total, ld
+
+    tts.default_loss_fn = recording_loss
+    try:
+        zero_counts(ffc)
+        t0 = synced()
+        trainer.exchange_training_dataset(generated)
+        exchange_s = synced() - t0
+        if any(counts(ffc).values()) or trainer.step != 0:
+            fail(f"edit pass: the exchange launched {counts(ffc)}, step {trainer.step}")
+        ckpt = load_checkpoint(sorted(trainer.checkpoint_dir.glob("step-*.pt"))[-1])["params"]
+        fresh = seeded_model(cfg.pipeline.model, len(refs + gens), SURGERY_SEED).state_dict()
+        swapped = {k: v.detach().cpu() for k, v in trainer.pipeline.model.state_dict().items()}
+        reinit = [k for k in swapped if k.startswith("proposal") or k.startswith("field.appearance.")]
+        for key, val in swapped.items():
+            want = fresh[key] if key in reinit else ckpt[key]
+            if not torch.equal(val, want) or (key not in reinit and not torch.equal(val, ckpt_before[key])):
+                fail(f"edit pass: after the exchange {key} is not the "
+                     f"{'fresh init' if key in reinit else 'checkpoint'}'s")
+        if not any(not torch.equal(swapped[k], ckpt_before[k]) for k in reinit if k.startswith("proposal")):
+            fail("edit pass: the proposal networks were not re-initialised")
+        zero_counts(ffc)
+        t0 = synced()
+        trainer.train()
+        refine_s = synced() - t0
+    finally:
+        tts.default_loss_fn = real_loss
+    if counts(ffc) != NERFACTO_COUNTS(EDIT_STEPS):
+        fail(f"edit pass: refinement launched {counts(ffc)}, expected {NERFACTO_COUNTS(EDIT_STEPS)}")
+    loss = torch.stack(losses).float().cpu()
+    first, last = float(loss[:20].mean()), float(loss[-20:].mean())
+    if len(loss) != EDIT_STEPS or not bool(torch.isfinite(loss).all()) or not last < first:
+        fail(f"edit pass: {len(loss)} refinement losses, finite {bool(torch.isfinite(loss).all())}, first 20 "
+             f"{first:.5f}, last 20 {last:.5f}")
+    out = trainer.pipeline.render_camera_fn(trainer.pipeline.datamanager.cameras, gens[0])
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        fail("edit pass: the refined NeRF renders non-finite values")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ckpt_dir = trainer.checkpoint_dir
+    view_s = timings["view_s"]
+    per_view = sorted(s / gen_cfg.generation_batch_size for s in view_s)
+    run0 = diffuse_calls[0][1]
+    step_ms = []
+    for _, run in diffuse_calls:
+        ev = run["step_events"]
+        ms = sorted(ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1))
+        step_ms.append(f"{ms[len(ms) // 2]:.2f} ({ms[0]:.2f} to {ms[-1]:.2f})")
+    sdxl_init_s = gen.diffuser.pipeline.init_seconds
+    print(f"phase 14d edit pass (trainer API, phase 14c's scene, {views} cameras of {w}x{h}): signerf_nerfacto "
+          f"trained {EDIT_STEPS} steps in {train_s:.3f} s; generate_dataset at the generator's defaults ("
+          f"{gen_cfg.rows}x{gen_cfg.cols} sheet of {cell_w}x{cell_h} cells = {sheet_w}x{sheet_h}, downscale "
+          f"{ds}, generation_batch_size {gen_cfg.generation_batch_size}, lastcell_vae_window "
+          f"{gen_cfg.lastcell_vae_window}) and the diffuser's ({gen_cfg.diffuser.mode}, "
+          f"{gen_cfg.diffuser.num_inference_steps} steps, strength {gen_cfg.diffuser.denoising_strength}, CFG "
+          f"{gen_cfg.diffuser.guidance_scale}, ControlNet {gen_cfg.diffuser.controlnet_conditioning_scale}; SDXL "
+          f"random init, warned) with {EDIT_REFERENCES} reference poses and the {views} originals: {gen_s:.3f} s "
+          f"in all, sheet {timings['sheet_s']:.3f} s (SDXL created in it: {sdxl_init_s:.2f} s), per-view chunks "
+          + ", ".join(f"{x:.3f}" for x in view_s)
+          + f" s (per view median {per_view[len(per_view) // 2]:.3f} s, range {per_view[0]:.3f} to "
+          f"{per_view[-1]:.3f}); {len(diffuse_calls)} diffuse calls, sequential CFG "
+          f"{[r['sequential_cfg'] for _, r in diffuse_calls]}, serial views "
+          f"{[r['serial_views'] for _, r in diffuse_calls]}, {run0['sampler_steps']} sampler steps a call, step "
+          f"median (range) " + ", ".join(step_ms) + " ms; launches "
+          f"K1 {got['K1']} (= 3 x {chunks} x {EDIT_REFERENCES + views}), K7 {fa.launches} ("
+          + ", ".join(f"{n} at {s}" for s, n in k7_shapes.items()) + f"), others 0; transforms.json "
+          f"{len(meta['frames'])} frames, {len(expected)} PNGs at full and cell size, mask coverage "
+          + ", ".join(f"{c:.3f}" for c in coverage) + f", read back by the dataparser; exchange {exchange_s:.3f} s "
+          f"(step 0, proposal networks and appearance codes from the seeded init, the rest the checkpoint's); "
+          f"refinement {EDIT_STEPS} steps in {refine_s:.3f} s, loss {float(loss[0]):.5f} -> {float(loss[-1]):.5f} "
+          f"(first 20 {first:.5f}, last 20 {last:.5f}), K1 and K2's tables half 3 x {EDIT_STEPS}, no coords half; "
+          f"peak memory {peak:.2f} GiB; on {card}", flush=True)
+    trainer.pipeline.dataset_generator.diffuser._sdxl = None
+    del trainer, gen, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = phase_edit_clis(torch, card, tmp, data, generated, ckpt_dir)
+    return {"train_steps": 2 * EDIT_STEPS + EDIT_CLI_STEPS, "chunks": chunks * (EDIT_REFERENCES + views)
+            + cli["pointcloud_chunks"], "mesh_calls": cli["mesh_calls"], "k7_shapes": k7_shapes,
+            "k7_launches": fa.launches, "K1": 3 * 2 * EDIT_STEPS + got["K1"] + cli["K1"],
+            "K2 tables": 3 * 2 * EDIT_STEPS + cli["K2 tables"]}
+
+
+def phase_edit_clis(torch, card: str, tmp: Path, data: Path, generated: Path, ckpt_dir: Path) -> dict:
+    """Phase 14e: the headless train CLI on the generated dataset (straight
+    to the exchange), then `export pointcloud` and `export mesh` on the
+    refined checkpoint, each with its K1 launches."""
+    from signerf_tpu_torch import export
+    from signerf_tpu_torch import train as train_cli
+    from signerf_tpu_torch.geometry.obj import load_obj
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    model_flag = ("--pipeline.model.background-color", REFERENCE_FLAGS[1])
+    out = tmp / "edit_cli"
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    rc = train_cli.main(["signerf_nerfacto", "--data", str(data), "--skip-interface", "True", "--skip-generation",
+                         "True", "--generated-dataset-dir", str(generated), "--load-dir", str(ckpt_dir), "--device",
+                         "cuda", "--max-num-iterations", str(EDIT_CLI_STEPS), "--steps-per-save", str(EDIT_CLI_STEPS),
+                         "--output-dir", str(out), *model_flag])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_counts = counts(ffc)
+    ckpts = sorted(p.name for p in (out / "experiment" / "signerf_nerfacto" / "checkpoints").glob("step-*.pt"))
+    if rc != 0 or cli_counts != NERFACTO_COUNTS(EDIT_CLI_STEPS) or ckpts != ["step-000000000.pt",
+                                                                          f"step-{EDIT_CLI_STEPS:09d}.pt"]:
+        fail(f"headless CLI: rc {rc}, launches {cli_counts}, checkpoints {ckpts}")
+
+    export_flags = ["--data", str(data), "--load-dir", str(ckpt_dir), "--device", "cuda", "--model.background-color",
+                    REFERENCE_FLAGS[1]]
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    rc = export.main(["pointcloud", "--output", str(tmp / "edit.ply"), *export_flags])
+    torch.cuda.synchronize()
+    pc_s = time.perf_counter() - t0
+    pc_counts = counts(ffc)
+    side = SCENE["width"] // 2  # --downscale 2, the default
+    pc_chunks = SCENE["cameras"] * -(-(side * side) // CHUNK)
+    points = export.read_ply_header(tmp / "edit.ply") if rc == 0 else 0
+    if rc != 0 or points <= 0 or pc_counts != expect_counts(K1=3)(pc_chunks):
+        fail(f"export pointcloud: rc {rc}, {points} points, launches {pc_counts}, expected K1 3 x {pc_chunks}")
+
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    rc = export.main(["mesh", "--output", str(tmp / "edit.obj"), "--resolution", str(EDIT_MESH_RESOLUTION),
+                      "--iso", EDIT_MESH_ISO, *export_flags])
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    mesh_counts = counts(ffc)
+    mesh_calls = -(-((EDIT_MESH_RESOLUTION + 1) ** 3) // (1 << 16))
+    verts, faces = load_obj(tmp / "edit.obj") if rc == 0 else ([], [])
+    if rc != 0 or len(faces) == 0 or mesh_counts != expect_counts(K1=1)(mesh_calls):
+        fail(f"export mesh: rc {rc}, {len(faces)} faces, launches {mesh_counts}, expected K1 {mesh_calls}")
+    print(f"phase 14e edit-flow CLIs: the headless train CLI on the generated dataset (--skip-interface True "
+          f"--skip-generation True, {EDIT_CLI_STEPS} steps) exit 0 in {cli_s:.3f} s, checkpoints {ckpts}, launches "
+          f"K1 {cli_counts['K1']}, K2 tables {cli_counts['K2 tables']}; export pointcloud (downscale 2) {points} "
+          f"points in {pc_s:.3f} s, K1 {pc_counts['K1']} (= 3 x {pc_chunks} chunks); export mesh (resolution "
+          f"{EDIT_MESH_RESOLUTION}, iso {EDIT_MESH_ISO}) {len(verts)} vertices, {len(faces)} faces in {mesh_s:.3f} s, "
+          f"K1 {mesh_counts['K1']} (one a chunk of 65,536 points); on {card}", flush=True)
+    return {"pointcloud_chunks": pc_chunks, "mesh_calls": mesh_calls,
+            "K1": cli_counts["K1"] + pc_counts["K1"] + mesh_counts["K1"], "K2 tables": cli_counts["K2 tables"]}
 
 
 # K7 and the SDXL inpaint. The 3x3 sheet of 512 px cells (1536 px square)
@@ -1797,6 +2167,7 @@ SHEET_GRID = 3
 K7_SHEET_CALLS = {(1, 9216, 10): 14, (1, 2304, 20): 90}  # per CFG branch
 K7_PER_STEP = 2 * sum(K7_SHEET_CALLS.values())  # sequential CFG: two branches
 K7_SHAPES = [(1, 9216, 10), (1, 2304, 20), (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1)]
+K7_TIMED_FROM = 384  # sequence lengths from here on are timed against SDPA and the bound
 # K7 vs its twin: the twin rounds the scores to bf16 (and scales in bf16),
 # K7 keeps them in f32, so they differ by that rounding: 1e-2 of the norm.
 # K7 vs an f32 reference (q, k, v upcast): bf16 P and output rounding only,
@@ -1825,7 +2196,7 @@ def phase_k7(torch, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     stats = {"max_abs_err": 0.0}
     per_shape = {}
-    for b, s, h in K7_SHAPES:
+    for b, s, h in K7_SHAPES + list(K7_EDIT_SHAPES):
         q, k, v = (torch.randn(b, s, h, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
         got = fa.flash_attention_cuda(q, k, v, 0.125)
         torch.cuda.synchronize()
@@ -1841,7 +2212,7 @@ def phase_k7(torch, card: str) -> dict:
         line = (f"phase 15 K7 (B, S, H) = {(b, s, h)}: norm-rel err vs twin {e_twin:.3e}, vs f32 reference "
                 f"{e_ref:.3e} (twin vs f32 {e_twin_ref:.3e})")
         del got, twin, ref
-        if s >= 1000:
+        if s >= K7_TIMED_FROM:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=0.125)  # noqa: E731
             lib1 = cuda_ms(sdpa, 20)
@@ -1856,9 +2227,10 @@ def phase_k7(torch, card: str) -> dict:
         print(line, flush=True)
         del q, k, v
         torch.cuda.empty_cache()
-    for (b, s, h) in K7_SHEET_CALLS:
+    for (b, s, h) in (*K7_SHEET_CALLS, *K7_EDIT_SHAPES):
         k_ms, _, lib_ms, b_ms, b_by = per_shape[(b, s, h)]
-        print(f"phase 15 K7 vs scaled_dot_product_attention at the sheet shape (B, S, H) = {(b, s, h)}: kernel "
+        which = "sheet" if (b, s, h) in K7_SHEET_CALLS else "edit pass"
+        print(f"phase 15 K7 vs scaled_dot_product_attention at the {which} shape (B, S, H) = {(b, s, h)}: kernel "
               f"{k_ms:.4f} ms, SDPA {lib_ms:.4f} ms, ratio {k_ms / lib_ms:.3f}, "
               f"{4 * b * h * s * s * 64 / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.1%} of its bound ({b_ms:.4f} ms, "
               f"{b_by}); on {card}", flush=True)
@@ -1868,6 +2240,8 @@ def phase_k7(torch, card: str) -> dict:
     print(f"phase 15 K7 per sampler step of the sheet inpaint ({K7_PER_STEP} calls): kernel {stats['ms']:.3f} ms, "
           f"twin {stats['plain_ms']:.3f} ms, scaled_dot_product_attention {stats['library_ms']:.3f} ms, bound "
           f"{stats['bound_ms']:.3f} ms; on {card}", flush=True)
+    stats["per_shape"] = {shape: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), v))
+                          for shape, v in per_shape.items()}
     return stats
 
 
@@ -1951,7 +2325,7 @@ def phase_sheet(torch, card: str, ref: dict) -> dict:
           f"{peak:.2f} GiB; output {out.shape} in [{out.min():.3f}, {out.max():.3f}], finite; blended with the mask "
           f"(unchanged outside it) and split into {len(cells)} cells of {SHEET_CELL} px; on {card}", flush=True)
     return {"diffuser": diffuser, "sheet": sheet, "mask": mask, "depth": depth, "ref": ref,
-            "launches": launches, "wall": wall, "step_ms": med, "peak_gib": peak}
+            "launches": launches, "steps": steps, "wall": wall, "step_ms": med, "peak_gib": peak}
 
 
 def phase_per_view(torch, card: str, sh: dict) -> int:
@@ -2107,6 +2481,7 @@ def main() -> int:
     except ImportError as exc:
         fail(f"run from the repository root: {exc}")
 
+    t_start = time.perf_counter()
     card = phase_environment(torch)
     phase_build()
     k1 = phase_kernel(torch)
@@ -2135,6 +2510,7 @@ def main() -> int:
         evaluation = phase_signerf_eval(torch, data, signerf["ckpt_dir"])
         grad_entry = phase_grad_entry_points(torch, card, data, signerf["ckpt_dir"])
         ref = phase_reference_sheet(torch, card, tmp, train["ckpt_dir"])
+        edit = phase_edit_pass(torch, card, tmp, ref)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k7 = phase_k7(torch, card)
@@ -2144,14 +2520,23 @@ def main() -> int:
     phase_diffusion_profile(torch, card, sheet)
     launched = signerf["launches"]
     # Calls of each field at a render chunk's and a train step's N in phases
-    # 6, 7, 11 and 14 (the eval render and a `signerf` step call only the
-    # proposal fields, the latter in each of its micro-batches).
-    chunks, steps = render_launches // 3, train["launches"]["K1"] // 3
+    # 6, 7, 11, 14 and the edit pass (14d, 14e; the eval render and a
+    # `signerf` step call only the proposal fields, the latter in each of
+    # its micro-batches), and the base field's at the mesh export's N.
+    chunks, steps = render_launches // 3 + edit["chunks"], train["launches"]["K1"] // 3 + edit["train_steps"]
     eval_chunks, micro = evaluation["K1"] // 2, launched["K1"] // 2
     fields = [(name, name != "final") for name, _, _ in TRAIN_SCHEDULES]
     k1_calls = [(chunks + eval_chunks * proposal, k1["per_call"][(name, "chunk")]) for name, proposal in fields]
     k1_calls += [(steps + micro * proposal, k1["per_call"][(name, "train")]) for name, proposal in fields]
+    k1_calls += [(edit["mesh_calls"], k1["per_call"][("final", "mesh")])]
     k2_tables = [(steps + micro * proposal, k2["per_call"][name]["tables"]) for name, proposal in fields]
+    # K7 per call over the sheet inpaint's shapes (phase 16) and the edit pass's.
+    k7_calls = {shape: 2 * n * sheet["steps"] for shape, n in K7_SHEET_CALLS.items()}
+    for shape, n in edit["k7_shapes"].items():
+        k7_calls[shape] = k7_calls.get(shape, 0) + n
+    k7_stats = per_call("K7", [(n, k7["per_shape"][shape]) for shape, n in k7_calls.items()], k7["max_abs_err"])
+    if k7_stats["launches"] != sheet["launches"] + edit["k7_launches"]:
+        fail(f"K7: {k7_stats['launches']} launches weighted, {sheet['launches'] + edit['k7_launches']} counted")
     k2_coords = [(camopt["K2 coords"] // 3, k2["per_call"][name]["coords"]) for name, _ in fields]
     kernels = [
         kernel_entry("fused_factor_density (per call)", "fused_factor_density.cu", 1475, None,
@@ -2174,8 +2559,8 @@ def main() -> int:
                      launched["K6 tables"], k36["K6 tables"]),
         kernel_entry("fused_factor_grad_dot_bwd (coords half)", "fused_factor_grad_dot.cu", 1329,
                      signerf_camopt["K6 coords"], k36["K6 coords"]),
-        kernel_entry("flash_attention (per sampler step of the sheet inpaint)", "flash_attention.cu", 216,
-                     sheet["launches"], k7, replaces="signerf_tpu/diffusion/unet.py"),
+        kernel_entry("flash_attention (per call)", "flash_attention.cu", 216, None, k7_stats,
+                     replaces="signerf_tpu/diffusion/unet.py"),
         kernel_entry("fused_factor_grad", "fused_factor_grad.cu", 399, grad_entry["K8"], k810["K8"]),
         kernel_entry("fused_factor_grad_bwd (tables half)", "fused_factor_grad.cu", 902, grad_entry["K9 tables"],
                      k810["K9 tables"]),
@@ -2184,6 +2569,7 @@ def main() -> int:
         kernel_entry("factor_dense_encode (factor_encode_pallas)", "fused_factor_encode.cu", 79, grad_entry["K10"],
                      k810["K10"], replaces="signerf_tpu/ops/pallas/factor_grid_kernel.py"),
     ]
+    print(f"phase 20 smoke wall {time.perf_counter() - t_start:.1f} s, the build included; on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     kind = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
-"""Dotted CLI overrides onto nested dataclass configs.
+"""Nested dataclass configs: dotted CLI overrides and the YAML round-trip.
 
-Port of `parse_cli_overrides` and `apply_overrides` from
-`signerf_tpu/config.py` (the YAML round-trip is not needed yet). Values are
-coerced to the annotated field type; unknown keys raise.
+Port of `signerf_tpu/config.py`. Values are coerced to the annotated field
+type; unknown keys raise. `to_yaml` / `from_yaml` are the JAX package's own
+emitter and reader over the JSON subset of YAML (no pyyaml), so a
+`config.yml` written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -14,6 +15,25 @@ from pathlib import Path
 from typing import Any, Dict, List, Tuple, Type, TypeVar, Union
 
 T = TypeVar("T")
+
+
+def to_dict(cfg: Any) -> Any:
+    """A dataclass tree as plain JSON-able Python, each dataclass with its
+    `__class__` name."""
+    if dataclasses.is_dataclass(cfg) and not isinstance(cfg, type):
+        out = {"__class__": type(cfg).__name__}
+        for f in dataclasses.fields(cfg):
+            out[f.name] = to_dict(getattr(cfg, f.name))
+        return out
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    if isinstance(cfg, dict):
+        return {k: to_dict(v) for k, v in cfg.items()}
+    if isinstance(cfg, Path):
+        return str(cfg)
+    if hasattr(cfg, "tolist"):  # numpy scalars and arrays, tensors
+        return cfg.tolist()
+    return cfg
 
 
 def _strip_optional(tp: Any) -> Any:
@@ -46,6 +66,8 @@ def _coerce(value: Any, tp: Any) -> Any:
         args = typing.get_args(tp)
         seq = value if isinstance(value, (list, tuple)) else json.loads(str(value))
         return [_coerce(v, args[0]) if args else v for v in seq]
+    if origin in (dict, Dict):
+        return dict(value)
     if tp is bool:
         if isinstance(value, bool):
             return value
@@ -110,3 +132,76 @@ def parse_cli_overrides(argv: List[str]) -> Dict[str, Any]:
             i += 2
         overrides[key] = val
     return overrides
+
+
+def _emit(obj: Any, indent: int) -> List[str]:
+    pad = "  " * indent
+    lines: List[str] = []
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if isinstance(v, (dict, list)) and v:
+                lines.append(f"{pad}{k}:")
+                lines.extend(_emit(v, indent + 1))
+            else:
+                lines.append(f"{pad}{k}: {json.dumps(v)}")
+    elif isinstance(obj, list):
+        for v in obj:
+            if isinstance(v, (dict, list)) and v:
+                lines.append(f"{pad}-")
+                lines.extend(_emit(v, indent + 1))
+            else:
+                lines.append(f"{pad}- {json.dumps(v)}")
+    else:
+        lines.append(f"{pad}{json.dumps(obj)}")
+    return lines
+
+
+def to_yaml(cfg: Any) -> str:
+    return "\n".join(_emit(to_dict(cfg), 0)) + "\n"
+
+
+def _parse_block(lines: List[str], pos: int, indent: int) -> Tuple[Any, int]:
+    """One block of `_emit`'s output: a list or a dict, by its first line."""
+    result: Any = None
+    while pos < len(lines):
+        raw = lines[pos]
+        stripped = raw.strip()
+        if not stripped or stripped.startswith("#"):
+            pos += 1
+            continue
+        if (len(raw) - len(raw.lstrip())) // 2 < indent:
+            break
+        if stripped.startswith("- ") or stripped == "-":
+            if result is None:
+                result = []
+            if stripped == "-":
+                child, pos = _parse_block(lines, pos + 1, indent + 1)
+                result.append(child)
+            else:
+                result.append(json.loads(stripped[2:]))
+                pos += 1
+        else:
+            if result is None:
+                result = {}
+            key, _, rest = stripped.partition(":")
+            rest = rest.strip()
+            if rest == "":
+                child, pos = _parse_block(lines, pos + 1, indent + 1)
+                result[key] = child if child is not None else {}
+            else:
+                result[key] = json.loads(rest)
+                pos += 1
+    return result, pos
+
+
+def from_yaml(cls: Type[T], text: str) -> T:
+    data, _ = _parse_block(text.split("\n"), 0, 0)
+    return from_dict(cls, data or {})
+
+
+def save_yaml(cfg: Any, path: Union[str, Path]) -> None:
+    Path(path).write_text(to_yaml(cfg))
+
+
+def load_yaml(cls: Type[T], path: Union[str, Path]) -> T:
+    return from_yaml(cls, Path(path).read_text())

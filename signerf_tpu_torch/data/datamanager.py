@@ -6,9 +6,13 @@ and ray generation run in the train step, so there is no loader process and
 no host-to-device copy after start-up. Images are read with the port's own
 PNG decoder (`utils/images.py`); other formats need Pillow.
 
-Not ported yet: resizing an image whose size differs from its camera's (it
-raises instead) and the `CachedImageStore` subset cache (its
-`cache_images` knobs are unknown keys; every image is held on the device).
+An image whose size differs from its camera's is resized to the camera's
+size, as the JAX loader does: images bilinearly with the arithmetic of the
+JAX package's native PNG codec (`native/image_codec.cpp`, the path it takes
+for PNGs), masks by nearest neighbour with Pillow's `NEAREST` sampling.
+
+Not ported yet: the `CachedImageStore` subset cache (its `cache_images`
+knobs are unknown keys; every image is held on the device).
 """
 
 from __future__ import annotations
@@ -29,21 +33,59 @@ from signerf_tpu_torch.data.dataparser import (
 from signerf_tpu_torch.utils.images import load_gray, load_rgb
 
 
-def _check_size(path: Path, a: np.ndarray, width: int, height: int) -> np.ndarray:
-    if a.shape[:2] != (height, width):
-        raise ValueError(
-            f"{path}: image is {a.shape[1]}x{a.shape[0]}, its camera {width}x{height}; "
-            "the port does not resize images"
-        )
-    return a
+def resize_bilinear_u8(a: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 [h, w, C] -> uint8 [height, width, C]: half-pixel bilinear
+    without antialiasing, in float32, rounded half up; the same operations
+    in the same order as the native codec's `resize_bilinear`."""
+    src_h, src_w = a.shape[:2]
+    if (src_h, src_w) == (height, width):
+        return a
+    f32 = np.float32
+
+    def taps(n_out, n_in):
+        scale = f32(n_in) / f32(n_out)
+        pos = (np.arange(n_out, dtype=f32) + f32(0.5)) * scale - f32(0.5)
+        i0 = np.where(pos < 0, 0, pos.astype(np.int64))
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        frac = np.maximum(pos - i0.astype(f32), f32(0.0))
+        return i0, i1, frac
+
+    y0, y1, wy = taps(height, src_h)
+    x0, x1, wx = taps(width, src_w)
+    src = a.astype(f32)
+    wy, wx = wy[:, None, None], wx[None, :, None]
+    one = f32(1.0)
+    v = (
+        src[y0][:, x0] * (one - wy) * (one - wx)
+        + src[y0][:, x1] * (one - wy) * wx
+        + src[y1][:, x0] * wy * (one - wx)
+        + src[y1][:, x1] * wy * wx
+    )
+    return (v + f32(0.5)).astype(np.uint8)
+
+
+def resize_nearest(a: np.ndarray, width: int, height: int) -> np.ndarray:
+    """[h, w, ...] -> [height, width, ...] by Pillow's `NEAREST` rule: the
+    source index of output pixel i is floor(s / 2 + i s), s = in / out, the
+    sum accumulated in float64 one pixel at a time."""
+    src_h, src_w = a.shape[:2]
+    if (src_h, src_w) == (height, width):
+        return a
+
+    def index(n_out, n_in):
+        step = n_in / n_out
+        pos = np.cumsum(np.concatenate([[step * 0.5], np.full(n_out - 1, step)]))
+        return np.minimum(pos.astype(np.int64), n_in - 1)
+
+    return a[index(height, src_h)][:, index(width, src_w)]
 
 
 def load_images(
     filenames: Sequence[Path], width: int, height: int, max_workers: int = 8
 ) -> np.ndarray:
-    """Decode images to a [N, H, W, 3] uint8 stack."""
+    """Decode images to a [N, H, W, 3] uint8 stack at the cameras' size."""
     with ThreadPoolExecutor(max_workers=max_workers) as ex:
-        arrays = list(ex.map(lambda p: _check_size(p, load_rgb(p), width, height), filenames))
+        arrays = list(ex.map(lambda p: resize_bilinear_u8(load_rgb(p), width, height), filenames))
     return np.stack(arrays, axis=0)
 
 
@@ -56,7 +98,7 @@ def load_masks(
     def one(p: Optional[Path]) -> np.ndarray:
         if p is None or not Path(p).exists():
             return np.ones((height, width), np.float32)
-        return (_check_size(p, load_gray(p), width, height) > 127).astype(np.float32)
+        return (resize_nearest(load_gray(p), width, height) > 127).astype(np.float32)
 
     with ThreadPoolExecutor(max_workers=max_workers) as ex:
         arrays = list(ex.map(one, filenames))

@@ -109,6 +109,19 @@ def _to44(m34: np.ndarray) -> np.ndarray:
     return out
 
 
+def transform_poses_to_original_space(
+    poses: np.ndarray, applied_transform: np.ndarray, applied_scale: float
+) -> np.ndarray:
+    """Undo the dataparser's transform and scale: scene-space [N, 3, 4]
+    poses -> the dataset's original space [N, 3, 4], in float64 then f32."""
+    out = poses.copy().astype(np.float64)
+    out[:, :3, 3] /= applied_scale
+    inv = np.linalg.inv(_to44(applied_transform.astype(np.float64)))
+    bottom = np.tile(np.array([[[0.0, 0.0, 0.0, 1.0]]]), (out.shape[0], 1, 1))
+    out44 = np.einsum("ij,njk->nik", inv, np.concatenate([out, bottom], axis=1))
+    return out44[:, :3, :4].astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # dataparser
 # ---------------------------------------------------------------------------
@@ -135,6 +148,9 @@ class DataparserOutputs:
     dataparser_scale: float
     dataparser_transform: np.ndarray  # [3, 4]
     metadata: Dict[str, Any] = field(default_factory=dict)
+
+    def transform_poses_to_original_space(self, poses: np.ndarray) -> np.ndarray:
+        return transform_poses_to_original_space(poses, self.dataparser_transform, self.dataparser_scale)
 
 
 def _image_size(data_dir: Path, meta: Dict[str, Any], frame: Dict[str, Any]) -> Tuple[int, int]:
@@ -322,3 +338,26 @@ def parse_transforms(config: SIGNeRFDataParserConfig) -> DataparserOutputs:
             "original_indices": meta.get("original_indices"),
         },
     )
+
+
+def load_previous_experiment_cameras(transforms_path: Path) -> Dict[str, Any]:
+    """The reference and synthetic poses of a generated transforms.json:
+    {"reference_camera_to_worlds" [R, 3, 4] or None,
+    "synthetic_camera_to_worlds" [S, 3, 4] or None, "is_combined"}."""
+    meta = json.loads(Path(transforms_path).read_text())
+    frames = meta["frames"]
+
+    def pose(i):
+        key = "scene_transform_matrix" if "scene_transform_matrix" in frames[i] else "transform_matrix"
+        return np.array(frames[i][key], np.float32)[:3, :4]
+
+    refs = meta.get("reference_indices")
+    reference = np.stack([pose(i) for i in refs]) if refs else None
+    synthetic = None
+    if meta.get("is_synthetic") and meta.get("generated_indices"):
+        synthetic = np.stack([pose(i) for i in meta["generated_indices"]])
+    return {
+        "reference_camera_to_worlds": reference,
+        "synthetic_camera_to_worlds": synthetic,
+        "is_combined": bool(meta.get("is_combined", False)),
+    }

@@ -109,7 +109,11 @@ class Diffuser:
 
     @staticmethod
     def _host(*arrays):
-        return tuple(None if a is None else np.asarray(a) for a in arrays)
+        """numpy copies on the host (tensors on any device, or arrays)."""
+        return tuple(
+            None if a is None else a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+            for a in arrays
+        )
 
     @property
     def pipeline(self):

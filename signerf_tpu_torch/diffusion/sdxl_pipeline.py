@@ -240,11 +240,12 @@ class SDXLInpaintPipeline:
         return out
 
     @torch.no_grad()
-    def prepare_sheet_cache(self, image: np.ndarray, cell_hw: Tuple[int, int]) -> SheetEncodeCache:
+    def prepare_sheet_cache(self, image, cell_hw: Tuple[int, int]) -> SheetEncodeCache:
         """Encode-down the base sheet once for the per-view loop. `image`:
-        [H, W, 3] float in [0, 1]; `cell_hw`: the last cell's (height, width)."""
+        [H, W, 3] float in [0, 1] (numpy or a tensor); `cell_hw`: the last
+        cell's (height, width)."""
         f = self.config.vae_downscale
-        img = torch.as_tensor(np.asarray(image, np.float32), device=self.device)[None]
+        img = _f32(image, self.device)[None]
         _, h, w = img.shape[:3]
         assert h % f == 0 and w % f == 0, (h, w, f)
         hl, wl = h // f, w // f

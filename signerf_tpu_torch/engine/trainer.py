@@ -1,12 +1,11 @@
-"""SIGNeRF trainer: load, train, checkpoint.
+"""SIGNeRF trainer: load, (pause), generate, hot-swap the dataset, refine.
 
-Port of the training part of `signerf_tpu/engine/trainer.py`: the config,
-`setup`, the initial checkpoint load (surgery, step reset to 0), the train
-loop and checkpoints. The edit flow (`generate_dataset`,
-`exchange_training_dataset`, `run_headless`) comes with the orchestration
-slice of the port and raises here, as do its config knobs
-(`skip_interface`, `skip_generation`, `previous_experiment_dir`,
-`generated_dataset_dir`: unknown keys).
+Port of `signerf_tpu/engine/trainer.py`: the config and its edit-flow
+knobs, `setup`, the initial checkpoint load (surgery, step reset to 0), the
+previous experiment's generator config and cameras, `generate_dataset`,
+`exchange_training_dataset` (checkpoint, rebuild the pipeline on the
+generated dataset, reload without the proposal networks, step 0),
+`run_headless`, the train loop with its paused state, and checkpoints.
 
 Scalars are read back to the host every fourth call of the train function,
 as in the JAX package, so the loop does not wait on the device otherwise.
@@ -15,20 +14,21 @@ as in the JAX package, so the loop does not wait on the device otherwise.
 from __future__ import annotations
 
 import dataclasses
-import json
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from signerf_tpu_torch import config as cfglib
+from signerf_tpu_torch.data.dataparser import load_previous_experiment_cameras
+from signerf_tpu_torch.diffusion.diffuser import Diffuser
 from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, save_checkpoint
 from signerf_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizer
 from signerf_tpu_torch.engine.train_step import make_train_step
 from signerf_tpu_torch.engine.writer import EventWriter, RaysPerSecTracker
+from signerf_tpu_torch.generator.datasetgenerator import DatasetGeneratorConfig
 from signerf_tpu_torch.pipeline import SIGNeRFPipeline, SIGNeRFPipelineConfig
-
-_EDIT_FLOW = "the edit flow (dataset generation and hot swap) comes with the orchestration slice of the port (slice 6)"
 
 
 @dataclasses.dataclass
@@ -41,16 +41,22 @@ class SIGNeRFTrainerConfig:
     max_num_iterations: int = 20000
     steps_per_save: int = 1000
     save_only_latest_checkpoint: bool = False
+    mixed_precision: bool = True  # bf16 compute is always on; kept for config parity
     steps_per_call: int = 25  # optimizer steps per call of the train function
+    # the edit flow
+    skip_interface: bool = False
+    skip_generation: bool = False
+    previous_experiment_dir: Optional[Path] = None
+    generated_dataset_dir: Optional[Path] = None
     load_dir: Optional[Path] = None
     load_checkpoint: Optional[Path] = None
+    # Checkpoint loads always restart the optimizer, schedules and step, as
+    # in the JAX package; these knobs are kept for config parity.
+    reset_optimizer: bool = True
+    reset_scheduler: bool = True
+    reset_step: bool = True
     use_wandb: bool = False
     seed: int = 42
-
-
-def config_text(config) -> str:
-    """The config as JSON (which is also YAML), for `config.yml`."""
-    return json.dumps(dataclasses.asdict(config), indent=2, default=str)
 
 
 class SIGNeRFTrainer:
@@ -59,22 +65,35 @@ class SIGNeRFTrainer:
         self.device = torch.device(device)
         self.training_state = "paused"  # paused | training | completed
         self.pipeline: Optional[SIGNeRFPipeline] = None
+        self.previous_cameras: Optional[Dict[str, Any]] = None
         self.step = 0
+        # A previous experiment's generator config replaces the configured one.
+        if config.previous_experiment_dir is not None:
+            prev_cfg = Path(config.previous_experiment_dir) / "config.yml"
+            if prev_cfg.exists():
+                config.pipeline.dataset_generator = cfglib.load_yaml(DatasetGeneratorConfig, prev_cfg)
 
     @property
     def checkpoint_dir(self) -> Path:
         c = self.config
         return Path(c.output_dir) / c.experiment_name / c.method_name / "checkpoints"
 
-    def setup(self) -> None:
+    def setup(self, diffuser: Optional[Diffuser] = None) -> None:
+        """Build the pipeline (with `diffuser` as the generator's inpainter,
+        or the configured one), the writer, the initial checkpoint and the
+        train function."""
         c = self.config
-        self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, seed=c.seed)
+        self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed)
         log_dir = Path(c.output_dir) / c.experiment_name / c.method_name
         self.writer = EventWriter(log_dir, use_wandb=c.use_wandb, run_name=c.experiment_name)
-        self.writer.write_config(config_text(c))
+        self.writer.write_config(cfglib.to_yaml(c))
         self.rays_tracker = RaysPerSecTracker()
         self._load_initial_checkpoint()
         self._build_train_fn()
+        if c.previous_experiment_dir is not None:
+            tp = Path(c.previous_experiment_dir) / "transforms.json"
+            if tp.exists():
+                self.previous_cameras = load_previous_experiment_cameras(tp)
 
     def _load_initial_checkpoint(self) -> None:
         c = self.config
@@ -100,14 +119,62 @@ class SIGNeRFTrainer:
         self._generator = torch.Generator(device=self.device).manual_seed(c.seed)
         self._num_rays_per_call = settings.num_rays * c.steps_per_call
 
+    # ------------------------------------------------------------------
+    # dataset generation and hot swap
+    # ------------------------------------------------------------------
+
     def generate_dataset(self, **kwargs) -> Path:
-        raise NotImplementedError(_EDIT_FLOW)
+        """The whole dataset generation from the current NeRF weights. By
+        default the datamanager's cameras, files and images are the
+        originals, and a previous experiment's poses are reused; `kwargs`
+        override any `DatasetGenerator.generate_dataset` argument."""
+        dm = self.pipeline.datamanager
+        defaults: Dict[str, Any] = {}
+        if self.previous_cameras is not None:
+            defaults["reference_camera_to_worlds"] = self.previous_cameras["reference_camera_to_worlds"]
+            if self.previous_cameras["synthetic_camera_to_worlds"] is not None:
+                defaults["synthetic_camera_to_worlds"] = self.previous_cameras["synthetic_camera_to_worlds"]
+        defaults["original_cameras"] = dm.cameras
+        defaults["original_filenames"] = list(dm.outputs.image_filenames)
+        defaults.update(kwargs)
+        if defaults.get("merge_with_original_dataset") and "original_images" not in defaults:
+            defaults["original_images"] = dm.images.float() / 255.0  # read only by the merge
+        if defaults.get("reference_camera_to_worlds") is None:
+            raise ValueError(
+                "the edit flow needs the reference sheet's poses: pass reference_camera_to_worlds, or "
+                "--previous-experiment-dir with a generated dataset (its transforms.json)"
+            )
+        return self.pipeline.dataset_generator.generate_dataset(**defaults)
 
     def exchange_training_dataset(self, generated_dir: Path) -> None:
-        raise NotImplementedError(_EDIT_FLOW)
+        """Train on the generated dataset from now on: checkpoint the current
+        weights, rebuild the pipeline on `generated_dir`, reload the
+        checkpoint without the proposal networks (they start from the seeded
+        init) and reset the step to 0."""
+        c = self.config
+        ckpt = self.save_checkpoint()
+        c.pipeline.datamanager.dataparser.data = Path(generated_dir)
+        diffuser = self.pipeline.dataset_generator.diffuser
+        self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed)
+        self.pipeline.reload_model_state_dict_without_proposal_weights(ckpt)
+        self.step = 0
+        self._build_train_fn()
+        print(f"[trainer] exchanged training dataset -> {generated_dir}")
 
     def run_headless(self, **generate_kwargs) -> None:
-        raise NotImplementedError(_EDIT_FLOW)
+        """The `skip_interface` path: generate (unless `skip_generation` with
+        a `generated_dataset_dir`), exchange, train."""
+        c = self.config
+        if c.skip_generation and c.generated_dataset_dir is not None:
+            generated = Path(c.generated_dataset_dir)
+        else:
+            generated = self.generate_dataset(**generate_kwargs)
+        self.exchange_training_dataset(generated)
+        self.train()
+
+    # ------------------------------------------------------------------
+    # training loop
+    # ------------------------------------------------------------------
 
     def train_iteration(self) -> Dict[str, torch.Tensor]:
         dm = self.pipeline.datamanager
@@ -120,6 +187,9 @@ class SIGNeRFTrainer:
         self.training_state = "training"
         t_start = time.time()
         while self.step < c.max_num_iterations:
+            if self.training_state == "paused":  # set by an interface's pause button
+                time.sleep(0.1)
+                continue
             metrics = self.train_iteration()
             if (self.step // c.steps_per_call) % 4 == 0:
                 scalars = {k: float(v) for k, v in metrics.items()}

@@ -81,6 +81,7 @@ class NerfactoModelConfig:
     orientation_loss_mult: float = 0.0001
     pred_normal_loss_mult: float = 0.001
     use_camera_opt: bool = False
+    eval_num_rays_per_chunk: int = 1 << 15  # full-frame renders: chunks of at most this many rays
 
 
 class NerfactoModel(nn.Module):

@@ -1,9 +1,12 @@
-"""Train CLI: `python -m signerf_tpu_torch.train <method> --train-only True [--a.b.c value ...]`.
+"""Train CLI: `python -m signerf_tpu_torch.train <method> [--a.b.c value ...]`.
 
-Port of `signerf_tpu/train.py` for plain training (`--train-only True`) of
-the `signerf` and `signerf_nerfacto` methods; the edit flow (interface,
-generation, hot swap) comes with a later slice and raises. f32
-convolutions (the LPIPS loss of `signerf`) run without TF32 on the card.
+Port of `signerf_tpu/train.py` for the `signerf` and `signerf_nerfacto`
+methods: plain training (`--train-only True`) or the edit flow, headless
+(`--skip-interface True`: generate the edited dataset, hot-swap it,
+refine). The interface is not ported yet: without `--skip-interface True`
+the CLI says so and runs headless, as the JAX CLI does when the viewer
+cannot be imported. f32 convolutions (the LPIPS loss of `signerf`) run
+without TF32 on the card.
 
 Flags, as in the JAX CLI:
   --data PATH          dataset (transforms.json or its directory)
@@ -11,7 +14,14 @@ Flags, as in the JAX CLI:
                        step reset to 0)
   --output-dir PATH    experiment output root (checkpoints under
                        <output-dir>/<experiment-name>/<method>/checkpoints)
-  --train-only True    required
+  --train-only True    plain training, no edit flow
+  --skip-interface True           headless edit flow
+  --skip-generation True --generated-dataset-dir DIR
+                       reuse a generated dataset: straight to the hot swap
+  --previous-experiment-dir DIR   reuse a generated dataset's generator
+                       config and poses
+  --pipeline.dataset-generator.KEY VALUE   generator and diffuser knobs,
+                       e.g. --pipeline.dataset-generator.diffuser.prompt "..."
   --mesh auto|none     accepted; the port trains on one device
   --device DEV         torch device (default cuda); `cuda` without a card raises
   --a.b.c VALUE        any SIGNeRFTrainerConfig field, e.g.
@@ -49,11 +59,6 @@ def main(argv=None) -> int:
     config = METHODS[method]()
     overrides = cfglib.parse_cli_overrides(argv)
     train_only = _flag(overrides, "train-only", "false").lower() in ("1", "true", "yes")
-    if not train_only:
-        raise NotImplementedError(
-            "only --train-only True is ported: the interface and the headless edit flow come "
-            "with the orchestration slice of the port"
-        )
     mesh = _flag(overrides, "mesh", "auto")
     if mesh not in ("auto", "none"):
         raise ValueError(f"--mesh {mesh}: the port trains on one device (auto or none)")
@@ -65,7 +70,12 @@ def main(argv=None) -> int:
     full_f32_convolutions()
     trainer = SIGNeRFTrainer(config, device)
     trainer.setup()
-    trainer.train()
+    if train_only:
+        trainer.train()
+        return 0
+    if not config.skip_interface:
+        print("[train] viewer dependencies unavailable; running headless (equivalent to --skip-interface True)")
+    trainer.run_headless()
     return 0
 
 

@@ -4,8 +4,9 @@ through K1 and K2, the tables halves of K2, K4, K6 and K9 at ray-ordered
 and one-cell coordinates and their run-to-run spread, K5 at three layouts
 with its exact zeros at the knots, K7 at every ragged tail
 of its tiles on strided views, one `signerf` micro-batch and eval chunk
-through K1 to K6, K8 and K9 against K5 and K6, and the entry points of K8
-to K10.
+through K1 to K6, K8 and K9 against K5 and K6, the entry points of K8
+to K10, K7 at the edit pass's shapes, and one small dataset-generator pass
+on the card.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -842,3 +843,62 @@ def test_k7_launch_counter_and_cross_attention_route(cuda):
             unet_mod.set_flash_attention(True)
         assert fa.launches == 1
     assert _rel(out, twin) < 1e-2
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 1536, 10), (2, 384, 20), (8, 1536, 10), (8, 384, 20)])
+def test_k7_at_the_edit_pass_shapes(cuda, b, s, h):
+    """The self-attention of the default 2x3 sheet of 256 px cells (512 x
+    768, latent 64 x 96): the sheet call at B = 2 (CFG), a chunk of 4
+    views at B = 8; the bounds of test_k7_matches_twin_and_f32_reference."""
+    test_k7_matches_twin_and_f32_reference(cuda, b, s, h)
+
+
+# ---------------------------------------------------------------------------
+# The dataset generator on the card
+
+
+def test_generator_pass_runs_on_the_card(cuda, tmp_path):
+    """A 2 x 2 sheet of 32 px cells through the tiny in-process SDXL on the
+    card: the cameras, renders, masks, sheets and the diffusion stay on the
+    card, and the dataset is written."""
+    import json
+    import warnings
+
+    import numpy as np
+
+    from signerf_tpu_torch.cameras.poses import circle_poses
+    from signerf_tpu_torch.diffusion import sdxl_pipeline as sp
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser, DiffuserConfig
+    from signerf_tpu_torch.generator.datasetgenerator import DatasetGenerator, DatasetGeneratorConfig
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pipe = sp.SDXLInpaintPipeline.create(config=sp.TINY_SDXL_CONFIG, device=cuda)
+    devices = []
+
+    def render(cameras, index):
+        rb = cameras.generate_rays(camera_index=index)
+        o, d = rb.origins, rb.directions
+        b = (o * d).sum(-1)
+        disc = b * b - ((o * o).sum(-1) - 0.25)
+        t = -b - torch.sqrt(disc.clamp_min(0.0))
+        hit = disc > 0
+        rgb = torch.where(hit[..., None], (o + d * t[..., None]).abs().clamp(0, 1), torch.ones_like(o))
+        devices.append(rb.origins.device.type)
+        return {"rgb": rgb, "depth": torch.where(hit, t, torch.full_like(t, 3.0))[..., None]}
+
+    cfg = DatasetGeneratorConfig(path=tmp_path, fx=60.0, fy=60.0, cx=32.0, cy=32.0, width=64, height=64, rows=2,
+                                 cols=2, aabb_min=(-0.5, -0.5, -0.5), aabb_max=(0.5, 0.5, 0.5), mask_dilation=(5, 5),
+                                 diffuser=DiffuserConfig(num_inference_steps=3))
+    gen = DatasetGenerator(cfg, np.eye(4)[:3], 1.0, lambda p: p, render, diffuser=Diffuser(cfg.diffuser, pipeline=pipe))
+    assert gen.device.type == "cuda"
+    ref = circle_poses(3, radius=2.0, theta=60.0, phi=(0.0, 240.0)).numpy()
+    syn = circle_poses(2, radius=2.0, theta=75.0, phi=(0.0, 180.0)).numpy()
+    sheet = gen.generate_reference_sheet(gen._cameras_from_poses(ref))
+    assert all(t.device.type == "cuda" for t in sheet[:4])
+    assert all(v.device.type == "cuda" for r in sheet[4] for v in r.values())
+    out = gen.generate_dataset(reference_camera_to_worlds=ref, synthetic_camera_to_worlds=syn)
+    assert set(devices) == {"cuda"}
+    meta = json.loads((out / "transforms.json").read_text())
+    assert meta["reference_indices"] == [0, 1, 2] and meta["generated_indices"] == [3, 4]
+    assert len(list((out / "images").glob("*.png"))) == 5 and len(list((out / "images_2").glob("*.png"))) == 5

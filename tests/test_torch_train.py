@@ -658,9 +658,15 @@ def test_datamanager_holds_uint8_images_and_refuses_other_sizes(tmp_path):
     assert dm.num_images == N_CAMS and dm.sampler_settings().micro_batches == 1
     from PIL import Image
 
-    Image.fromarray(np.zeros((DH + 2, DH, 3), np.uint8)).save(data / "images" / "frame_00002.png")
-    with pytest.raises(ValueError, match="does not resize"):
-        tdm.SIGNeRFDataManager(cfg, torch.device("cpu"))
+    # An image of another size than its camera's is resized to it, as the
+    # JAX loader does (its native codec's bilinear rule), not refused.
+    odd = data / "images" / "frame_00002.png"
+    Image.fromarray(np.random.default_rng(0).integers(0, 256, (DH + 2, DH, 3), np.uint8)).save(odd)
+    from signerf_tpu.data.datamanager import load_images as jload_images
+
+    dm = tdm.SIGNeRFDataManager(cfg, torch.device("cpu"))
+    assert dm.images.shape == (N_CAMS, DH, DH, 3)
+    np.testing.assert_array_equal(dm.images[2].numpy(), jload_images([odd], DH, DH)[0])
 
 
 def test_psnr_ssim_match_jax():
@@ -776,11 +782,14 @@ def test_train_cli_refusals(tmp_path, monkeypatch):
     from signerf_tpu_torch import train as train_cli
 
     data = write_tiny_dataset(tmp_path / "data")
-    base = ["signerf_nerfacto", "--data", str(data), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="train-only"):
+    # Without --train-only the CLI runs the headless edit flow, which needs
+    # the reference sheet's poses (a previous experiment's transforms.json).
+    base = ["signerf_nerfacto", "--data", str(data), "--device", "cpu", "--skip-interface", "True",
+            *_model_flags("pipeline.model.")]
+    with pytest.raises(ValueError, match="reference sheet's poses"):
         train_cli.main(list(base))
-    with pytest.raises(NotImplementedError, match="train-only"):
-        train_cli.main(["signerf", "--data", str(data), "--device", "cpu"])
+    with pytest.raises(ValueError, match="reference sheet's poses"):
+        train_cli.main(["signerf", "--data", str(data), "--device", "cpu", *_model_flags("pipeline.model.")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["signerf_nerfacto", "--data", str(data), "--train-only", "True"])
