@@ -104,6 +104,17 @@ the result line):
  14e. the headless train CLI on the generated dataset (`--skip-interface
      True --skip-generation True`, 50 steps), `export pointcloud` and
      `export mesh` on the refined checkpoint, each with exact K1 launches;
+ 14f. the interface on phase 14c's scene and checkpoint at the defaults:
+     the train CLI without --skip-interface in a subprocess (its viewer on
+     port 7007: /state, one /render, then terminated); then in process the
+     viewer over a trainer: paused /render at 128, 256 and 512 px (request,
+     lock wait, render and PNG encode; K1 3 x chunks each), 300 training
+     steps without and 300 with a client at 2 fps (every reply at the
+     throttled size, a pause and a resume; step medians), /export of a mesh
+     at 64^3 and of a point cloud, /preview (SDXL created in it) and
+     /generate until the refinement (300 steps) completes, each with exact
+     K1, K2-tables and K7 launches (K7 from the pipeline's schedule), the
+     dataset schema, peak memory;
  15. K7 (signerf_tpu_torch/csrc/flash_attention.cu) against its plain twin
      and an f32 reference at (B, S, H) = (1, 9216, 10), (1, 2304, 20),
      (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1) and
@@ -126,8 +137,9 @@ the result line):
      share, the top kernels;
  20. a JSON line per kernel, then {"ok": true, "device": {...}} last. A
      kernel's launches are summed over the main path's phases that run it
-     (K1: 6, 7, 11, 14, 14d and 14e; K2's tables half: 7, 11, 14d and 14e;
-     K3 and K5: 11 and 14; K7: 16 and 14d), and its times and bound are per
+     (K1: 6, 7, 11, 14, 14d, 14e and 14f; K2's tables half: 7, 11, 14d,
+     14e and 14f; K3 and K5: 11 and 14; K7: 16, 14d and 14f), and its times
+     and bound are per
      call, each kind of call weighted by its launches, so that launches x
      (ms - bound_ms) is the time the path loses to it.
 
@@ -137,6 +149,7 @@ The script imports torch and the port only.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import shutil
 import struct
@@ -1699,7 +1712,6 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
     masks, conditions, the proxy raster, the composed sheet and the
     per-view phase's target view; and phase 7's NeRF (`white_ckpt`, the
     white scene) under the same box, for comparison."""
-    import itertools
 
     import numpy as np
 
@@ -1824,7 +1836,8 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
           f"accumulation " + ", ".join(f"{a:.4f}" for a in white_acc) + ", AABB masks cover "
           + ", ".join(f"{c:.3f}" for c in white_cov) + f"; on {card}", flush=True)
     return {"layout": layout, "image_sheet": image_sheet, "mask_sheet": mask_sheet, "cond_sheet": cond_sheet,
-            "target": scaled[TARGET_VIEW], "count": len(refs), "coverage": coverage, "data": data}
+            "target": scaled[TARGET_VIEW], "count": len(refs), "coverage": coverage, "data": data,
+            "ckpt_dir": ckpt_dir}
 
 
 # The edit pass (phase 14d): SIGNeRF's product path through the trainer API
@@ -1901,6 +1914,45 @@ def k7_launches(calls: list, h: int, w: int) -> dict:
     return shapes
 
 
+def check_generated(generated: Path, gen, views: int, label: str):
+    """The generated dataset's schema at EDIT_REFERENCES references and
+    `views` regenerated originals: transforms.json's indices, every PNG at
+    full and cell size, the dataparser's read-back. Returns (transforms.json,
+    {PNG: (h, w)}, each view's mask coverage at cell size)."""
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+
+    cfg = gen.config
+    h, w, ds = int(cfg.height), int(cfg.width), cfg.downscale_factor
+    sheet_h, sheet_w = gen._layout().height, gen._layout().width
+    meta = json.loads((generated / "transforms.json").read_text())
+    refs, gens = list(range(EDIT_REFERENCES)), list(range(EDIT_REFERENCES, EDIT_REFERENCES + views))
+    if (len(meta["frames"]), meta["reference_indices"], meta["generated_indices"]) != (len(refs + gens), refs, gens):
+        fail(f"{label}: transforms.json has {len(meta['frames'])} frames, reference_indices "
+             f"{meta.get('reference_indices')}, generated_indices {meta.get('generated_indices')}")
+    cell_h, cell_w = h // ds, w // ds
+    expected = {f"references/{k}_reference_sheet.png": (sheet_h, sheet_w) for k in ("image", "mask", "condition",
+                                                                                    "edited")}
+    for i in refs + gens:
+        for sub, name in (("images", "image"), ("masks", "mask"), ("conditions", "condition")):
+            expected[f"{sub}/{name}_{i}.png"] = (h, w)
+            expected[f"{sub}_{ds}/{name}_{i}.png"] = (cell_h, cell_w)
+        expected[f"{'rendered' if i in refs else 'originals'}/image_{i}.png"] = (h, w)
+        expected[f"rendered_{ds}/image_{i}.png"] = (cell_h, cell_w)
+    written = {p.relative_to(generated).as_posix() for p in generated.rglob("*.png")}
+    if written != set(expected):
+        fail(f"{label}: PNGs missing {sorted(set(expected) - written)[:5]}, unexpected "
+             f"{sorted(written - set(expected))[:5]}")
+    for name, hw in expected.items():
+        if read_png(generated / name).shape[:2] != hw:
+            fail(f"{label}: {name} is not {hw}")
+    coverage = [float(read_png(generated / f"masks_{ds}/mask_{i}.png").mean()) / 255.0 for i in refs + gens]
+    reread = parse_transforms(SIGNeRFDataParserConfig(data=generated))
+    if len(reread.image_filenames) != len(refs + gens) or (reread.cameras.height, reread.cameras.width) != (h, w):
+        fail(f"{label}: the dataparser read {len(reread.image_filenames)} frames of "
+             f"{reread.cameras.width}x{reread.cameras.height} back")
+    return meta, expected, coverage
+
+
 def phase_edit_pass(torch, card: str, tmp: Path, ref: dict) -> dict:
     """SIGNeRF's edit pass through the trainer API at full width: train
     `signerf_nerfacto`, generate the edited dataset (reference sheet,
@@ -1908,7 +1960,6 @@ def phase_edit_pass(torch, card: str, tmp: Path, ref: dict) -> dict:
     it, refine; then the headless train CLI on the generated dataset and
     both export subcommands on the refined checkpoint."""
     import gc
-    import itertools
     import warnings
 
     import numpy as np
@@ -1980,33 +2031,10 @@ def phase_edit_pass(torch, card: str, tmp: Path, ref: dict) -> dict:
         fail(f"edit pass: K7 launched {fa.launches} times, expected {k7_expected} from the pipeline's schedule "
              f"{k7_shapes} (phase 15 times {K7_EDIT_SHAPES})")
 
-    meta = json.loads((generated / "transforms.json").read_text())
     refs, gens = list(range(EDIT_REFERENCES)), list(range(EDIT_REFERENCES, EDIT_REFERENCES + views))
-    if (len(meta["frames"]), meta["reference_indices"], meta["generated_indices"]) != (len(refs + gens), refs, gens):
-        fail(f"edit pass: transforms.json has {len(meta['frames'])} frames, reference_indices "
-             f"{meta.get('reference_indices')}, generated_indices {meta.get('generated_indices')}")
-    cell_h, cell_w = h // gen_cfg.downscale_factor, w // gen_cfg.downscale_factor
+    meta, expected, coverage = check_generated(generated, gen, views, "edit pass")
     ds = gen_cfg.downscale_factor
-    expected = {f"references/{k}_reference_sheet.png": (sheet_h, sheet_w) for k in ("image", "mask", "condition",
-                                                                                    "edited")}
-    for i in refs + gens:
-        for sub, name in (("images", "image"), ("masks", "mask"), ("conditions", "condition")):
-            expected[f"{sub}/{name}_{i}.png"] = (h, w)
-            expected[f"{sub}_{ds}/{name}_{i}.png"] = (cell_h, cell_w)
-        expected[f"{'rendered' if i in refs else 'originals'}/image_{i}.png"] = (h, w)
-        expected[f"rendered_{ds}/image_{i}.png"] = (cell_h, cell_w)
-    written = {p.relative_to(generated).as_posix() for p in generated.rglob("*.png")}
-    if written != set(expected):
-        fail(f"edit pass: PNGs missing {sorted(set(expected) - written)[:5]}, unexpected "
-             f"{sorted(written - set(expected))[:5]}")
-    for name, hw in expected.items():
-        if read_png(generated / name).shape[:2] != hw:
-            fail(f"edit pass: {name} is not {hw}")
-    coverage = [float(read_png(generated / f"masks_{ds}/mask_{i}.png").mean()) / 255.0 for i in refs + gens]
-    reread = parse_transforms(SIGNeRFDataParserConfig(data=generated))
-    if len(reread.image_filenames) != len(refs + gens) or (reread.cameras.height, reread.cameras.width) != (h, w):
-        fail(f"edit pass: the dataparser read {len(reread.image_filenames)} frames of "
-             f"{reread.cameras.width}x{reread.cameras.height} back")
+    cell_h, cell_w = h // ds, w // ds
 
     ckpt_before = {k: v.detach().cpu().clone() for k, v in trainer.pipeline.model.state_dict().items()}
     losses = []
@@ -2155,6 +2183,381 @@ def phase_edit_clis(torch, card: str, tmp: Path, data: Path, generated: Path, ck
           f"K1 {mesh_counts['K1']} (one a chunk of 65,536 points); on {card}", flush=True)
     return {"pointcloud_chunks": pc_chunks, "mesh_calls": mesh_calls,
             "K1": cli_counts["K1"] + pc_counts["K1"] + mesh_counts["K1"], "K2 tables": cli_counts["K2 tables"]}
+
+
+# Phase 14f: the interface, the product's normal way in. The train CLI
+# without --skip-interface serves the web viewer on port 7007, training
+# paused; the user orbits the NeRF, places the selection, previews the sheet
+# and clicks "Generate Dataset & Train". On phase 14c's scene and
+# checkpoint, at the defaults (signerf_nerfacto at full width; the
+# Diffuser's torch_sdxl on SDXL at random init).
+VIEWER_PORT = 7007
+VIEWER_SIZES = (128, 256, 512)
+VIEWER_REPEATS = 5  # timed /render requests a size, after one warm-up
+VIEWER_STEPS = TRAIN_STEPS  # each training run, without and with a client
+VIEWER_CLIENT_FPS = 2.0
+VIEWER_VIEW = "yaw=30&pitch=60&radius=2.0"
+
+
+def http_get(url: str, timeout: float = 300.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.headers, r.read()
+
+
+def http_post(url: str, body: dict, timeout: float = 600.0):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def server_timing(headers) -> dict:
+    """{span: ms} of a /render reply's Server-Timing header (lock, render, png)."""
+    return {k: float(v) for k, v in (s.split(";dur=") for s in headers["Server-Timing"].split(", "))}
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def phase_viewer_cli(tmp: Path, data: Path, ckpt_dir: Path) -> dict:
+    """The train CLI without --skip-interface, in a subprocess: wait for
+    /state on VIEWER_PORT, GET /render at 128 px, terminate it."""
+    import urllib.error
+
+    from signerf_tpu_torch.utils.images import decode_png
+
+    log = tmp / "viewer_cli.log"
+    cmd = [sys.executable, "-m", "signerf_tpu_torch.train", "signerf_nerfacto", "--data", str(data), "--load-dir",
+           str(ckpt_dir), "--device", "cuda", "--output-dir", str(tmp / "viewer_cli"), *REFERENCE_FLAGS]
+    base = f"http://127.0.0.1:{VIEWER_PORT}"
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT)
+    try:
+        state = None
+        while state is None:
+            if proc.poll() is not None:
+                fail(f"phase 14f: the train CLI exited {proc.returncode} before serving: {log.read_text()[-2000:]}")
+            if time.perf_counter() - t0 > 180:
+                fail("phase 14f: the train CLI served no /state within 180 s")
+            try:
+                state = json.loads(http_get(base + "/state", timeout=5)[1])
+            except (urllib.error.URLError, OSError):
+                time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        headers, body = http_get(f"{base}/render?{VIEWER_VIEW}&size=128")
+        render_s = time.perf_counter() - t1
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    said = log.read_text()
+    img = decode_png(body)
+    if (state["training_state"], state["step"]) != ("paused", 0) or img.shape != (128, 128, 3):
+        fail(f"phase 14f: the train CLI's viewer: state {state}, /render {img.shape}")
+    if f"[viewer] http://0.0.0.0:{VIEWER_PORT}" not in said or "viewer dependencies unavailable" in said:
+        fail(f"phase 14f: the train CLI did not start the viewer: {said[-2000:]}")
+    return {"up_s": up_s, "render_s": render_s, "png": img, "timing": server_timing(headers)}
+
+
+def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
+    """The interface on the card: the train CLI's viewer (subprocess), then
+    the viewer in process over a trainer on phase 14c's checkpoint: paused
+    /render at three sizes, two training runs (without and with a client at
+    VIEWER_CLIENT_FPS, the replies at the throttled size, a pause and a
+    resume), /export of both kinds, /preview and /generate, each with exact
+    launches."""
+    import base64
+    import gc
+    import threading
+    import warnings
+
+    import numpy as np
+
+    from signerf_tpu_torch.cameras.poses import circle_poses
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser
+    from signerf_tpu_torch.engine import train_step as tts
+    from signerf_tpu_torch.engine import writer
+    from signerf_tpu_torch.engine.trainer import SIGNeRFTrainer
+    from signerf_tpu_torch.interface import GenerationInterface
+    from signerf_tpu_torch.interface.app import ViewerServer
+    from signerf_tpu_torch.method_configs import signerf_nerfacto_method
+    from signerf_tpu_torch.ops import flash_attention as fa
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+    from signerf_tpu_torch.utils.images import decode_png
+
+    dev = torch.device("cuda")
+    data, ckpt_dir = ref["data"], ref["ckpt_dir"]
+    cli = phase_viewer_cli(tmp, data, ckpt_dir)
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    views = len(parsed.image_filenames)
+    corners = to_world(parsed, list(itertools.product(*zip(*SHEET_AABB_SCENE))))
+    cfg = signerf_nerfacto_method()
+    cfg.output_dir = tmp / "viewer"
+    cfg.load_dir = ckpt_dir
+    cfg.pipeline.datamanager.dataparser.data = data
+    cfg.pipeline.model.background_color = REFERENCE_FLAGS[1]
+    cfg.pipeline.dataset_generator.path = tmp / "viewer_generations"
+    h, w = SCENE["height"], SCENE["width"]
+    frame_chunks = -(-(h * w) // CHUNK)
+
+    def chunks_of(size: int) -> int:
+        return -(-(size * size) // CHUNK)
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def step_ms(events):
+        return sorted(events[i - 1].elapsed_time(events[i]) for i in range(11, len(events)))
+
+    events = []
+    real_loss = tts.default_loss_fn
+
+    def recording_loss(model, outputs, batch):
+        total, ld = real_loss(model, outputs, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return total, ld
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    diffuse_calls = []
+    chunks = 0  # K1 render chunks over every request of the phase
+    tts.default_loss_fn = recording_loss
+    httpd = thread = None
+    try:
+        trainer = SIGNeRFTrainer(cfg, dev)
+        trainer.setup(diffuser=recording_diffuser(Diffuser(cfg.pipeline.dataset_generator.diffuser, device=dev),
+                                                  diffuse_calls))
+        iface = GenerationInterface(trainer)
+        server = ViewerServer(iface, port=0)
+        httpd = server.start_background()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        # Paused: the size asked, K1 3 x its chunks a request.
+        paused, cli_diff = {}, None
+        for size in VIEWER_SIZES:
+            rows = []
+            for rep in range(VIEWER_REPEATS + 1):
+                zero_counts(ffc)
+                t0 = time.perf_counter()
+                headers, body = http_get(f"{base}/render?{VIEWER_VIEW}&size={size}")
+                wall = time.perf_counter() - t0
+                img = decode_png(body)
+                chunks += chunks_of(size)
+                if img.shape != (size, size, 3) or counts(ffc) != expect_counts(K1=3)(chunks_of(size)):
+                    fail(f"phase 14f: paused /render at {size} px gave {img.shape}, launches {counts(ffc)}, "
+                         f"expected K1 3 x {chunks_of(size)}")
+                if size == 128 and rep == 0:
+                    d = int(np.abs(img.astype(np.int16) - cli["png"].astype(np.int16)).max())
+                    if d > 1:
+                        fail(f"phase 14f: the CLI's viewer and the in-process one differ by {d} levels at 128 px")
+                    cli_diff = d
+                if rep:
+                    rows.append((wall * 1e3, server_timing(headers)))
+            paused[size] = rows
+
+        # Two training runs: without a client, then with one at
+        # VIEWER_CLIENT_FPS asking 512 px, each reply at the throttled size
+        # (128 px until the first rays/s sample of this run, which lands at
+        # the tracker's second tick, 8 calls in), with a pause and a resume.
+        runs = {}
+        for client in (False, True):
+            trainer.config.max_num_iterations = trainer.step + VIEWER_STEPS
+            trainer.rays_tracker = writer.RaysPerSecTracker()
+            writer.GLOBAL_BUFFER.pop("train_rays_per_sec", None)
+            events.clear()
+            zero_counts(ffc)
+            replies, pause = [], None
+            t0 = time.perf_counter()
+            thread = threading.Thread(target=trainer.train, daemon=True)
+            thread.start()
+            while thread.is_alive():
+                if not client:
+                    time.sleep(0.05)
+                    continue
+                t_req = time.perf_counter()
+                allowed = {server.render_size(512)}
+                headers, body = http_get(f"{base}/render?{VIEWER_VIEW}&size=512")
+                allowed.add(server.render_size(512))
+                size = decode_png(body).shape[0]
+                if size not in allowed:
+                    fail(f"phase 14f: a /render during training came at {size} px, the throttle allowed {allowed}")
+                replies.append((size, (time.perf_counter() - t_req) * 1e3, server_timing(headers)))
+                if len(replies) == 2 and pause is None:
+                    # paused: the call in flight ends, then the step holds for 1.5 s
+                    t_pause = time.perf_counter()
+                    http_post(base + "/train", {"state": "paused"})
+                    before, after = -1, trainer.step
+                    while before != after and time.perf_counter() - t_pause < 30:
+                        before = after
+                        time.sleep(1.5)
+                        after = trainer.step
+                    http_post(base + "/train", {"state": "training"})
+                    pause = (before, after, time.perf_counter() - t_pause)
+                    if before != after or trainer.training_state != "training":
+                        fail(f"phase 14f: paused training went on: step {before}, then {after}")
+                time.sleep(max(0.0, 1.0 / VIEWER_CLIENT_FPS - (time.perf_counter() - t_req)))
+            thread.join()
+            wall = synced() - t0
+            want = expect_counts(K1=3, K2_tables=3)(VIEWER_STEPS)
+            want["K1"] += 3 * sum(chunks_of(s) for s, _, _ in replies)
+            chunks += sum(chunks_of(s) for s, _, _ in replies)
+            if counts(ffc) != want or len(events) != VIEWER_STEPS:
+                fail(f"phase 14f: training {'with' if client else 'without'} a client launched {counts(ffc)}, "
+                     f"expected {want}; {len(events)} losses")
+            if client and (pause is None or not replies):
+                fail(f"phase 14f: {len(replies)} replies during training, pause {pause}")
+            runs[client] = {"wall": wall, "steps": step_ms(events), "replies": replies, "pause": pause,
+                            "rays_per_sec": writer.GLOBAL_BUFFER.get("train_rays_per_sec", 0.0)}
+
+        # Exports: the mesh at EDIT_MESH_RESOLUTION (K1 one launch a chunk of
+        # 65,536 points), the point cloud at the viewer's downscale 4.
+        zero_counts(ffc)
+        t0 = synced()
+        mesh = http_post(base + "/export", {"kind": "mesh", "resolution": EDIT_MESH_RESOLUTION,
+                                            "iso": EDIT_MESH_ISO})
+        mesh_s = synced() - t0
+        mesh_calls = -(-((EDIT_MESH_RESOLUTION + 1) ** 3) // (1 << 16))
+        if mesh.get("faces", 0) <= 0 or counts(ffc) != expect_counts(K1=1)(mesh_calls):
+            fail(f"phase 14f: /export mesh {mesh}, launches {counts(ffc)}, expected K1 {mesh_calls}")
+        zero_counts(ffc)
+        t0 = synced()
+        cloud = http_post(base + "/export", {"kind": "pointcloud"})
+        cloud_s = synced() - t0
+        side = w // 4
+        cloud_chunks = views * chunks_of(side)
+        chunks += cloud_chunks
+        if cloud.get("points", 0) <= 0 or counts(ffc) != expect_counts(K1=3)(cloud_chunks):
+            fail(f"phase 14f: /export pointcloud {cloud}, launches {counts(ffc)}, expected K1 3 x {cloud_chunks}")
+
+        # Preview Generation: the reference sheet at the generator's defaults,
+        # with the selection and the reference poses placed through the API.
+        iface.set_selection_aabb(tuple(corners.min(0)), tuple(corners.max(0)))
+        iface.set_reference_poses(scene_poses_to_world(parsed, circle_poses(EDIT_REFERENCES,
+                                                                            **EDIT_REFERENCE_RING).numpy()))
+        gen = trainer.pipeline.dataset_generator
+        zero_counts(ffc)
+        fa.launches = 0
+        diffuse_calls.clear()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = synced()
+            sheets = http_post(base + "/preview", {})
+            preview_s = synced() - t0
+        sheet_h, sheet_w = gen._layout().height, gen._layout().width
+        preview_k7 = k7_launches(diffuse_calls, sheet_h, sheet_w)
+        chunks += frame_chunks * EDIT_REFERENCES
+        if counts(ffc) != expect_counts(K1=3)(frame_chunks * EDIT_REFERENCES):
+            fail(f"phase 14f: /preview launched {counts(ffc)}, expected K1 3 x {frame_chunks} x {EDIT_REFERENCES}")
+        if fa.launches != sum(preview_k7.values()) or set(preview_k7) - set(K7_EDIT_SHAPES):
+            fail(f"phase 14f: /preview launched K7 {fa.launches} times, the schedule {preview_k7}")
+        if not any("RANDOM-INIT" in str(x.message) for x in caught):
+            fail("phase 14f: SDXL ran at random init without the uncalibrated warning")
+        shapes = {k: decode_png(base64.b64decode(v)).shape for k, v in sheets.items()}
+        if shapes != {"image": (sheet_h, sheet_w, 3), "mask": (sheet_h, sheet_w, 1),
+                      "condition": (sheet_h, sheet_w, 1), "edited": (sheet_h, sheet_w, 3)}:
+            fail(f"phase 14f: /preview sheets {shapes}")
+        sdxl_init_s = gen.diffuser.pipeline.init_seconds
+
+        # Generate Dataset & Train: generation, exchange, refinement in the
+        # server's worker thread; the step counts restart at the exchange.
+        trainer.config.max_num_iterations = trainer.config.steps_per_save = EDIT_STEPS
+        zero_counts(ffc)
+        fa.launches = 0
+        diffuse_calls.clear()
+        events.clear()
+        t0 = time.perf_counter()
+        if http_post(base + "/generate", {}) != {"started": True}:
+            fail("phase 14f: /generate did not start")
+        while server._worker.is_alive() and time.perf_counter() - t0 < 600:
+            time.sleep(0.1)
+        generate_s = synced() - t0
+        if trainer.training_state != "completed" or trainer.step != EDIT_STEPS:
+            fail(f"phase 14f: /generate ended at {trainer.training_state}, step {trainer.step}")
+        generated = Path(trainer.config.pipeline.datamanager.dataparser.data)
+        meta, expected, coverage = check_generated(generated, trainer.pipeline.dataset_generator, views,
+                                                   "phase 14f /generate")
+        generate_k7 = k7_launches(diffuse_calls, sheet_h, sheet_w)
+        want = expect_counts(K1=3, K2_tables=3)(EDIT_STEPS)
+        want["K1"] += 3 * frame_chunks * (EDIT_REFERENCES + views)
+        chunks += frame_chunks * (EDIT_REFERENCES + views)
+        if counts(ffc) != want or len(events) != EDIT_STEPS:
+            fail(f"phase 14f: /generate launched {counts(ffc)}, expected {want}; {len(events)} refinement losses")
+        if fa.launches != sum(generate_k7.values()) or set(generate_k7) - set(K7_EDIT_SHAPES):
+            fail(f"phase 14f: /generate launched K7 {fa.launches} times, the schedule {generate_k7}")
+        timings = dict(gen.last_timings)
+        refine_ms = step_ms(events)
+        zero_counts(ffc)
+        img = decode_png(http_get(f"{base}/render?{VIEWER_VIEW}&size=128")[1])
+        chunks += chunks_of(128)
+        if img.shape != (128, 128, 3) or counts(ffc) != expect_counts(K1=3)(chunks_of(128)):
+            fail(f"phase 14f: /render after /generate gave {img.shape}, launches {counts(ffc)}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        if thread is not None and thread.is_alive():  # a check failed: end the run
+            trainer.config.max_num_iterations = 0
+            trainer.training_state = "training"
+            thread.join()
+        tts.default_loss_fn = real_loss
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+
+    def ms_line(xs):
+        return f"{median(xs):.2f} ({min(xs):.2f} to {max(xs):.2f})"
+
+    lat = "; ".join(
+        f"{size} px: request {ms_line([r[0] for r in rows])}, lock {ms_line([r[1]['lock'] for r in rows])}, render "
+        f"{ms_line([r[1]['render'] for r in rows])}, PNG {ms_line([r[1]['png'] for r in rows])}"
+        for size, rows in paused.items())
+    quiet, busy = runs[False], runs[True]
+    sizes = [s for s, _, _ in busy["replies"]]
+    k7_shapes = dict(preview_k7)
+    for shape, n in generate_k7.items():
+        k7_shapes[shape] = k7_shapes.get(shape, 0) + n
+    k7_total = sum(k7_shapes.values())
+    print(f"phase 14f viewer: the train CLI without --skip-interface served /state on port {VIEWER_PORT} "
+          f"{cli['up_s']:.3f} s after its start and /render at 128 px in {cli['render_s'] * 1e3:.2f} ms (render "
+          f"{cli['timing']['render']:.2f} ms), {cli_diff} levels from the in-process viewer's; in process, paused "
+          f"/render median (range) over {VIEWER_REPEATS} in ms: {lat}; K1 3 x chunks each; training "
+          f"{VIEWER_STEPS} steps without a client: step median {ms_line(quiet['steps'])} ms, wall "
+          f"{quiet['wall']:.3f} s, {quiet['rays_per_sec']:.0f} rays/s; with a client asking 512 px at "
+          f"{VIEWER_CLIENT_FPS:g} fps: step median {ms_line(busy['steps'])} ms, wall {busy['wall']:.3f} s (a pause of "
+          f"{busy['pause'][2]:.3f} s in it, step {busy['pause'][0]} held), {len(sizes)} replies at " + ", ".join(
+              f"{s} px x {sizes.count(s)}" for s in sorted(set(sizes)))
+          + f", request {ms_line([r[1] for r in busy['replies']])} ms, lock wait "
+          f"{ms_line([r[2]['lock'] for r in busy['replies']])} ms, render {ms_line([r[2]['render'] for r in busy['replies']])}"
+          f" ms; /export mesh (resolution {EDIT_MESH_RESOLUTION}, iso {EDIT_MESH_ISO}) {mesh['vertices']} vertices, "
+          f"{mesh['faces']} faces in {mesh_s:.3f} s, K1 {mesh_calls}; /export pointcloud (downscale 4) "
+          f"{cloud['points']} points in {cloud_s:.3f} s, K1 3 x {cloud_chunks}; /preview {preview_s:.3f} s (SDXL "
+          f"created in it: {sdxl_init_s:.2f} s), K1 3 x {frame_chunks} x {EDIT_REFERENCES}, K7 {sum(preview_k7.values())}"
+          f"; /generate {generate_s:.3f} s to completed (sheet {timings['sheet_s']:.3f} s, chunks "
+          + ", ".join(f"{x:.3f}" for x in timings["view_s"])
+          + f" s, refinement step median {ms_line(refine_ms)} ms), K1 3 x {frame_chunks} x "
+          f"{EDIT_REFERENCES + views} + 3 x {EDIT_STEPS}, K2 tables 3 x {EDIT_STEPS}, K7 {sum(generate_k7.values())}, "
+          f"transforms.json {len(meta['frames'])} frames, {len(expected)} PNGs, mask coverage "
+          + ", ".join(f"{c:.3f}" for c in coverage) + f"; K7 in all {k7_total} ("
+          + ", ".join(f"{n} at {s}" for s, n in k7_shapes.items()) + f"); peak memory {peak:.2f} GiB; on {card}",
+          flush=True)
+    trainer.pipeline.dataset_generator.diffuser._sdxl = None
+    del trainer, iface, server, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"chunks": chunks, "train_steps": 2 * VIEWER_STEPS + EDIT_STEPS, "mesh_calls": mesh_calls,
+            "k7_shapes": k7_shapes, "k7_launches": k7_total}
 
 
 # K7 and the SDXL inpaint. The 3x3 sheet of 512 px cells (1536 px square)
@@ -2511,6 +2914,7 @@ def main() -> int:
         grad_entry = phase_grad_entry_points(torch, card, data, signerf["ckpt_dir"])
         ref = phase_reference_sheet(torch, card, tmp, train["ckpt_dir"])
         edit = phase_edit_pass(torch, card, tmp, ref)
+        viewer = phase_viewer(torch, card, tmp, ref)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k7 = phase_k7(torch, card)
@@ -2520,23 +2924,27 @@ def main() -> int:
     phase_diffusion_profile(torch, card, sheet)
     launched = signerf["launches"]
     # Calls of each field at a render chunk's and a train step's N in phases
-    # 6, 7, 11, 14 and the edit pass (14d, 14e; the eval render and a
-    # `signerf` step call only the proposal fields, the latter in each of
-    # its micro-batches), and the base field's at the mesh export's N.
-    chunks, steps = render_launches // 3 + edit["chunks"], train["launches"]["K1"] // 3 + edit["train_steps"]
+    # 6, 7, 11, 14, the edit pass (14d, 14e) and the viewer (14f; the eval
+    # render and a `signerf` step call only the proposal fields, the latter
+    # in each of its micro-batches), and the base field's at the mesh
+    # export's N.
+    chunks = render_launches // 3 + edit["chunks"] + viewer["chunks"]
+    steps = train["launches"]["K1"] // 3 + edit["train_steps"] + viewer["train_steps"]
     eval_chunks, micro = evaluation["K1"] // 2, launched["K1"] // 2
     fields = [(name, name != "final") for name, _, _ in TRAIN_SCHEDULES]
     k1_calls = [(chunks + eval_chunks * proposal, k1["per_call"][(name, "chunk")]) for name, proposal in fields]
     k1_calls += [(steps + micro * proposal, k1["per_call"][(name, "train")]) for name, proposal in fields]
-    k1_calls += [(edit["mesh_calls"], k1["per_call"][("final", "mesh")])]
+    k1_calls += [(edit["mesh_calls"] + viewer["mesh_calls"], k1["per_call"][("final", "mesh")])]
     k2_tables = [(steps + micro * proposal, k2["per_call"][name]["tables"]) for name, proposal in fields]
-    # K7 per call over the sheet inpaint's shapes (phase 16) and the edit pass's.
+    # K7 per call over the sheet inpaint's shapes (phase 16), the edit pass's
+    # and the viewer's (14d, 14f).
     k7_calls = {shape: 2 * n * sheet["steps"] for shape, n in K7_SHEET_CALLS.items()}
-    for shape, n in edit["k7_shapes"].items():
+    for shape, n in itertools.chain(edit["k7_shapes"].items(), viewer["k7_shapes"].items()):
         k7_calls[shape] = k7_calls.get(shape, 0) + n
     k7_stats = per_call("K7", [(n, k7["per_shape"][shape]) for shape, n in k7_calls.items()], k7["max_abs_err"])
-    if k7_stats["launches"] != sheet["launches"] + edit["k7_launches"]:
-        fail(f"K7: {k7_stats['launches']} launches weighted, {sheet['launches'] + edit['k7_launches']} counted")
+    k7_counted = sheet["launches"] + edit["k7_launches"] + viewer["k7_launches"]
+    if k7_stats["launches"] != k7_counted:
+        fail(f"K7: {k7_stats['launches']} launches weighted, {k7_counted} counted")
     k2_coords = [(camopt["K2 coords"] // 3, k2["per_call"][name]["coords"]) for name, _ in fields]
     kernels = [
         kernel_entry("fused_factor_density (per call)", "fused_factor_density.cu", 1475, None,

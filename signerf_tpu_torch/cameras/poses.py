@@ -1,14 +1,15 @@
-"""Look-at camera poses on a circle.
+"""Look-at camera poses on a circle and on a sphere cap.
 
-Port of `circle_poses` from `signerf_tpu/cameras/poses.py`: z-up world; the
-camera's +z points from the target to the camera (the OpenGL camera looks
-along -z, so it faces the target), x = normalize(z_up x z), y = z x x.
+Port of `circle_poses` and `random_sphere_poses` from
+`signerf_tpu/cameras/poses.py`: z-up world; the camera's +z points from the
+target to the camera (the OpenGL camera looks along -z, so it faces the
+target), x = normalize(z_up x z), y = z x x.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -49,6 +50,39 @@ def circle_poses(
             radius * math.sin(th) * torch.cos(phis) + position[0],
             radius * math.sin(th) * torch.sin(phis) + position[1],
             radius * math.cos(th) * torch.ones_like(phis) + position[2],
+        ],
+        dim=-1,
+    )
+    return look_at_poses(positions, target)
+
+
+def random_sphere_poses(
+    size: int,
+    radius: float,
+    theta: Tuple[float, float],
+    phi: Tuple[float, float],
+    position: Sequence[float] = (0.0, 0.0, 0.0),
+    target: Sequence[float] = (0.0, 0.0, 0.0),
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """`size` random look-at poses on a sphere cap, uniform in cos(theta):
+    theta = (min, max) polar angles from +z and phi = (start, end) azimuths,
+    in degrees. The two uniform [0, 1) draws of `size` values each (theta's,
+    then phi's) come from `generator`, or are given as `uniforms`."""
+    if uniforms is None:
+        uniforms = (torch.rand(size, generator=generator), torch.rand(size, generator=generator))
+    u_theta, u_phi = (torch.as_tensor(u, dtype=torch.float32).reshape(size) for u in uniforms)
+    t_min = (1.0 - math.cos(math.radians(theta[0]))) * 0.5
+    t_max = (1.0 - math.cos(math.radians(theta[1]))) * 0.5
+    thetas = torch.arccos(1.0 - 2.0 * (u_theta * (t_max - t_min) + t_min))
+    phis = u_phi * (math.radians(phi[1]) - math.radians(phi[0])) + math.radians(phi[0])
+    pos = torch.as_tensor(position, dtype=torch.float32)
+    positions = torch.stack(
+        [
+            radius * torch.sin(thetas) * torch.cos(phis) + pos[0],
+            radius * torch.sin(thetas) * torch.sin(phis) + pos[1],
+            radius * torch.cos(thetas) + pos[2],
         ],
         dim=-1,
     )

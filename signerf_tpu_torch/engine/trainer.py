@@ -9,11 +9,20 @@ generated dataset, reload without the proposal networks, step 0),
 
 Scalars are read back to the host every fourth call of the train function,
 as in the JAX package, so the loop does not wait on the device otherwise.
+
+`train_lock` (nerfstudio's): each call of the train function, each
+checkpoint save of the loop and the dataset exchange hold it, and so does
+the viewer around its renders and exports. The optimizer updates the
+model in place, so without it a render in another thread could read one
+chunk's weights before a step and the next chunk's after it. It is granted
+in the order it is asked for: the loop takes it again right after letting
+it go, and would starve a waiting viewer under a plain `threading.Lock`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -29,6 +38,38 @@ from signerf_tpu_torch.engine.train_step import make_train_step
 from signerf_tpu_torch.engine.writer import EventWriter, RaysPerSecTracker
 from signerf_tpu_torch.generator.datasetgenerator import DatasetGeneratorConfig
 from signerf_tpu_torch.pipeline import SIGNeRFPipeline, SIGNeRFPipelineConfig
+
+
+class FairLock:
+    """A lock that waiting threads get in the order they asked for it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._next = 0  # the ticket the next acquire() draws
+        self._serving = 0  # the ticket that holds the lock
+
+    def acquire(self) -> None:
+        with self._cond:
+            ticket = self._next
+            self._next += 1
+            while ticket != self._serving:
+                self._cond.wait()
+
+    def release(self) -> None:
+        with self._cond:
+            self._serving += 1
+            self._cond.notify_all()
+
+    def locked(self) -> bool:
+        with self._cond:
+            return self._serving != self._next
+
+    def __enter__(self) -> "FairLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
 
 
 @dataclasses.dataclass
@@ -64,6 +105,7 @@ class SIGNeRFTrainer:
         self.config = config
         self.device = torch.device(device)
         self.training_state = "paused"  # paused | training | completed
+        self.train_lock = FairLock()
         self.pipeline: Optional[SIGNeRFPipeline] = None
         self.previous_cameras: Optional[Dict[str, Any]] = None
         self.step = 0
@@ -152,13 +194,14 @@ class SIGNeRFTrainer:
         checkpoint without the proposal networks (they start from the seeded
         init) and reset the step to 0."""
         c = self.config
-        ckpt = self.save_checkpoint()
-        c.pipeline.datamanager.dataparser.data = Path(generated_dir)
-        diffuser = self.pipeline.dataset_generator.diffuser
-        self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed)
-        self.pipeline.reload_model_state_dict_without_proposal_weights(ckpt)
-        self.step = 0
-        self._build_train_fn()
+        with self.train_lock:
+            ckpt = self.save_checkpoint()
+            c.pipeline.datamanager.dataparser.data = Path(generated_dir)
+            diffuser = self.pipeline.dataset_generator.diffuser
+            self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed)
+            self.pipeline.reload_model_state_dict_without_proposal_weights(ckpt)
+            self.step = 0
+            self._build_train_fn()
         print(f"[trainer] exchanged training dataset -> {generated_dir}")
 
     def run_headless(self, **generate_kwargs) -> None:
@@ -190,7 +233,8 @@ class SIGNeRFTrainer:
             if self.training_state == "paused":  # set by an interface's pause button
                 time.sleep(0.1)
                 continue
-            metrics = self.train_iteration()
+            with self.train_lock:
+                metrics = self.train_iteration()
             if (self.step // c.steps_per_call) % 4 == 0:
                 scalars = {k: float(v) for k, v in metrics.items()}
                 scalars["rays_per_sec"] = self.rays_tracker.tick(self._num_rays_per_call * 4)
@@ -200,8 +244,10 @@ class SIGNeRFTrainer:
                     f"psnr={scalars['psnr']:.2f} ({scalars['rays_per_sec'] / 1e3:.0f}k rays/s)"
                 )
             if self.step % c.steps_per_save < c.steps_per_call:
-                self.save_checkpoint()
-        self.save_checkpoint()
+                with self.train_lock:
+                    self.save_checkpoint()
+        with self.train_lock:
+            self.save_checkpoint()
         self.training_state = "completed"
         print(f"[trainer] finished {self.step} steps in {(time.time() - t_start) / 60:.1f} min")
 

@@ -1,9 +1,9 @@
-"""Metrics writer and train rays/s tracker.
+"""Metrics writer, train rays/s tracker and profiler hook.
 
-Port of `signerf_tpu/engine/writer.py` (JSONL event log and config dump;
-wandb when installed and asked for). The JAX module's profiler hook and the
-viewer's GLOBAL_BUFFER are left out: the port has no viewer yet, and
-`torch.profiler` is used directly where a trace is wanted.
+Port of `signerf_tpu/engine/writer.py`: the JSONL event log and config dump
+(wandb when installed and asked for); `GLOBAL_BUFFER`, the latest scalars
+and the train rays/s EMA, which the viewer's `/state` shows and its render
+throttle reads; a `torch.profiler` trace captured on demand.
 """
 
 from __future__ import annotations
@@ -12,6 +12,9 @@ import json
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
+
+# The latest value of every scalar written, as nerfstudio's writer keeps it.
+GLOBAL_BUFFER: Dict[str, float] = {}
 
 
 class EventWriter:
@@ -39,6 +42,9 @@ class EventWriter:
                 continue
         self._fh.write(json.dumps(row) + "\n")
         self._fh.flush()
+        for k, v in row.items():
+            if k not in ("step", "time"):
+                GLOBAL_BUFFER[k] = v
         if self._wandb is not None:
             self._wandb.log(row, step=int(step))
 
@@ -50,7 +56,8 @@ class EventWriter:
 
 
 class RaysPerSecTracker:
-    """EMA of rays/s between ticks."""
+    """EMA of rays/s between ticks, published to GLOBAL_BUFFER as
+    train_rays_per_sec."""
 
     def __init__(self, alpha: float = 0.2):
         self.alpha = alpha
@@ -62,5 +69,33 @@ class RaysPerSecTracker:
         if self._last is not None:
             rate = num_rays / max(now - self._last, 1e-9)
             self.value = rate if self.value is None else self.alpha * rate + (1 - self.alpha) * self.value
+            GLOBAL_BUFFER["train_rays_per_sec"] = self.value
         self._last = now
         return self.value or 0.0
+
+
+class Profiler:
+    """`torch.profiler` over the host and, when there is one, the card:
+    `start()`, then `stop()` writes a Chrome trace under <log_dir>/profile
+    and returns its path."""
+
+    def __init__(self, log_dir: Path):
+        self.trace_dir = Path(log_dir) / "profile"
+        self._prof = None
+
+    def start(self) -> None:
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.trace_dir.mkdir(parents=True, exist_ok=True)
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> Path:
+        self._prof.stop()
+        path = self.trace_dir / f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"
+        self._prof.export_chrome_trace(str(path))
+        self._prof = None
+        return path

@@ -1,12 +1,12 @@
 """Train CLI: `python -m signerf_tpu_torch.train <method> [--a.b.c value ...]`.
 
 Port of `signerf_tpu/train.py` for the `signerf` and `signerf_nerfacto`
-methods: plain training (`--train-only True`) or the edit flow, headless
-(`--skip-interface True`: generate the edited dataset, hot-swap it,
-refine). The interface is not ported yet: without `--skip-interface True`
-the CLI says so and runs headless, as the JAX CLI does when the viewer
-cannot be imported. f32 convolutions (the LPIPS loss of `signerf`) run
-without TF32 on the card.
+methods: plain training (`--train-only True`); the edit flow in the
+built-in web viewer (the default: it serves on port 7007 with training
+paused, and its "Generate Dataset & Train" runs the flow); or the edit flow
+headless (`--skip-interface True`: generate the edited dataset, hot-swap
+it, refine). f32 convolutions (the LPIPS loss of `signerf`) run without
+TF32 on the card.
 
 Flags, as in the JAX CLI:
   --data PATH          dataset (transforms.json or its directory)
@@ -15,7 +15,8 @@ Flags, as in the JAX CLI:
   --output-dir PATH    experiment output root (checkpoints under
                        <output-dir>/<experiment-name>/<method>/checkpoints)
   --train-only True    plain training, no edit flow
-  --skip-interface True           headless edit flow
+  --skip-interface True           headless edit flow (without it: the viewer,
+                       http://<host>:7007)
   --skip-generation True --generated-dataset-dir DIR
                        reuse a generated dataset: straight to the hot swap
   --previous-experiment-dir DIR   reuse a generated dataset's generator
@@ -73,9 +74,12 @@ def main(argv=None) -> int:
     if train_only:
         trainer.train()
         return 0
-    if not config.skip_interface:
-        print("[train] viewer dependencies unavailable; running headless (equivalent to --skip-interface True)")
-    trainer.run_headless()
+    if config.skip_interface:
+        trainer.run_headless()
+        return 0
+    from signerf_tpu_torch.interface import app
+
+    app.run_interface(trainer)
     return 0
 
 

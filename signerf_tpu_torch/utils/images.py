@@ -1,7 +1,7 @@
 """PNG writing and reading with the standard library only.
 
-The render path writes its images here and the training path reads its
-dataset here, so neither needs Pillow nor a compiled codec (the decoder
+The render path writes its images here, the viewer encodes its replies
+here and the training path reads its dataset here, so none needs Pillow nor a compiled codec (the decoder
 takes 8-bit, non-interlaced gray, gray+alpha, RGB and RGBA with all five row
 filters). Other image formats go through Pillow when it is installed. The [0, 1] -> uint8 rule (NaN -> 0, +inf -> 1, clip,
 x 255, truncate) is the one of `signerf_tpu/utils/images.py`, so both
@@ -37,6 +37,11 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 def save_array_png(arr, path, compress_level: int = 1) -> None:
     """Write a float [H, W], [H, W, 1] (gray) or [H, W, 3] (RGB) array in
     [0, 1] as an 8-bit PNG."""
+    Path(path).write_bytes(encode_png(arr, compress_level))
+
+
+def encode_png(arr, compress_level: int = 1) -> bytes:
+    """The bytes of `save_array_png`'s file."""
     a = to_uint8(arr)
     if a.ndim == 3 and a.shape[-1] == 1:
         a = a[..., 0]
@@ -50,7 +55,7 @@ def save_array_png(arr, path, compress_level: int = 1) -> None:
     rows = np.zeros((h, 1 + w * channels), np.uint8)  # filter byte 0 per row
     rows[:, 1:] = a.reshape(h, w * channels)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
-    Path(path).write_bytes(
+    return (
         _PNG_MAGIC
         + _chunk(b"IHDR", ihdr)
         + _chunk(b"IDAT", zlib.compress(rows.tobytes(), compress_level))

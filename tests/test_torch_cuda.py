@@ -5,8 +5,8 @@ and one-cell coordinates and their run-to-run spread, K5 at three layouts
 with its exact zeros at the knots, K7 at every ragged tail
 of its tiles on strided views, one `signerf` micro-batch and eval chunk
 through K1 to K6, K8 and K9 against K5 and K6, the entry points of K8
-to K10, K7 at the edit pass's shapes, and one small dataset-generator pass
-on the card.
+to K10, K7 at the edit pass's shapes, one small dataset-generator pass
+on the card, and the web viewer's `/render` through K1.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -902,3 +902,51 @@ def test_generator_pass_runs_on_the_card(cuda, tmp_path):
     meta = json.loads((out / "transforms.json").read_text())
     assert meta["reference_indices"] == [0, 1, 2] and meta["generated_indices"] == [3, 4]
     assert len(list((out / "images").glob("*.png"))) == 5 and len(list((out / "images_2").glob("*.png"))) == 5
+
+
+# ---------------------------------------------------------------------------
+# The viewer on the card
+
+
+def test_viewer_render_launches_k1_per_chunk(cuda, tmp_path):
+    """The web viewer over a `signerf_nerfacto` trainer at its defaults on
+    the card: `/render` at 128 px is 16,384 rays, two 8192-ray chunks, so
+    exactly 3 x 2 K1 launches, and a PNG of 128 x 128."""
+    import json
+    import urllib.request
+
+    import numpy as np
+
+    from signerf_tpu_torch.cameras.poses import circle_poses
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser, DiffuserConfig
+    from signerf_tpu_torch.engine.trainer import SIGNeRFTrainer
+    from signerf_tpu_torch.interface import GenerationInterface
+    from signerf_tpu_torch.interface.app import ViewerServer
+    from signerf_tpu_torch.method_configs import signerf_nerfacto_method
+    from signerf_tpu_torch.utils.images import decode_png, save_array_png
+
+    (tmp_path / "images").mkdir()
+    frames = []
+    for i, pose in enumerate(circle_poses(4, radius=2.0, theta=70.0, phi=(0.0, 270.0)).numpy()):
+        save_array_png(np.full((32, 32, 3), 0.25 * i), tmp_path / "images" / f"frame_{i}.png")
+        frames.append({"file_path": f"images/frame_{i}.png", "transform_matrix": pose.tolist()})
+    meta = {"fl_x": 40.0, "fl_y": 40.0, "cx": 16.0, "cy": 16.0, "w": 32, "h": 32, "frames": frames}
+    (tmp_path / "transforms.json").write_text(json.dumps(meta))
+    cfg = signerf_nerfacto_method()
+    cfg.output_dir = tmp_path / "out"
+    cfg.pipeline.datamanager.dataparser.data = tmp_path
+    trainer = SIGNeRFTrainer(cfg, cuda)
+    trainer.setup(diffuser=Diffuser(DiffuserConfig(mode="custom"), custom_fn=lambda image, *a, **kw: image))
+    httpd = ViewerServer(GenerationInterface(trainer), port=0).start_background()
+    try:
+        for name in ffc.COUNTERS:
+            setattr(ffc, name, 0)
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/render?yaw=30&pitch=60&radius=2.0&size=128"
+        with urllib.request.urlopen(url, timeout=300) as r:
+            body = r.read()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert ffc.launches == 6 and all(getattr(ffc, name) == 0 for name in ffc.COUNTERS[1:])
+    img = decode_png(body)
+    assert img.shape == (128, 128, 3)

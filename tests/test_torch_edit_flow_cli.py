@@ -4,7 +4,7 @@ diffuser, hot-swap it, refine; the edit lands in the NeRF and the rest of
 each view tracks its ground truth; the merge with the original photos.
 Then the train CLI's edit-flow modes
 with `--device cpu` (headless with a previous experiment's poses,
-`--skip-generation`, the interface fallback) and `--device cuda` without a
+`--skip-generation`, the hand-off to the viewer) and `--device cuda` without a
 card.
 """
 
@@ -196,22 +196,36 @@ def test_headless_cli_generates_swaps_and_refines(trained):
 
 
 @pytest.mark.parametrize("interface", [False, True])
-def test_skip_generation_cli(trained, capsys, interface):
+def test_skip_generation_cli(trained, capsys, monkeypatch, interface):
     """`--skip-generation True --generated-dataset-dir` goes straight to the
-    exchange; without `--skip-interface True` the CLI says the interface is
-    not there and runs headless."""
+    exchange; without `--skip-interface True` the CLI hands the set-up
+    trainer to the viewer (`interface.app.run_interface`), and nothing
+    trains until its "Generate Dataset & Train"."""
     from signerf_tpu_torch import train as train_cli
+    from signerf_tpu_torch.interface import app
 
+    handed = []
+    monkeypatch.setattr(app, "run_interface", handed.append)
     name = f"swap{int(interface)}"
     argv = [*trained["base"], "--skip-generation", "True", "--generated-dataset-dir", str(trained["gen"]),
             "--load-dir", str(trained["ckpt_dir"]), "--max-num-iterations", "2", "--experiment-name", name]
     if not interface:
         argv += ["--skip-interface", "True"]
     assert train_cli.main(argv) == 0
-    said = "viewer dependencies unavailable; running headless" in capsys.readouterr().out
-    assert said is interface
+    assert "viewer dependencies unavailable" not in capsys.readouterr().out
     ckpts = sorted((trained["out"] / name / "signerf_nerfacto" / "checkpoints").glob("step-*.pt"))
-    assert [p.name for p in ckpts] == ["step-000000000.pt", "step-000000002.pt"]
+    if not interface:
+        assert handed == []
+        assert [p.name for p in ckpts] == ["step-000000000.pt", "step-000000002.pt"]
+        return
+    (trainer,) = handed
+    assert trainer.config.experiment_name == name and not trainer.config.skip_interface
+    assert trainer.step == 0 and trainer.training_state == "paused" and ckpts == []
+    assert trainer.pipeline.datamanager.num_images == N_CAMS  # the original dataset until the exchange
+    loaded = load_checkpoint(sorted(trained["ckpt_dir"].glob("step-*.pt"))[-1])["params"]
+    state = trainer.pipeline.model.state_dict()
+    for key in ("field.mlp_base.dense_0.kernel", "proposal_0.MLP_0.dense_0.kernel"):
+        torch.testing.assert_close(state[key], loaded[key], rtol=0, atol=0, msg=key)
 
 
 def test_previous_experiment_restores_generator_config(trained):

@@ -782,14 +782,16 @@ def test_train_cli_refusals(tmp_path, monkeypatch):
     from signerf_tpu_torch import train as train_cli
 
     data = write_tiny_dataset(tmp_path / "data")
-    # Without --train-only the CLI runs the headless edit flow, which needs
-    # the reference sheet's poses (a previous experiment's transforms.json).
+    # With --skip-interface True (and without --train-only) the CLI runs the
+    # headless edit flow, which needs the reference sheet's poses (a
+    # previous experiment's transforms.json).
     base = ["signerf_nerfacto", "--data", str(data), "--device", "cpu", "--skip-interface", "True",
             *_model_flags("pipeline.model.")]
     with pytest.raises(ValueError, match="reference sheet's poses"):
         train_cli.main(list(base))
     with pytest.raises(ValueError, match="reference sheet's poses"):
-        train_cli.main(["signerf", "--data", str(data), "--device", "cpu", *_model_flags("pipeline.model.")])
+        train_cli.main(["signerf", "--data", str(data), "--device", "cpu", "--skip-interface", "True",
+                        *_model_flags("pipeline.model.")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["signerf_nerfacto", "--data", str(data), "--train-only", "True"])
