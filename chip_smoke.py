@@ -11,30 +11,34 @@ the result line):
   2. build K1 to K10 (signerf_tpu_torch/csrc/fused_factor_{density,
      density_bwd,encode,grad_dot,grad}.cu and flash_attention.cu), all six
      nvcc processes at once, with ptxas's registers, shared memory, spills
-     and warnings (K7 fails on C7508 or C7513; K1, K3, K5, K10 and K9's
-     tables half on spills), and a line for K5's and K9's tables kernels;
+     and warnings (K7 fails on C7508 or C7513; K1, K3, K5, K10, K9's
+     tables half and the coords halves of K2 and K6 on spills), and a line
+     for K5's, K9's tables and the two coords halves' kernels;
   3. K1 against its plain PyTorch twin on the card, per call for each of
      the three density fields at the sample counts of one 8192-ray render
      chunk and of one 4096-ray train step, each at three layouts of the
      samples (uniform, ray-ordered, one cell), plus N = 257 with u in
      {0, 1}: error, CUDA-event times and each call's bound;
   4. K2 (both halves) against its plain twin at the sample counts of one
-     4096-ray train step, plus N = 257: per-leaf error and times, the
-     tables half also at ray-ordered coordinates (each ray's samples in
-     order, as a train step lays them out) and with every sample in one
-     cell (there against the twin's terms summed in float64, beside the
-     twin's own error); each schedule's share of the step, the run-to-run spread, the
-     tables kernel's shared memory and blocks per SM;
+     4096-ray train step, plus N = 257: per-leaf error and times, both
+     halves also at ray-ordered coordinates (each ray's samples in order,
+     as a train step lays them out) and with every sample in one cell (the
+     tables half there against the twin's terms summed in float64, beside
+     the twin's own error), the coords half with its share of the bound and
+     its worst error; each schedule's share of the step, the run-to-run
+     spread, the tables kernel's shared memory and blocks per SM;
   5. K3, K4 (both halves), K5 and K6 (both halves) against their plain twins
      at one `signerf` micro-batch's base-field shapes (N = 196,608, uniform
      and clustered coordinates) and at N = 257 and 1003 with u in {0, 1}
-     (K5 exactly 0 on an axis at a knot): error and CUDA-event times; then
+     (K5 and K6's coords half exactly 0 on an axis at a knot): error and
+     CUDA-event times; then
      the tables halves of K4 and K6 (and grad_g) at three layouts, uniform,
      ray-ordered (48 samples a ray in ray order) and every sample in one
      cell (there against the twin's terms summed in float64, beside the
      twin's own error): error, run-to-run spread of the line grads and
-     times; K3 and K5 at the three layouts with their shares of the bound,
-     and K3 and K5 at the `signerf` eval render's chunk (N = 393,216);
+     times; K3, K5 and the coords halves of K4 and K6 at the three layouts
+     with their shares of the bound, and K3 and K5 at the `signerf` eval
+     render's chunk (N = 393,216);
  5b. K8, K9 (both halves) and K10 against their plain twins at the same
      shapes, with the cross-checks K8 . g = K5, K9 on ct = g (x) c = K6 and
      K10 = K3 within the bf16 rounding of K10's tap weights; K9's tables
@@ -363,6 +367,12 @@ def phase_environment(torch) -> str:
     return card
 
 
+# Kernels whose ptxas report phase 2 checks for spills (a substring of the
+# entry's name); it prints the registers of all but the first two.
+NO_SPILL = ("density_kernel", "encode_kernel", "grad_dot_kernel", "grad_bwd_tables_kernel",
+            "density_bwd_coords_kernel", "grad_dot_bwd_coords_kernel")
+
+
 def phase_build():
     """Build every kernel; print ptxas's registers, shared memory, spills and
     warnings. K7 must keep its register split (no C7508: setmaxnreg
@@ -380,23 +390,22 @@ def phase_build():
     ]
     print(f"phase 2 build K1 to K10 ({len(cuda_build.SOURCES)} nvcc at once): {secs:.2f} s into "
           f"{cuda_build.BUILD_DIR} | " + " | ".join(usage))
-    # The kernels on the encode tile (K1, K3, K5, K10) and K9's tables half
-    # keep their registers: no spills.
+    # The kernels on the encode tile (K1, K3, K5, K10), K9's tables half and
+    # the coords halves of K2 (both instantiations) and K6 keep their
+    # registers: no spills.
     reports = {}
     for i, ln in enumerate(log):
-        if "Compiling entry" in ln and any(k in ln for k in ("density_kernel", "encode_kernel", "grad_dot_kernel",
-                                                              "grad_bwd_tables_kernel")):
+        if "Compiling entry" in ln and any(k in ln for k in NO_SPILL):
             rest = [x.strip().removeprefix("ptxas info    : ") for x in log[i + 1 : i + 4]
                     if "registers" in x or "spill" in x]
             spill = next((x for x in rest if "spill stores" in x), "")
             if spill and " 0 bytes spill stores" not in spill:
                 fail(f"ptxas spills in {ln.split(chr(39))[1]}: {spill}")
-            for k in ("grad_dot_kernel", "grad_bwd_tables_kernel"):
+            for k in NO_SPILL[2:]:
                 if k in ln:
-                    reports[k] = "; ".join(rest)
+                    reports.setdefault(k, []).append("; ".join(rest))
     if reports:
-        print("phase 2 K5 grad_dot_kernel: " + reports.get("grad_dot_kernel", "no report") + " | K9 tables half "
-              "grad_bwd_tables_kernel: " + reports.get("grad_bwd_tables_kernel", "no report"), flush=True)
+        print("phase 2 " + " | ".join(f"{k}: " + " / ".join(v) for k, v in reports.items()), flush=True)
     entry = next((i for i, ln in enumerate(log) if "Compiling entry" in ln and "flash_attention_kernel" in ln), None)
     if entry is None:
         print("phase 2 K7: flash_attention.so came from the cache of an earlier build, its ptxas report was "
@@ -607,12 +616,15 @@ def phase_k3_k6(torch) -> dict:
                 errs.append(f"{leaf} {err:.2e}")
                 entry = result.get(leaf, result.get("K6 tables"))
                 entry["max_abs_err"] = max(entry["max_abs_err"], float((a - b).abs().max()))
-                # K5 is exactly 0 on an axis at a knot of every level (u = 0 or 1).
-                if k == "K5" and label == "boundary" and not (bool((a[:2] == 0).all()) and float(a[2, 1]) == 0.0
-                                                              and float(a[3, 1]) == 0.0):
-                    fail(f"K5 N={n}: not exactly 0 on an axis at a knot: {a[:4].tolist()}")
+                # K5 and K6's coords half are exactly 0 on an axis at a knot of
+                # every level (u = 0 or 1).
+                if leaf in ("K5", "K6 coords") and label == "boundary" and not (
+                        bool((a[:2] == 0).all()) and float(a[2, 1]) == 0.0 and float(a[3, 1]) == 0.0
+                        and (leaf == "K5" or float(a[2, 2]) == 0.0 and float(a[3, 0]) == 0.0)):
+                    fail(f"{leaf} N={n}: not exactly 0 on an axis at a knot: {a[:4].tolist()}")
             line.append(", ".join(errs))
-        print(" ".join(line) + (" (K5 exactly 0 at the knots)" if label == "boundary" else ""), flush=True)
+        print(" ".join(line) + (" (K5 and K6 coords exactly 0 at the knots)" if label == "boundary" else ""),
+              flush=True)
         if label == "boundary":
             continue
         times = {
@@ -636,10 +648,12 @@ def phase_k3_k6(torch) -> dict:
         print(" ".join(line), flush=True)
         del args, g, ct
     torch.cuda.empty_cache()
-    # K3 and K5 at the three layouts; K3 and K5 at the `signerf` eval render's chunk.
-    lines = {k: [f"phase 5 {k} N={SIGNERF_SAMPLES}, kernel ms at three layouts:"] for k in ("K3", "K5")}
+    # K3, K5 and the coords halves of K4 and K6 at the three layouts; K3 and
+    # K5 at the `signerf` eval render's chunk.
+    lines = {k: [f"phase 5 {k} N={SIGNERF_SAMPLES}, kernel ms at three layouts:"]
+             for k in ("K3", "K5", "K4 coords", "K6 coords")}
     for layout in LAYOUTS:
-        args, g, _ = encode_case(torch, SIGNERF_SAMPLES, gen, dev, layout)
+        args, g, ct = encode_case(torch, SIGNERF_SAMPLES, gen, dev, layout)
         bounds = factor_bounds(args[0], args[1], args[2], SIGNERF_SAMPLES)
         got = ffc.encode_cuda(*args)
         torch.cuda.synchronize()
@@ -659,7 +673,20 @@ def phase_k3_k6(torch) -> dict:
         run = lambda: ffc.grad_dot_cuda(*args, g)  # noqa: E731
         ms = (cuda_ms(run, 20) + cuda_ms(run, 20)) / 2
         lines["K5"].append(f"{layout} {ms:.4f} ({bounds['K5'][0] / ms:.1%} of the bound), norm-rel error {err:.2e};")
-        del args, g, got, want
+        for k, run, plain in (
+            ("K4 coords", lambda: ffc.encode_bwd_cuda(*args, g, False, True)[1],
+             lambda: ffc.encode_bwd_plain(*args, g, False, True)[1]),
+            ("K6 coords", lambda: ffc.grad_dot_bwd_cuda(*args, g, ct, False, True)[2],
+             lambda: ffc.grad_dot_bwd_plain(*args, g, ct, False, True)[2]),
+        ):
+            got = run()
+            torch.cuda.synchronize()
+            err = rel_err(got, plain())
+            if err > K456_TOL or not bool(torch.isfinite(got).all()):
+                fail(f"{k} {layout} N={SIGNERF_SAMPLES}: norm-relative error {err:.3g} > {K456_TOL}")
+            ms = (cuda_ms(run, 20) + cuda_ms(run, 20)) / 2
+            lines[k].append(f"{layout} {ms:.4f} ({bounds[k][0] / ms:.1%} of the bound), norm-rel error {err:.2e};")
+        del args, g, ct, got, want
     for line in lines.values():
         print(" ".join(line), flush=True)
     n = CHUNK * 48
@@ -1078,7 +1105,8 @@ def f64_chunk_sum(twin, n: int, chunk: int = 2048) -> list:
 def phase_k2(torch) -> dict:
     """K2, both halves, against its plain twin at one train step's shapes:
     uniform random coordinates, ray-ordered ones and every sample in one
-    cell (tables half), plus N = 257 with rows on u in {0, 1}; times, each
+    cell, plus N = 257 with rows on u in {0, 1}; times of both halves at the
+    three layouts (the coords half with its share of the bound), each
     schedule's share of the step, and the tables half's run-to-run spread."""
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
@@ -1087,6 +1115,8 @@ def phase_k2(torch) -> dict:
     worst_rel = worst_abs = 0.0
     step = {"tables": 0.0, "tables_plain": 0.0, "coords": 0.0, "coords_plain": 0.0}
     per_layout = {layout: {} for layout in LAYOUTS}
+    coords_layout = {layout: {} for layout in LAYOUTS}  # (ms, bound ms) a field
+    worst_coords = 0.0
     spread = {"line grads": 0.0, "dW0": 0.0}
     occupancy, per_call = [], {}
     names = ["line grads", "dW0", "db0", "dW1", "db1", "coords"]
@@ -1095,7 +1125,9 @@ def phase_k2(torch) -> dict:
         n = TRAIN_RAYS * per_ray
         res, feat, tables, w0, b0, w1, _, x_uniform = make_case(torch, *shape, n, gen, dev)
         smem, blocks = ffc.density_mlp_bwd_occupancy(res, feat, hidden, out)
-        occupancy.append(f"{name} {smem} B x {blocks} blocks ({4 * blocks} warps) an SM")
+        smem_c, blocks_c = ffc.density_mlp_bwd_occupancy(res, feat, hidden, out, tables_half=False)
+        occupancy.append(f"{name} {smem} B x {blocks} blocks ({4 * blocks} warps) an SM, the coords kernel's "
+                         f"{smem_c} B x {blocks_c} blocks ({feat // 2 * blocks_c} warps)")
         g = torch.randn(n, out, generator=gen).to(dev)
         layouts = [("boundary", None), ("uniform", x_uniform),
                    ("ray-ordered", ray_ordered_coords(torch, per_ray, gen, TRAIN_RAYS).to(dev)),
@@ -1105,10 +1137,9 @@ def phase_k2(torch) -> dict:
                 x = torch.rand(257, 3, generator=gen).to(dev)
                 x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]], device=dev)
             args = (res, feat, tables, w0, b0, w1, x, g[: x.shape[0]].contiguous())
-            both = layout in ("boundary", "uniform")
-            got = ffc.density_mlp_bwd_cuda(*args, tables_half=True, coords_half=both)
+            got = ffc.density_mlp_bwd_cuda(*args, tables_half=True, coords_half=True)
             torch.cuda.synchronize()
-            want = ffc.density_mlp_bwd_plain(*args, tables_half=True, coords_half=both)
+            want = ffc.density_mlp_bwd_plain(*args, tables_half=True, coords_half=True)
             ref, against = want, "twin"
             if layout == "one cell":
                 # Every sample adds into the same two rows of each level and
@@ -1120,7 +1151,8 @@ def phase_k2(torch) -> dict:
                     return [lines, *ws]
 
                 lines, *ws = f64_chunk_sum(twin, x.shape[0])
-                ref, against = (lines, tuple(ws), None), "the twin's terms summed in float64"
+                # du is per sample: against the twin itself.
+                ref, against = (lines, tuple(ws), want[2]), "the twin's terms summed in float64 (coords: the twin)"
                 drift = " ".join(f"{rel_err(a, b):.2e}" for a, b in zip([want[0], *want[1]], [ref[0], *ref[1]]))
                 print(f"phase 4 K2 {name} one cell N={x.shape[0]}: the twin's own norm-rel err against its terms "
                       f"summed in float64 (lines, dW0, db0, dW1, db1) {drift}; the kernel's against the twin "
@@ -1128,8 +1160,6 @@ def phase_k2(torch) -> dict:
                       flush=True)
             errs = []
             for leaf, a, b in zip(names, [got[0], *got[1], got[2]], [ref[0], *ref[1], ref[2]]):
-                if a is None:
-                    continue
                 if not bool(torch.isfinite(a).all()):
                     fail(f"K2 {name} {layout} N={x.shape[0]}: non-finite {leaf}")
                 r, e = rel_err(a, b), float((a - b).abs().max())
@@ -1137,8 +1167,10 @@ def phase_k2(torch) -> dict:
                     fail(f"K2 {name} {layout} N={x.shape[0]}: {leaf} norm-relative error {r:.3g} > {K2_TOL}")
                 errs.append(f"{r:.2e}")
                 worst_rel, worst_abs = max(worst_rel, r), max(worst_abs, e)
+                if leaf == "coords":
+                    worst_coords = max(worst_coords, r)
             line = (f"phase 4 K2 {name} {layout} N={x.shape[0]}: norm-rel err against {against} (lines, dW0, db0, "
-                    "dW1, db1" + (", coords" if both else "") + ") " + " ".join(errs))
+                    "dW1, db1, coords) " + " ".join(errs))
             if layout != "boundary":
                 # The same inputs twice: the vector reductions' order varies.
                 again = ffc.density_mlp_bwd_cuda(*args)
@@ -1149,16 +1181,17 @@ def phase_k2(torch) -> dict:
                 line += (f"; run to run max |d| lines {d_lines:.3g} (max |lines| {float(got[0].abs().max()):.3g}), "
                          f"dW0 {d_w0:.3g} (max |dW0| {float(got[1][0].abs().max()):.3g})")
                 run_tables = lambda: ffc.density_mlp_bwd_cuda(*args)  # noqa: E731
+                run_coords = lambda: ffc.density_mlp_bwd_cuda(*args, tables_half=False, coords_half=True)  # noqa: E731
+                b = factor_bounds(res, feat, tables, n, hidden, out)
                 if layout == "uniform":
                     # turns: plain, kernel, kernel, plain (compare within one call)
                     t_ms, tp_ms = twin_ms(torch, run_tables, lambda: ffc.density_mlp_bwd_plain(*args))
-                    c_ms = cuda_ms(lambda: ffc.density_mlp_bwd_cuda(*args, tables_half=False, coords_half=True), 20)
-                    cp_ms = cuda_ms(lambda: ffc.density_mlp_bwd_plain(*args, tables_half=False, coords_half=True), 3)
+                    c_ms, cp_ms = twin_ms(torch, run_coords, lambda: ffc.density_mlp_bwd_plain(
+                        *args, tables_half=False, coords_half=True))
                     step["tables"] += t_ms
                     step["tables_plain"] += tp_ms
                     step["coords"] += c_ms
                     step["coords_plain"] += cp_ms
-                    b = factor_bounds(res, feat, tables, n, hidden, out)
                     add_bound(step, b["K2 tables"], "_tables")
                     add_bound(step, b["K2 coords"], "_coords")
                     per_call[name] = {
@@ -1171,8 +1204,11 @@ def phase_k2(torch) -> dict:
                              f"coords half: kernel {c_ms:.4f} ms, plain {cp_ms:.4f} ms")
                 else:
                     t_ms = (cuda_ms(run_tables, 20) + cuda_ms(run_tables, 20)) / 2
-                    line += f" | tables half: kernel {t_ms:.4f} ms"
+                    c_ms = (cuda_ms(run_coords, 20) + cuda_ms(run_coords, 20)) / 2
+                    line += f" | tables half: kernel {t_ms:.4f} ms; coords half: kernel {c_ms:.4f} ms"
+                line += f" ({b['K2 coords'][0] / c_ms:.1%} of its bound, {b['K2 coords'][0]:.4f} ms)"
                 per_layout[layout][name] = t_ms
+                coords_layout[layout][name] = (c_ms, b["K2 coords"][0])
             print(line, flush=True)
             del args, got, want, ref
         del tables, x_uniform, g, layouts
@@ -1181,13 +1217,19 @@ def phase_k2(torch) -> dict:
         f"{layout} {sum(v.values()):.4f} ms (" + ", ".join(f"{k} {t / sum(v.values()):.1%}" for k, t in v.items()) + ")"
         for layout, v in per_layout.items()
     )
+    coords_shares = "; ".join(
+        f"{layout} " + ", ".join(f"{k} {ms:.4f} ms ({bd / ms:.1%})" for k, (ms, bd) in v.items())
+        + f", the 3 calls {sum(ms for ms, _ in v.values()):.4f} ms" for layout, v in coords_layout.items()
+    )
+    print(f"phase 4 K2 coords half per call (share of its bound): {coords_shares}; worst norm-rel err against the "
+          f"twin {worst_coords:.3g} (bound {K2_TOL})", flush=True)
     print(
         f"phase 4 K2 per {TRAIN_RAYS}-ray train step (its 3 calls): tables half kernel {shares}; plain "
         f"{step['tables_plain']:.4f} ms (uniform); coords half kernel {step['coords']:.4f} ms vs plain "
         f"{step['coords_plain']:.4f} ms; bounds {step['bound_ms_tables']:.4f} ms ({step['bound_by_tables']}) and "
         f"{step['bound_ms_coords']:.4f} ms ({step['bound_by_coords']}); worst norm-rel {worst_rel:.3g} (bound "
         f"{K2_TOL}), worst max abs {worst_abs:.3g}; tables half run to run, max |d| line grads "
-        f"{spread['line grads']:.3g}, dW0 {spread['dW0']:.3g}; tables kernel dynamic shared memory and residency: "
+        f"{spread['line grads']:.3g}, dW0 {spread['dW0']:.3g}; dynamic shared memory and residency: "
         + "; ".join(occupancy),
         flush=True,
     )

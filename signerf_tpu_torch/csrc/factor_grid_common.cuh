@@ -222,8 +222,10 @@ __device__ __forceinline__ void axis8_diff(const __nv_bfloat16* line, int feat, 
 // f_c g[k] over features [c, c + 8) of one level at coordinates u[0, 3),
 // from the level's three [R, F] tables `line` (in device memory when
 // kGlobal, else in shared memory). The slope factor multiplies the part's
-// sum once, so an axis at a knot (s = 0) adds exactly nothing.
-template <int F, bool kGlobal>
+// sum once, so an axis at a knot (s = 0) adds exactly nothing. With
+// kCellSlope (K2's coords half) s_a = R - 1 everywhere: the slope of the
+// cell K1 reads, also at an exact knot (K2's rule, not slope_scale's).
+template <int F, bool kGlobal, bool kCellSlope = false>
 __device__ __forceinline__ void part8_dot(const __nv_bfloat16* const (&line)[3], int res, int c, const float* u,
                                           const float (&g)[8], float (&acc)[3]) {
   float f[3][8], diff[3][8], s[3];
@@ -240,6 +242,33 @@ __device__ __forceinline__ void part8_dot(const __nv_bfloat16* const (&line)[3],
     q[0] = fmaf(diff[0][k], f[2][k] * f1g, q[0]);
     q[1] = fmaf(diff[1][k], f[2][k] * f0g, q[1]);
     q[2] = fmaf(diff[2][k], f[1][k] * f0g, q[2]);
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) acc[a] = fmaf(kCellSlope ? static_cast<float>(res - 1) : s[a], q[a], acc[a]);
+}
+
+// K6's coords part, on part8_dot's taps: acc[a] += s_a sum_k (r1 - r0)_a
+// g[k] (ct_b d_b f_c + ct_c d_c f_b)[k] = sum_k G_hat_a d_a over features
+// [c, c + 8) of one level, ct the cotangent of K5's output. The knot rule
+// and its exact zero are part8_dot's: s_a multiplies the part's sum once.
+template <int F, bool kGlobal>
+__device__ __forceinline__ void part8_dot_ct(const __nv_bfloat16* const (&line)[3], int res, int c, const float* u,
+                                             const float (&ct)[3], const float (&g)[8], float (&acc)[3]) {
+  float f[3][8], diff[3][8], s[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    int i;
+    float w;
+    axis8_diff<kGlobal>(line[a], F, c, u[a], res, i, w, s[a], f[a], diff[a]);
+  }
+  const float cs[3] = {ct[0] * s[0], ct[1] * s[1], ct[2] * s[2]};
+  float q[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float e0 = cs[0] * diff[0][k], e1 = cs[1] * diff[1][k], e2 = cs[2] * diff[2][k];  // ct_a d_a
+    q[0] = fmaf(diff[0][k] * g[k], fmaf(e1, f[2][k], e2 * f[1][k]), q[0]);
+    q[1] = fmaf(diff[1][k] * g[k], fmaf(e2, f[0][k], e0 * f[2][k]), q[1]);
+    q[2] = fmaf(diff[2][k] * g[k], fmaf(e0, f[1][k], e1 * f[0][k]), q[2]);
   }
 #pragma unroll
   for (int a = 0; a < 3; ++a) acc[a] = fmaf(s[a], q[a], acc[a]);

@@ -75,8 +75,39 @@
 //     plain twin rounds it (no FMA contraction), so bf16(feat) is the
 //     twin's bit for bit: a contracted lerp flips the rounding of a feature
 //     for every sample of a cell at once, which shows in dW0 and dW1.
-// The coords mode is the first design's (one thread per sample, f32 weights
-// in shared memory, no atomics): it runs only with camera optimisation.
+//
+// What bounds the coords mode (it runs only with camera optimisation): per
+// sample, the same 2 x 3 x L two-row gathers, no scatter, and the three MLP
+// products (layer 0, W1 g_o, W0 g_h_b); on the CUDA cores the base field's
+// ~17,400 f32 multiply-adds a sample took 23 times its bound. This design
+// is K1's (fused_factor_density.cu) with the VJP behind it:
+//   - persistent blocks walk over tiles of 128 samples, one thread a part
+//     (8 features) of a sample: 256 threads for the base field, 128 for the
+//     proposal fields; W0, W1 (bf16), b0 and the level schedule are staged
+//     once per block;
+//   - the tile's features come from K1's own call to the encode tile
+//     (factor_grid::encode_tile) into a bf16 tile X, so the recompute is
+//     K1's forward bit for bit;
+//   - per warp and m-tile of 16 samples on mma.sync.m16n8k16: layer 0
+//     (K1's MMA), of which only h > 0 is kept (a bit a value; where the
+//     sign is within one bf16 step of 0, that unit's pre-activation is
+//     summed again with f32 FMAs, as the twin sums it); g_h = g_o
+//     W1^T (the tables kernel's MMA 1; for O = 1 one product a value); g_h_b
+//     = bf16(g_h 1{h > 0}) straight from the accumulators as A fragments;
+//     g_feat = bf16(g_h_b W0^T) (the tables kernel's MMA 3) over X's rows.
+//     The tensor cores' sums of g_h and g_feat do not round as the twin's
+//     f32 sums do and flip a few bf16 roundings: du of the base field is
+//     ~2e-5 of its norm from the twin's (the first design's f32 FMAs:
+//     ~1e-7), the proposal fields' ~1e-7;
+//   - the tap pass walks the encode's parts again: per level the six rows
+//     of the part, g_feat's 8 values from X, and per axis (R - 1) sum_k
+//     ((g_feat f_o1) f_o2) (r1 - r0) (K5's factor_grid::part8_dot under
+//     K2's knot rule); a sample's two parts (base field) summed with a
+//     shuffle.
+//   A sample's threads and its MMA rows belong to one warp, and each warp
+//   stages its own samples' coordinates and g_o, so a block's warps never
+//   wait for each other: with a __syncthreads a tile (the first version)
+//   the proposal fields' calls were 19% slower than the first design's.
 //
 // Determinism: the vector reductions and the per-block dW/db flushes add in
 // an order that changes from run to run, so line grads and dW/db are
@@ -502,40 +533,38 @@ density_bwd_tables_kernel(const float* __restrict__ coords, const float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// Coords mode: one thread per sample, W0 and W1 as f32 in shared memory.
+// Coords mode.
 
-// Row stride (floats) of the staged [kThreads, width] g_h tile.
-constexpr int stride(int width) { return width == 1 ? 1 : width + 4; }
-constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+constexpr int kCoordsTile = 128;  // samples a tile
 
-// Dynamic shared memory of the coords mode, in floats.
+// Dynamic shared memory of the coords mode, in bytes: bf16 tiles with rows
+// padded by 8 values (16 bytes), D and O rounded up to the MMA's k = 16
+// with zeros.
 template <int F, int H, int O, int L>
 struct CoordsLayout {
-  static constexpr int D = L * F;
-  static constexpr int HS = stride(H);
-  static constexpr int kW0 = 0;                    // [D][H]
-  static constexpr int kW1 = kW0 + D * H;          // [H][O]
-  static constexpr int kB0 = kW1 + round4(H * O);  // [H]
-  static constexpr int kGh = kB0 + round4(H);      // [T][HS] g_h
-  static constexpr int kFloats = kGh + kThreads * HS;
+  static constexpr int D = L * F, DP = round16(D), OP = round16(O);
+  static constexpr int XS = DP + 8, HS = H + 8, OS = OP + 8;  // row strides, in values
+  static constexpr bool kMmaOut = O % 16 == 0;  // g_h = g_o W1^T on the MMA; else O = 1 on FMAs
+  static constexpr int kThreads = kCoordsTile * F / 8;  // a thread a part (8 features) of a sample
+  static constexpr int kW0 = 0;                                                  // W0 [DP][HS]
+  static constexpr int kW1 = kW0 + DP * HS * 2;                                  // W1 [H][OS], or f32 [H]
+  static constexpr int kB0 = kW1 + round16(kMmaOut ? H * OS * 2 : H * 4);        // b0 [H] f32
+  static constexpr int kLv = kB0 + round16(H * 4);                               // schedule [L][4] int
+  static constexpr int kU = kLv + L * 16;                                        // coords [T][3] f32
+  static constexpr int kGo = kU + round16(kCoordsTile * 3 * 4);                  // g_o [T][OS], or f32 [T]
+  static constexpr int kX = kGo + round16(kMmaOut ? kCoordsTile * OS * 2 : kCoordsTile * 4);  // [T][XS]
+  static constexpr int kBytes = kX + kCoordsTile * XS * 2;
+  static_assert(kMmaOut || O == 1, "g_h takes O = 1 or a multiple of 16");
+  static_assert(kW1 % 16 == 0 && kGo % 16 == 0 && kX % 16 == 0, "16-byte aligned tiles");
 };
 
-// W values from registers to a 16-byte-aligned shared row.
-template <int W>
-__device__ __forceinline__ void store_row(float* dst, const float* v) {
-  if constexpr (W % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      reinterpret_cast<float4*>(dst)[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < W; ++k) dst[k] = v[k];
-  }
-}
-
-template <int F, int H, int O, int L>
-__global__ void __launch_bounds__(kThreads)
+// Persistent blocks walk over tiles of kCoordsTile samples (see the header).
+// A thread takes one part of one sample in the encode and in the tap pass,
+// and the warp that owns a sample's threads also owns its rows of every
+// tile in shared memory (a warp's 32 / P samples are its m-tiles), so the
+// warps of a block never wait for each other after the weights are in.
+template <int F, int H, int O, int L, int kMinBlocks>
+__global__ void __launch_bounds__(CoordsLayout<F, H, O, L>::kThreads, kMinBlocks)
 density_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out, int n,
                           const bf16* __restrict__ tables, Schedule lv,
                           const bf16* __restrict__ w0,  // [D, H]
@@ -543,131 +572,213 @@ density_bwd_coords_kernel(const float* __restrict__ coords, const float* __restr
                           const bf16* __restrict__ w1,  // [H, O]
                           float* __restrict__ g_coords) {  // [N, 3]
   using Lay = CoordsLayout<F, H, O, L>;
-  constexpr int D = Lay::D, HS = Lay::HS;
-  static_assert(H % 4 == 0 && F % 8 == 0, "float4 rows and 16-byte table rows");
+  constexpr int D = Lay::D, DP = Lay::DP, OP = Lay::OP, XS = Lay::XS, HS = Lay::HS, OS = Lay::OS;
+  constexpr int kThreads = Lay::kThreads, kWarps = kThreads / 32, P = F / 8;
+  constexpr int kRows = kCoordsTile / kWarps;  // rows of the tile a warp owns
+  static_assert(H % 16 == 0 && F % 8 == 0 && kRows % 16 == 0, "MMA tiles and 16-byte table rows");
+  static_assert(H / 8 * 4 <= 32, "one bit of h > 0 a layer-0 accumulator");
+  static_assert(Lay::kMmaOut ? O % P == 0 : P == 1, "a sample's g_o split over its parts");
 
-  extern __shared__ __align__(16) float smem_f[];
-  float* s_w0 = smem_f + Lay::kW0;
-  float* s_w1 = smem_f + Lay::kW1;
-  float* s_b0 = smem_f + Lay::kB0;
-  float* s_gh = smem_f + Lay::kGh;
-  const int t = threadIdx.x;
+  extern __shared__ __align__(16) uint8_t smem[];
+  bf16* s_w0 = reinterpret_cast<bf16*>(smem + Lay::kW0);
+  bf16* s_w1 = reinterpret_cast<bf16*>(smem + Lay::kW1);
+  float* s_w1f = reinterpret_cast<float*>(smem + Lay::kW1);
+  float* s_b0 = reinterpret_cast<float*>(smem + Lay::kB0);
+  int* s_lv = reinterpret_cast<int*>(smem + Lay::kLv);
+  float* s_u = reinterpret_cast<float*>(smem + Lay::kU);
+  bf16* s_go = reinterpret_cast<bf16*>(smem + Lay::kGo);
+  float* s_gof = reinterpret_cast<float*>(smem + Lay::kGo);
+  bf16* s_x = reinterpret_cast<bf16*>(smem + Lay::kX);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+  const int h = t % P, s = t / P;          // encode_tile's part and sample of this thread
 
-  for (int i = t; i < D * H; i += kThreads) s_w0[i] = __bfloat162float(w0[i]);
-  for (int i = t; i < H * O; i += kThreads) s_w1[i] = __bfloat162float(w1[i]);
+  // Once per block: W0 with zero rows past D, W1, b0, the level schedule
+  // (read by a level index the tap pass does not unroll); the padding
+  // columns of X and g_o stay zero.
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (int i = t; i < DP * H; i += kThreads) {
+    const int r = i / H, c = i % H;
+    s_w0[r * HS + c] = r < D ? w0[r * H + c] : zero;
+  }
+  if constexpr (Lay::kMmaOut) {
+    for (int i = t; i < H * OP; i += kThreads) {
+      const int r = i / OP, c = i % OP;
+      s_w1[r * OS + c] = c < O ? w1[r * O + c] : zero;
+    }
+    if constexpr (OP > O) {
+      for (int i = t; i < kCoordsTile * (OP - O); i += kThreads) s_go[i / (OP - O) * OS + O + i % (OP - O)] = zero;
+    }
+  } else {
+    for (int i = t; i < H; i += kThreads) s_w1f[i] = __bfloat162float(w1[i]);
+  }
   for (int i = t; i < H; i += kThreads) s_b0[i] = __bfloat162float(b0[i]);
+  for (int l = t; l < L; l += kThreads) {
+    s_lv[4 * l] = lv.res[l];
+    s_lv[4 * l + 1] = lv.offset[l][0];
+    s_lv[4 * l + 2] = lv.offset[l][1];
+    s_lv[4 * l + 3] = lv.offset[l][2];
+  }
+  if constexpr (DP > D) {
+    for (int i = t; i < kCoordsTile * (DP - D); i += kThreads) s_x[i / (DP - D) * XS + D + i % (DP - D)] = zero;
+  }
   __syncthreads();
 
-  const int num_tiles = (n + kThreads - 1) / kThreads;
+  const int num_tiles = (n + kCoordsTile - 1) / kCoordsTile;
   for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t idx = static_cast<int64_t>(tile) * kThreads + t;
-    if (idx >= n) continue;
-    float u[3];
+    const int64_t s0 = static_cast<int64_t>(tile) * kCoordsTile, row = s0 + s;
+    // This thread's sample's clamped coordinates (its first part's thread)
+    // and its share of g_o = bf16(g); 0 past the last sample.
+    if (h == 0) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) u[a] = fminf(fmaxf(coords[idx * 3 + a], 0.f), 1.f);
+      for (int a = 0; a < 3; ++a) s_u[3 * s + a] = row < n ? fminf(fmaxf(__ldg(coords + row * 3 + a), 0.f), 1.f) : 0.f;
+    }
+    if constexpr (Lay::kMmaOut) {
+#pragma unroll
+      for (int j = 0; j < O / P; ++j) {
+        const int o = h * (O / P) + j;
+        s_go[s * OS + o] = __float2bfloat16_rn(row < n ? __ldg(grad_out + row * O + o) : 0.f);
+      }
+    } else {
+      s_gof[s] = row < n ? round_bf16(__ldg(grad_out + row)) : 0.f;
+    }
+    __syncwarp();  // this warp's coordinates and g_o are in
 
-    // K1's forward to the layer-0 output h, then g_h_b = bf16((W1 g_o) 1{h > 0}).
-    {
-      float acc[H];
+    // K1's features of the tile, bit for bit (K1's call), into X.
+    factor_grid::encode_tile<F, L, kCoordsTile, kThreads, false, false>(
+        s_u, tables, nullptr, 0, lv, [&](int si, int l, int hi, const float (&v)[8]) {
+          *reinterpret_cast<uint4*>(s_x + si * XS + l * F + 8 * hi) =
+              make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        });
+    __syncwarp();  // this warp's rows of X are in
+
 #pragma unroll
-      for (int h = 0; h < H; ++h) acc[h] = 0.f;
-#pragma unroll 1
-      for (int l = 0; l < L; ++l) {
-        const int res = lv.res[l];
-        float feat[F];
+    for (int mt = 0; mt < kRows / 16; ++mt) {
+      const int m0 = warp * kRows + mt * 16;
+      uint32_t a[4], b[4];
+      // Layer 0 (K1's MMA): h = relu(bf16(bf16(bf16(feat) W0) + b0)); only
+      // h > 0 is kept, one bit a fragment value (nt, e). The tensor cores'
+      // sum can round bf16(acc) to the neighbour of the twin's f32 sum, and
+      // where bf16(acc) + b0 is within that step of 0 the sign, and with it
+      // the whole of a sample's g_h there, can differ (one such unit moved
+      // a sample's du by 14%): those few pre-activations are summed again
+      // over D with f32 FMAs, as the twin sums them.
+      uint32_t live = 0, undecided = 0;
+      {
+        float acc[H / 8][4] = {};
 #pragma unroll
-        for (int f = 0; f < F; ++f) feat[f] = 1.f;
+        for (int k0 = 0; k0 < DP; k0 += 16) {
+          load_a(a, s_x, XS, m0, k0, lane);
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          int i;
-          float w;
-          tap(u[a], res, i, w);
-          const bf16* row = tables + lv.offset[l][a] + i * F;
-          float r0[F], r1[F];
-          load_row<F>(row, r0);
-          load_row<F>(row + F, r1);
-#pragma unroll
-          for (int f = 0; f < F; ++f) feat[f] *= (1.f - w) * r0[f] + w * r1[f];
+          for (int n0 = 0; n0 < H; n0 += 16) {
+            load_b_kn(b, s_w0, HS, k0, n0, lane);
+            mma(acc[n0 / 8], a, b[0], b[1]);
+            mma(acc[n0 / 8 + 1], a, b[2], b[3]);
+          }
         }
 #pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const float xf = round_bf16(feat[f]);
-          const float4* wrow = reinterpret_cast<const float4*>(s_w0 + (l * F + f) * H);
+        for (int nt = 0; nt < H / 8; ++nt) {
 #pragma unroll
-          for (int q = 0; q < H / 4; ++q) {
-            const float4 wv = wrow[q];
-            acc[4 * q + 0] = fmaf(xf, wv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(xf, wv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(xf, wv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(xf, wv.w, acc[4 * q + 3]);
+          for (int e = 0; e < 4; ++e) {
+            const float v = round_bf16(acc[nt][e]), pre = v + s_b0[nt * 8 + 2 * t4 + (e & 1)];
+            if (round_bf16(pre) > 0.f) live |= 1u << (4 * nt + e);
+            if (fabsf(pre) <= fabsf(v) * (1.f / 128.f)) undecided |= 1u << (4 * nt + e);  // one bf16 step
           }
         }
       }
-      float go[O];
-#pragma unroll
-      for (int o = 0; o < O; ++o) go[o] = round_bf16(grad_out[idx * O + o]);
-      float gh[H];
-#pragma unroll
-      for (int h = 0; h < H; ++h) {
-        const float hv = fmaxf(round_bf16(round_bf16(acc[h]) + s_b0[h]), 0.f);
-        float s = 0.f;
-#pragma unroll
-        for (int o = 0; o < O; ++o) s = fmaf(s_w1[h * O + o], go[o], s);
-        gh[h] = hv > 0.f ? round_bf16(s) : 0.f;
+      for (; undecided; undecided &= undecided - 1) {
+        const int bit = __ffs(undecided) - 1, e = bit & 3, c = (bit >> 2) * 8 + 2 * t4 + (e & 1);
+        const bf16* x = s_x + (m0 + g + 8 * (e >> 1)) * XS;
+        float sum = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) sum = fmaf(__bfloat162float(x[d]), __bfloat162float(s_w0[d * HS + c]), sum);
+        if (round_bf16(round_bf16(sum) + s_b0[c]) > 0.f) {
+          live |= 1u << bit;
+        } else {
+          live &= ~(1u << bit);
+        }
       }
-      store_row<H>(s_gh + t * HS, gh);
+      // g_h = g_o W1^T (the tables kernel's MMA 1 for O = 16; one product a
+      // value for O = 1), then g_h_b = bf16(g_h 1{h > 0}) as the A
+      // fragments of k-step kk: the accumulators of n-tiles 2 kk, 2 kk + 1.
+      float gac[H / 8][4] = {};
+      if constexpr (Lay::kMmaOut) {
+#pragma unroll
+        for (int k0 = 0; k0 < OP; k0 += 16) {
+          load_a(a, s_go, OS, m0, k0, lane);
+#pragma unroll
+          for (int n0 = 0; n0 < H; n0 += 16) {
+            load_b_nk(b, s_w1, OS, k0, n0, lane);
+            mma(gac[n0 / 8], a, b[0], b[1]);
+            mma(gac[n0 / 8 + 1], a, b[2], b[3]);
+          }
+        }
+      } else {
+        const float go[2] = {s_gof[m0 + g], s_gof[m0 + g + 8]};
+#pragma unroll
+        for (int nt = 0; nt < H / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gac[nt][e] = s_w1f[nt * 8 + 2 * t4 + (e & 1)] * go[e >> 1];
+        }
+      }
+      uint32_t ga[H / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int nt = 2 * kk + (q >> 1), e = 2 * (q & 1), bit = 4 * nt + e;
+          ga[kk][q] = pack_bf16(live >> bit & 1u ? gac[nt][e] : 0.f, live >> (bit + 1) & 1u ? gac[nt][e + 1] : 0.f);
+        }
+      }
+      __syncwarp();  // every lane's layer-0 reads of these rows are done
+      // g_feat = bf16(g_h_b W0^T) (the tables kernel's MMA 3), into X.
+#pragma unroll
+      for (int n0 = 0; n0 < DP; n0 += 16) {
+        float c[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < H / 16; ++kk) {
+          load_b_nk(b, s_w0, HS, kk * 16, n0, lane);
+          mma(c[0], ga[kk], b[0], b[1]);
+          mma(c[1], ga[kk], b[2], b[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = n0 + j * 8 + 2 * t4, r = m0 + g;
+          *reinterpret_cast<uint32_t*>(s_x + r * XS + col) = pack_bf16(c[j][0], c[j][1]);
+          *reinterpret_cast<uint32_t*>(s_x + (r + 8) * XS + col) = pack_bf16(c[j][2], c[j][3]);
+        }
+      }
     }
+    __syncwarp();  // g_feat of this warp's rows is in
 
-    // Per level: the taps again, g_feat = bf16(W0 g_h_b), the product rule
-    // and the coordinate sum.
+    // The tap pass: per level, this thread's part of g_feat and the product
+    // rule, in parts of 8 features; a sample's parts summed with shuffles.
+    const float u[3] = {s_u[3 * s], s_u[3 * s + 1], s_u[3 * s + 2]};
     float gu[3] = {0.f, 0.f, 0.f};
-    const float4* gh4 = reinterpret_cast<const float4*>(s_gh + t * HS);
 #pragma unroll 1
     for (int l = 0; l < L; ++l) {
-      const int res = lv.res[l];
-      const float scale = static_cast<float>(res - 1);
-      float fa[3][F], da[3][F];
+      const uint4 raw = *reinterpret_cast<const uint4*>(s_x + s * XS + l * F + 8 * h);
+      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+      float gv[8];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        int i;
-        float w;
-        tap(u[a], res, i, w);
-        const bf16* row = tables + lv.offset[l][a] + i * F;
-        float r0[F], r1[F];
-        load_row<F>(row, r0);
-        load_row<F>(row + F, r1);
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          fa[a][f] = (1.f - w) * r0[f] + w * r1[f];
-          da[a][f] = r1[f] - r0[f];
-        }
+      for (int k = 0; k < 4; ++k) {
+        gv[2 * k] = __uint_as_float(words[k] << 16);
+        gv[2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
       }
-      float gf[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f) gf[f] = 0.f;
-#pragma unroll
-      for (int q = 0; q < H / 4; ++q) {
-        const float4 g4 = gh4[q];
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const float4 wv = reinterpret_cast<const float4*>(s_w0 + (l * F + f) * H)[q];
-          gf[f] = fmaf(wv.x, g4.x, gf[f]);
-          gf[f] = fmaf(wv.y, g4.y, gf[f]);
-          gf[f] = fmaf(wv.z, g4.z, gf[f]);
-          gf[f] = fmaf(wv.w, g4.w, gf[f]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int o1 = (a + 1) % 3, o2 = (a + 2) % 3;
-        float s = 0.f;
-#pragma unroll
-        for (int f = 0; f < F; ++f) s = fmaf(round_bf16(gf[f]) * fa[o1][f] * fa[o2][f], da[a][f], s);
-        gu[a] = fmaf(s, scale, gu[a]);
-      }
+      const int4 sl = reinterpret_cast<const int4*>(s_lv)[l];
+      const bf16* const line[3] = {tables + sl.y, tables + sl.z, tables + sl.w};
+      factor_grid::part8_dot<F, true, true>(line, sl.x, 8 * h, u, gv, gu);
     }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) g_coords[idx * 3 + a] = gu[a];
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int o = P / 2; o > 0; o >>= 1) gu[a] += __shfl_xor_sync(0xffffffffu, gu[a], o);
+    }
+    if (h == 0 && row < n) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) g_coords[row * 3 + a] = gu[a];
+    }
+    __syncwarp();  // the next tile overwrites this warp's coordinates, g_o and X
   }
 }
 
@@ -676,42 +787,47 @@ density_bwd_coords_kernel(const float* __restrict__ coords, const float* __restr
 
 // Blocks an SM must hold, for the register budget: two for the base field
 // (its dW0 stays in 64 accumulator registers a thread), four for the
-// proposal fields.
+// proposal fields. The coords mode takes the same: three and six or eight
+// made it spill, and were no faster (PERF.md).
 constexpr int min_blocks(int d) { return d > 64 ? 2 : 4; }
 
-// The kernel of `mode` and its dynamic shared memory, in bytes.
+// One mode's kernel for one field: its block and dynamic shared memory.
+struct Kernel {
+  const void* fn = nullptr;
+  int threads = 0, smem_bytes = 0;
+};
+
 template <int F, int H, int O, int L>
-void pick(int mode, const void*& kernel, int& smem_bytes) {
-  if (mode == 0) {
-    kernel = reinterpret_cast<const void*>(density_bwd_tables_kernel<F, H, O, L, min_blocks(F * L)>);
-    smem_bytes = TablesLayout<F, H, O, L>::kBytes;
-  } else {
-    kernel = reinterpret_cast<const void*>(density_bwd_coords_kernel<F, H, O, L>);
-    smem_bytes = CoordsLayout<F, H, O, L>::kFloats * static_cast<int>(sizeof(float));
-  }
+Kernel pick(int mode) {
+  if (mode == 0)
+    return {reinterpret_cast<const void*>(density_bwd_tables_kernel<F, H, O, L, min_blocks(F * L)>), kThreads,
+            TablesLayout<F, H, O, L>::kBytes};
+  using Lay = CoordsLayout<F, H, O, L>;
+  return {reinterpret_cast<const void*>(density_bwd_coords_kernel<F, H, O, L, min_blocks(F * L)>), Lay::kThreads,
+          Lay::kBytes};
 }
 
 // The kernel for (feat, hidden, out_dim, levels), or false.
-bool pick_any(int feat, int hidden, int out_dim, int levels, int mode, const void*& kernel, int& smem_bytes) {
+bool pick_any(int feat, int hidden, int out_dim, int levels, int mode, Kernel& k) {
   if (feat == 8 && hidden == 16 && out_dim == 1 && levels == 5) {  // proposal fields
-    pick<8, 16, 1, 5>(mode, kernel, smem_bytes);
+    k = pick<8, 16, 1, 5>(mode);
     return true;
   }
   if (feat == 16 && hidden == 64 && out_dim == 16 && levels == 8) {  // base field
-    pick<16, 64, 16, 8>(mode, kernel, smem_bytes);
+    k = pick<16, 64, 16, 8>(mode);
     return true;
   }
   return false;
 }
 
 // Opt in to the shared memory and count the blocks an SM holds.
-cudaError_t prepare(const void* kernel, int smem_bytes, int& per_sm, int& sms) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+cudaError_t prepare(const Kernel& k, int& per_sm, int& sms) {
+  cudaError_t err = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k.smem_bytes);
   if (err != cudaSuccess) return err;
   int device = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.fn, k.threads, k.smem_bytes)) != cudaSuccess)
     return err;
   return per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
 }
@@ -731,22 +847,23 @@ extern "C" int fused_factor_density_backward(const void* coords, const void* gra
                                              void* g_tables, void* g_w0, void* g_b0, void* g_w1,
                                              void* g_b1, void* g_coords, int mode, void* stream) {
   Schedule lv;
-  const void* kernel = nullptr;
-  int smem_bytes = 0;
+  Kernel k;
   if (n < 0 || (mode != 0 && mode != 1) ||
       !factor_grid::make_schedule(resolutions, num_levels, feat, lv) ||
-      !pick_any(feat, hidden, out_dim, num_levels, mode, kernel, smem_bytes))
+      !pick_any(feat, hidden, out_dim, num_levels, mode, k))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   int per_sm = 0, sms = 0;
-  cudaError_t err = prepare(kernel, smem_bytes, per_sm, sms);
+  cudaError_t err = prepare(k, per_sm, sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int num_tiles = (n + kThreads - 1) / kThreads;
+  // Both modes walk over tiles of 128 samples (kThreads, kCoordsTile).
+  static_assert(kThreads == kCoordsTile, "one tile size");
+  const int num_tiles = (n + kCoordsTile - 1) / kCoordsTile;
   const int grid = num_tiles < per_sm * sms ? num_tiles : per_sm * sms;
   void* args_tables[] = {&coords, &grad_out, &n, &tables, &lv, &w0, &b0, &w1, &g_tables, &g_w0, &g_b0, &g_w1, &g_b1};
   void* args_coords[] = {&coords, &grad_out, &n, &tables, &lv, &w0, &b0, &w1, &g_coords};
-  err = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads), mode == 0 ? args_tables : args_coords,
-                         static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernel(k.fn, dim3(grid), dim3(k.threads), mode == 0 ? args_tables : args_coords,
+                         static_cast<size_t>(k.smem_bytes), static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -756,11 +873,12 @@ extern "C" int fused_factor_density_backward(const void* coords, const void* gra
 extern "C" int fused_factor_density_backward_occupancy(const int* resolutions, int num_levels, int feat, int hidden,
                                                        int out_dim, int mode, int* smem_bytes, int* blocks_per_sm) {
   Schedule lv;
-  const void* kernel = nullptr;
+  Kernel k;
   if ((mode != 0 && mode != 1) ||
       !factor_grid::make_schedule(resolutions, num_levels, feat, lv) ||
-      !pick_any(feat, hidden, out_dim, num_levels, mode, kernel, *smem_bytes))
+      !pick_any(feat, hidden, out_dim, num_levels, mode, k))
     return cudaErrorInvalidValue;
+  *smem_bytes = k.smem_bytes;
   int sms = 0;
-  return static_cast<int>(prepare(kernel, *smem_bytes, *blocks_per_sm, sms));
+  return static_cast<int>(prepare(k, *blocks_per_sm, sms));
 }

@@ -64,9 +64,13 @@
 // plain 16-byte loads of g from device memory, and samples on consecutive
 // lanes at one part were slower (PERF.md).
 //
-// K6's coords half: one thread per (sample, level) item, item = n L + l,
-// reading its 64 contiguous bytes of g; a sample's L items are
-// neighbouring lanes, summed with warp shuffles (no atomics).
+// K6's coords half reads what K5 reads, plus ct [N, 3], and writes [N, 3]:
+// it is K5's tile loop (grad_dot_tiles, a template parameter apart), with
+// each tile's ct staged beside its coordinates (double-buffered, a thread a
+// value) and a part's sums those of G_hat (factor_grid::part8_dot_ct) under
+// the same knot rule, so an axis at a knot of every level gives exactly 0.
+// On the H100 it is 1.6x faster than one thread per (sample, level) item
+// reading g with plain loads and every level from device memory (PERF.md).
 //
 // K6's tables half is K2's scatter (fused_factor_density_bwd.cu), as K4's:
 // one thread per sample and the levels in a loop, so a warp's lanes are 32
@@ -107,7 +111,6 @@ using factor_grid::interp;
 using factor_grid::Schedule;
 
 constexpr int kThreads = 128;  // K6's tables half
-constexpr int kBwdThreads = 256;
 // K5: persistent blocks of kDotThreads threads, tiles of kDotTile samples;
 // the coarse levels, up to kDotSharedLevels of them whose tables fit
 // kDotSharedBytes (levels 0 to 3 of the base field, 23 KB), read their
@@ -117,33 +120,23 @@ constexpr int kDotTile = 32;
 constexpr int kDotSharedLevels = 4;
 constexpr int kDotSharedBytes = 24 * 1024;
 
-template <int F>
-__device__ __forceinline__ void interp3(const __nv_bfloat16* __restrict__ tables, const Schedule& s,
-                                        int l, const float* __restrict__ coords, int64_t sample,
-                                        int* ia, float* wa, float* sa, float (*fa)[F], float (*da)[F]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float u = fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f);
-    interp<F, true>(tables + s.offset[l][a], u, s.res[l], ia[a], wa[a], sa[a], fa[a], da[a]);
-  }
-}
-
-// K5: persistent blocks of kDotThreads threads walk over tiles of kDotTile
-// samples (see the header). Shared memory: g [2][kDotTile][L F] f32, the
-// tiles' coordinates [2][kDotTile][3], the groups' sums
-// [2][G][kDotTile][3], two mbarriers, each level's resolution and three
-// table offsets [L][4] (read with a level index that differs between
-// warps, the schedule would otherwise be copied to local memory), then the
-// coarse levels' tables (shared_elems bf16, levels [0, n_shared)). Each
-// buffer serves every other tile, so one __syncthreads a tile orders them
-// all.
+// K5's tile loop, shared by K5 and K6's coords half (kCt): persistent
+// blocks of kDotThreads threads walk over tiles of kDotTile samples (see the
+// header). Shared memory: g [2][kDotTile][L F] f32, the tiles' coordinates
+// [2][kDotTile][3] (and with kCt the cotangents ct [2][kDotTile][3]), the
+// groups' sums [2][G][kDotTile][3], two mbarriers, each level's resolution
+// and three table offsets [L][4] (read with a level index that differs
+// between warps, the schedule would otherwise be copied to local memory),
+// then the coarse levels' tables (shared_elems bf16, levels [0, n_shared)).
+// Each buffer serves every other tile, so one __syncthreads a tile orders
+// them all.
 template <int F>
 __host__ __device__ constexpr int dot_groups() { return kDotThreads / (kDotTile * (F / 8)); }
 
-template <int F, int L>
+template <int F, int L, bool kCt>
 constexpr int dot_smem_bytes(int shared_table_bytes) {
-  return (2 * kDotTile * L * F + 2 * kDotTile * 3 + 2 * dot_groups<F>() * kDotTile * 3) * 4 + 2 * 8 + L * 16 +
-         shared_table_bytes;
+  return (2 * kDotTile * L * F + (kCt ? 4 : 2) * kDotTile * 3 + 2 * dot_groups<F>() * kDotTile * 3) * 4 + 2 * 8 +
+         L * 16 + shared_table_bytes;
 }
 
 // Tile `tile` of g [N, L F] into `dst`, completing on `bar` (one thread).
@@ -157,26 +150,41 @@ __device__ __forceinline__ void load_g_tile(float* dst, const float* __restrict_
   factor_grid::bulk_load(dst, grad + s0 * D, bytes, bar);
 }
 
-template <int F, int L>
-__global__ void __launch_bounds__(kDotThreads, 3)
-grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
-                const __nv_bfloat16* __restrict__ tables, Schedule s, int n_shared, int shared_elems,
-                float* __restrict__ out) {  // [N, 3]
+// Writes out [N, 3]: K5's s = sum_l sum_F d_a f_b f_c g (factor_grid::part8_dot)
+// or, with kCt, K6's du = sum_l sum_F G_hat_a d_a (factor_grid::part8_dot_ct).
+template <int F, int L, bool kCt>
+__device__ __forceinline__ void grad_dot_tiles(const float* __restrict__ coords, const float* __restrict__ grad,
+                                               const float* __restrict__ ct, int n,
+                                               const __nv_bfloat16* __restrict__ tables, const Schedule& s,
+                                               int n_shared, int shared_elems, float* __restrict__ out) {
   constexpr int D = L * F;
   constexpr int P = F / 8;            // parts of a level
   constexpr int G = dot_groups<F>();  // groups of threads, each on every G-th level
+  constexpr int kTile3 = kDotTile * 3;
   static_assert(F % 8 == 0 && G * kDotTile * P == kDotThreads && L % G == 0, "a whole number of levels a thread");
-  static_assert(kDotTile * 3 <= kDotThreads, "a thread a coordinate");
+  static_assert((kCt ? 2 : 1) * kTile3 <= kDotThreads, "a thread a coordinate (and a cotangent)");
   extern __shared__ __align__(128) uint8_t smem[];
   float* s_g = reinterpret_cast<float*>(smem);  // [2][kDotTile][D]
   float* s_u = s_g + 2 * kDotTile * D;          // [2][kDotTile][3]
-  float* s_sum = s_u + 2 * kDotTile * 3;        // [2][G][kDotTile][3]
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_sum + 2 * G * kDotTile * 3);  // [2]
+  float* s_ct = s_u + 2 * kTile3;               // [2][kDotTile][3], kCt only
+  float* s_sum = s_ct + (kCt ? 2 * kTile3 : 0);  // [2][G][kDotTile][3]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_sum + 2 * G * kTile3);  // [2]
   int* s_lv = reinterpret_cast<int*>(bar + 2);  // [L][4]
   __nv_bfloat16* s_tab = reinterpret_cast<__nv_bfloat16*>(s_lv + 4 * L);
   const int t = threadIdx.x;
   const int h = t % P, smp = t / P % kDotTile, grp = t / (kDotTile * P);
   const int num_tiles = (n + kDotTile - 1) / kDotTile;
+  // Threads [0, 3 kDotTile) stage the coordinates (clamped to [0, 1]), with
+  // kCt threads [3 kDotTile, 6 kDotTile) the cotangents.
+  const bool ct_thread = kCt && t >= kTile3 && t < 2 * kTile3;
+  const int j3 = ct_thread ? t - kTile3 : t;
+  const auto staged = [&](int tile) {
+    const int64_t at = static_cast<int64_t>(tile) * kTile3 + j3;
+    if (tile >= num_tiles || at >= static_cast<int64_t>(n) * 3) return 0.f;
+    return ct_thread ? __ldg(ct + at) : fminf(fmaxf(__ldg(coords + at), 0.f), 1.f);
+  };
+  float* const s_in = ct_thread ? s_ct : s_u;
+  const bool stager = t < kTile3 || ct_thread;
   for (int i = t; i < shared_elems / 8; i += kDotThreads) factor_grid::cp_async16(s_tab + 8 * i, tables + 8 * i);
   if (t == 0) {
 #pragma unroll
@@ -191,7 +199,7 @@ grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad
     factor_grid::fence_mbar_init();
     load_g_tile<D>(s_g, grad, blockIdx.x, n, bar);  // the grid has at most num_tiles blocks
   }
-  factor_grid::stage_coords<kDotTile, kDotThreads>(s_u, coords, static_cast<int64_t>(blockIdx.x) * kDotTile, n);
+  if (stager) s_in[j3] = staged(blockIdx.x);
   factor_grid::cp_async_wait_all();
   __syncthreads();  // barriers, tables and the first tile's coordinates ready
   int it = 0;
@@ -199,16 +207,18 @@ grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad
     const int buf = it & 1;
     const int next = tile + gridDim.x;
     const int64_t s0 = static_cast<int64_t>(tile) * kDotTile;
-    // The next tile's g and coordinates come in while this one is gathered:
-    // g into the other buffer (last read before the previous tile's
-    // __syncthreads), the coordinates into a register until then.
+    // The next tile's g, coordinates and cotangents come in while this one
+    // is gathered: g into the other buffer (last read before the previous
+    // tile's __syncthreads), the others into a register until then.
     if (t == 0 && next < num_tiles) load_g_tile<D>(s_g + (buf ^ 1) * kDotTile * D, grad, next, n, bar + (buf ^ 1));
-    const int64_t u_at = static_cast<int64_t>(next) * kDotTile * 3 + t;
-    const float u_next = t < kDotTile * 3 && next < num_tiles && u_at < static_cast<int64_t>(n) * 3
-                             ? fminf(fmaxf(__ldg(coords + u_at), 0.f), 1.f)
-                             : 0.f;
-    const float* tu = s_u + buf * kDotTile * 3 + 3 * smp;
+    const float in_next = stager ? staged(next) : 0.f;
+    const float* tu = s_u + buf * kTile3 + 3 * smp;
     const float u[3] = {tu[0], tu[1], tu[2]};
+    float cv[3] = {0.f, 0.f, 0.f};
+    if constexpr (kCt) {
+      const float* tc = s_ct + buf * kTile3 + 3 * smp;
+      cv[0] = tc[0], cv[1] = tc[1], cv[2] = tc[2];
+    }
     factor_grid::mbar_wait(bar + buf, (it >> 1) & 1);
     const float* g_row = s_g + (buf * kDotTile + smp) * D;
     float acc[3] = {0.f, 0.f, 0.f};
@@ -222,10 +232,18 @@ grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad
       const int4 lv = reinterpret_cast<const int4*>(s_lv)[l];
       if (j * G < kDotSharedLevels && l < n_shared) {
         const __nv_bfloat16* const line[3] = {s_tab + lv.y, s_tab + lv.z, s_tab + lv.w};
-        factor_grid::part8_dot<F, false>(line, lv.x, 8 * h, u, gv, acc);
+        if constexpr (kCt) {
+          factor_grid::part8_dot_ct<F, false>(line, lv.x, 8 * h, u, cv, gv, acc);
+        } else {
+          factor_grid::part8_dot<F, false>(line, lv.x, 8 * h, u, gv, acc);
+        }
       } else {
         const __nv_bfloat16* const line[3] = {tables + lv.y, tables + lv.z, tables + lv.w};
-        factor_grid::part8_dot<F, true>(line, lv.x, 8 * h, u, gv, acc);
+        if constexpr (kCt) {
+          factor_grid::part8_dot_ct<F, true>(line, lv.x, 8 * h, u, cv, gv, acc);
+        } else {
+          factor_grid::part8_dot<F, true>(line, lv.x, 8 * h, u, gv, acc);
+        }
       }
     }
 #pragma unroll
@@ -233,20 +251,38 @@ grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad
 #pragma unroll
       for (int o = P / 2; o > 0; o >>= 1) acc[a] += __shfl_xor_sync(0xffffffffu, acc[a], o);
     }
-    float* sums = s_sum + buf * G * kDotTile * 3;
+    float* sums = s_sum + buf * G * kTile3;
     if (h == 0) {
 #pragma unroll
       for (int a = 0; a < 3; ++a) sums[(grp * kDotTile + smp) * 3 + a] = acc[a];
     }
-    if (t < kDotTile * 3) s_u[(buf ^ 1) * kDotTile * 3 + t] = u_next;
+    if (stager) s_in[(buf ^ 1) * kTile3 + j3] = in_next;
     __syncthreads();  // this tile's sums and the next tile's coordinates are in
-    if (t < kDotTile * 3 && s0 * 3 + t < static_cast<int64_t>(n) * 3) {
+    if (t < kTile3 && s0 * 3 + t < static_cast<int64_t>(n) * 3) {
       float v = sums[t];
 #pragma unroll
-      for (int q = 1; q < G; ++q) v += sums[q * kDotTile * 3 + t];
+      for (int q = 1; q < G; ++q) v += sums[q * kTile3 + t];
       out[s0 * 3 + t] = v;
     }
   }
+}
+
+// K5 (see the header).
+template <int F, int L>
+__global__ void __launch_bounds__(kDotThreads, 3)
+grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
+                const __nv_bfloat16* __restrict__ tables, Schedule s, int n_shared, int shared_elems,
+                float* __restrict__ out) {  // [N, 3]
+  grad_dot_tiles<F, L, false>(coords, grad, nullptr, n, tables, s, n_shared, shared_elems, out);
+}
+
+// K6's coords half: K5's tiles, with ct staged beside the coordinates.
+template <int F, int L>
+__global__ void __launch_bounds__(kDotThreads, 3)
+grad_dot_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
+                           const float* __restrict__ ct, int n, const __nv_bfloat16* __restrict__ tables, Schedule s,
+                           int n_shared, int shared_elems, float* __restrict__ g_coords) {  // [N, 3]
+  grad_dot_tiles<F, L, true>(coords, grad, ct, n, tables, s, n_shared, shared_elems, g_coords);
 }
 
 // K6's tables half and grad_g: one thread per sample, the levels in a loop
@@ -312,70 +348,29 @@ grad_dot_bwd_tables_kernel(const float* __restrict__ coords, const float* __rest
   }
 }
 
-// K6's coords half: one thread per (sample, level) item, blocks walking
-// over tiles; a sample's levels summed with shuffles.
-template <int F, int L>
-__global__ void __launch_bounds__(kBwdThreads)
-grad_dot_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
-                           const float* __restrict__ ct, int n, const __nv_bfloat16* __restrict__ tables,
-                           Schedule s,
-                           float* __restrict__ g_coords) {  // [N, 3]
-  static_assert(kBwdThreads % L == 0, "a thread keeps its level across tiles");
-  const int t = threadIdx.x;
-  const int l = t % L;
-  const int64_t n_items = static_cast<int64_t>(n) * L;
-  const int64_t num_tiles = (n_items + kBwdThreads - 1) / kBwdThreads;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t item = tile * kBwdThreads + t;
-    const bool valid = item < n_items;
-    const int64_t sample = item / L;
-    float fa[3][F], da[3][F], wa[3], sa[3], gv[F], cv[3] = {0.f, 0.f, 0.f};
-    int ia[3];
-    if (valid) {
-      interp3<F>(tables, s, l, coords, sample, ia, wa, sa, fa, da);
-      factor_grid::load_row_f32<F>(grad + item * F, gv);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) cv[a] = ct[sample * 3 + a];
-    }
-    float gu[3] = {0.f, 0.f, 0.f};
-    if (valid) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int b = (a + 1) % 3, c = (a + 2) % 3;
-#pragma unroll
-        for (int k = 0; k < F; ++k) {
-          const float g_hat = cv[b] * gv[k] * da[b][k] * fa[c][k] + cv[c] * gv[k] * da[c][k] * fa[b][k];
-          gu[a] = fmaf(g_hat, da[a][k], gu[a]);
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
-    if (valid && l == 0) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
-    }
-  }
-}
-
-template <int F, int L>
-int launch_forward(const float* c, const float* g, int n, const __nv_bfloat16* t, const Schedule& s,
-                   float* out, cudaStream_t stream) {
-  auto kernel = grad_dot_kernel<F, L>;
+// K5 (ct null) or K6's coords half on K5's tiles: the coarse levels whose
+// tables fit kDotSharedBytes go to shared memory, one block a tile up to
+// the resident blocks.
+template <int F, int L, bool kCt>
+int launch_tiles(const float* c, const float* g, const float* ct, int n, const __nv_bfloat16* t, const Schedule& s,
+                 float* out, cudaStream_t stream) {
   int n_shared = 0, shared_elems = 0;  // levels [0, n_shared) and their packed tables
   while (n_shared < kDotSharedLevels && n_shared < L &&
          (shared_elems + 3 * s.res[n_shared] * F) * 2 <= kDotSharedBytes)
     shared_elems += 3 * s.res[n_shared++] * F;
-  const int smem = dot_smem_bytes<F, L>(shared_elems * 2);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int resident = 0;
-  if ((err = factor_grid::resident_blocks(kernel, kDotThreads, smem, resident)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int tiles = (n + kDotTile - 1) / kDotTile;
-  kernel<<<tiles < resident ? tiles : resident, kDotThreads, smem, stream>>>(c, g, n, t, s, n_shared, shared_elems,
-                                                                             out);
-  return static_cast<int>(cudaGetLastError());
+  const int smem = dot_smem_bytes<F, L, kCt>(shared_elems * 2);
+  const auto launch = [&](auto kernel, auto... args) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int resident = 0;
+    if ((err = factor_grid::resident_blocks(kernel, kDotThreads, smem, resident)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int tiles = (n + kDotTile - 1) / kDotTile;
+    kernel<<<tiles < resident ? tiles : resident, kDotThreads, smem, stream>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (kCt) return launch(grad_dot_bwd_coords_kernel<F, L>, c, g, ct, n, t, s, n_shared, shared_elems, out);
+  return launch(grad_dot_kernel<F, L>, c, g, n, t, s, n_shared, shared_elems, out);
 }
 
 template <int F, int L>
@@ -383,19 +378,6 @@ int launch_tables(const float* c, const float* g, const float* ct, int n, const 
                   const Schedule& s, float* gt, float* gg, cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   grad_dot_bwd_tables_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, g, ct, n, t, s, gt, gg);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int F, int L>
-int launch_coords(const float* c, const float* g, const float* ct, int n, const __nv_bfloat16* t,
-                  const Schedule& s, float* gc, cudaStream_t stream) {
-  auto kernel = grad_dot_bwd_coords_kernel<F, L>;
-  int resident = 0;
-  const cudaError_t err = factor_grid::resident_blocks(kernel, kBwdThreads, 0, resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = (static_cast<int64_t>(n) * L + kBwdThreads - 1) / kBwdThreads;
-  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
-  kernel<<<grid, kBwdThreads, 0, stream>>>(c, g, ct, n, t, s, gc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,7 +400,7 @@ extern "C" int fused_factor_grad_dot_forward(const void* coords, const void* gra
   const auto* t = static_cast<const __nv_bfloat16*>(tables);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (feat == 16 && num_levels == 8) return launch_forward<16, 8>(c, g, n, t, s, o, st);  // base field
+  if (feat == 16 && num_levels == 8) return launch_tiles<16, 8, false>(c, g, nullptr, n, t, s, o, st);  // base field
   return cudaErrorInvalidValue;
 }
 
@@ -445,7 +427,7 @@ extern "C" int fused_factor_grad_dot_backward(const void* coords, const void* gr
   auto st = static_cast<cudaStream_t>(stream);
   if (feat == 16 && num_levels == 8) {  // base field
     if (mode == 0) return launch_tables<16, 8>(c, g, k, n, t, s, gt, gg, st);
-    return launch_coords<16, 8>(c, g, k, n, t, s, gc, st);
+    return launch_tiles<16, 8, true>(c, g, k, n, t, s, gc, st);
   }
   return cudaErrorInvalidValue;
 }

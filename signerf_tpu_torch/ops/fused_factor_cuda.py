@@ -32,9 +32,12 @@ takes the MLP VJP at the Pallas kernel's bf16 rounding points with
 the MLP products on the tensor cores, keeps dW/db per block and flushes
 them once per block, and sums the line grads over runs of lanes on the
 same row before adding them into device memory with vector reductions (so
-its sums are reproducible to f32 rounding, not bitwise). K5 walks K3's
-tiles and parts, with each tile's g brought into shared memory by one bulk
-copy. K8 and the coords halves of K4, K6 and K9 run one thread per
+its sums are reproducible to f32 rounding, not bitwise). K2's coords half
+is K1's kernel with the VJP behind it: K1's encode tile, the three MLP
+products on the tensor cores, then a second pass over the taps. K5 walks
+K3's tiles and parts, with each tile's g brought into shared memory by one
+bulk copy, and K6's coords half walks K5's tiles (ct staged beside the
+coordinates). K8 and the coords halves of K4 and K9 run one thread per
 (sample, level). The tables halves of K4, K6 and K9 take K2's scatter: one
 thread per sample with the levels in a loop, the line grads summed over
 runs of lanes on one row and added with vector reductions into L2, no

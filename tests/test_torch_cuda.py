@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: K1 to K10 against their plain
 twins, their input checks, one model chunk through K1, one train step
 through K1 and K2, the tables halves of K2, K4, K6 and K9 at ray-ordered
-and one-cell coordinates and their run-to-run spread, K5 at three layouts
-with its exact zeros at the knots, K7 at every ragged tail
+and one-cell coordinates and their run-to-run spread, the coords halves of
+K2 and K6 at every layout and at ragged and knot rows, K5 and K6's coords
+half with their exact zeros at the knots, K7 at every ragged tail
 of its tiles on strided views, one `signerf` micro-batch and eval chunk
 through K1 to K6, K8 and K9 against K5 and K6, the entry points of K8
 to K10, K7 at the edit pass's shapes, one small dataset-generator pass
@@ -333,6 +334,38 @@ def test_k2_run_to_run_spread_is_f32_rounding(cuda, name):
         assert float((a - b).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
+# Where K2's coords half is held against its twin: uniform coordinates, each
+# ray's samples in order, every sample in one cell, N = 257 with rows on the
+# unit cube's faces (K2's knot rule: the slope of the cell K1 reads, not 0),
+# and an N that ends mid-tile.
+K2_COORDS_LAYOUTS = ["uniform", "ray-ordered", "one cell", "knots", "ragged"]
+
+
+@pytest.mark.parametrize("layout", K2_COORDS_LAYOUTS)
+@pytest.mark.parametrize("name", ["proposal", "final"])
+def test_k2_coords_half_at_every_layout(cuda, name, layout):
+    """K2's coords half alone, one launch, at both instantiations (the
+    proposal fields' 5 levels of F = 8, the base field's 8 of F = 16)."""
+    n = {"knots": 257, "ragged": 100_003}.get(layout, 65_536)
+    res, feat, tables, w0, b0, w1, _, x = make_args(name, n, cuda, seed=11)
+    if layout == "ray-ordered":
+        x = ray_ordered_x01(1024, K2_PER_RAY[name], 12).to(cuda)
+    elif layout == "one cell":
+        x = one_cell_x01(n, res, 12).to(cuda)
+    g = torch.randn(x.shape[0], w1.shape[1], generator=torch.Generator().manual_seed(13)).to(cuda)
+    args = (res, feat, tables, w0, b0, w1, x, g)
+    t0, c0 = ffc.bwd_table_launches, ffc.bwd_coords_launches
+    lines, ws, got = ffc.density_mlp_bwd_cuda(*args, tables_half=False, coords_half=True)
+    torch.cuda.synchronize()
+    assert lines is None and ws is None
+    assert (ffc.bwd_table_launches, ffc.bwd_coords_launches) == (t0, c0 + 1)
+    want = ffc.density_mlp_bwd_plain(*args, tables_half=False, coords_half=True)[2]
+    assert got.shape == want.shape == (x.shape[0], 3) and bool(torch.isfinite(got).all())
+    # The same contract; the tensor cores' f32 sums (g_h, g_feat) flip a few
+    # bf16 roundings against the twin's (chip_smoke.py's K2_TOL).
+    assert rel(got, want) < 1e-4
+
+
 def test_k2_refuses_what_it_does_not_take(cuda):
     args = make_args("proposal", 64, cuda)
     res, feat, tables, w0, b0, w1, _, x = args
@@ -520,6 +553,29 @@ def test_k5_at_three_layouts_with_exact_zeros_at_knots(cuda, layout):
     assert s.shape == want.shape and bool(torch.isfinite(s).all())
     assert rel(s, want) < 1e-4  # f32 sums in another order (chip_smoke.py's K456_TOL)
     assert bool((s[:2] == 0).all()) and float(s[2, 1]) == 0.0 and float(s[3, 1]) == 0.0
+
+
+@pytest.mark.parametrize("layout", ["uniform", "ray-ordered", "one cell", "257", "1003"])
+def test_k6_coords_half_at_every_layout_with_exact_zeros_at_knots(cuda, layout):
+    """K6's coords half alone on K5's tile, at three layouts of one signerf
+    micro-batch's size and at N = 257 and 1003 (ragged tiles), with four
+    rows on knots of every level: an axis there is exactly 0."""
+    if layout in ("ray-ordered", "one cell"):
+        args, g, ct = k46_layout_args("final", layout, cuda, seed=14)
+    else:
+        args, g, ct = encode_args(int(layout) if layout.isdigit() else 100_003, cuda, seed=14)
+    x = args[3]
+    x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]], device=cuda)
+    t6, c6 = ffc.grad_dot_bwd_table_launches, ffc.grad_dot_bwd_coords_launches
+    lines, g_g, got = ffc.grad_dot_bwd_cuda(*args, g, ct, tables_half=False, coords_half=True)
+    torch.cuda.synchronize()
+    assert lines is None and g_g is None
+    assert (ffc.grad_dot_bwd_table_launches, ffc.grad_dot_bwd_coords_launches) == (t6, c6 + 1)
+    want = ffc.grad_dot_bwd_plain(*args, g, ct, tables_half=False, coords_half=True)[2]
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert rel(got, want) < 1e-4  # f32 sums in another order (chip_smoke.py's K456_TOL)
+    assert bool((got[:2] == 0).all())
+    assert [float(got[2, 1]), float(got[2, 2]), float(got[3, 0]), float(got[3, 1])] == [0.0] * 4
 
 
 def k9_layout_args(layout, device, seed=7):
