@@ -12,8 +12,9 @@ the result line):
      density_bwd,encode,grad_dot,grad}.cu and flash_attention.cu), all six
      nvcc processes at once, with ptxas's registers, shared memory, spills
      and warnings (K7 fails on C7508 or C7513; K1, K3, K5, K10, K9's
-     tables half and the coords halves of K2 and K6 on spills), and a line
-     for K5's, K9's tables and the two coords halves' kernels;
+     tables half and the coords halves of K2, K4 (both instantiations of
+     K5's tile loop) and K6 on spills), and a line for K5's, K9's tables
+     and the three coords halves' kernels;
   3. K1 against its plain PyTorch twin on the card, per call for each of
      the three density fields at the sample counts of one 8192-ray render
      chunk and of one 4096-ray train step, each at three layouts of the
@@ -30,8 +31,8 @@ the result line):
   5. K3, K4 (both halves), K5 and K6 (both halves) against their plain twins
      at one `signerf` micro-batch's base-field shapes (N = 196,608, uniform
      and clustered coordinates) and at N = 257 and 1003 with u in {0, 1}
-     (K5 and K6's coords half exactly 0 on an axis at a knot): error and
-     CUDA-event times; then
+     (K5 and the coords halves of K4 and K6 exactly 0 on an axis at a
+     knot): error, CUDA-event times and shares of the bound; then
      the tables halves of K4 and K6 (and grad_g) at three layouts, uniform,
      ray-ordered (48 samples a ray in ray order) and every sample in one
      cell (there against the twin's terms summed in float64, beside the
@@ -45,8 +46,10 @@ the result line):
      half at the three layouts (in one cell against the twin's terms
      summed in float64), with the run-to-run spread of its line grads and
      its share of the bound; K10 and K4 at the proposal schedule (their
-     5-level instantiations), K10 there also timed against its twin and
-     its bound;
+     5-level instantiations; K4's coords half exactly 0 at the knots), K10
+     and both halves of K4 there timed against their twins and bounds,
+     and K4's coords half also at the three layouts (256 samples a ray
+     ray-ordered) with its share of the bound;
   6. the render CLI at the full width of `signerf_nerfacto` on a synthetic
      512x512 scene (--arc 2 --device cuda, seeded random weights): K1's
      launches must be 3 x chunks; the PNGs must equal a direct render's
@@ -205,6 +208,9 @@ STEP_TOL = 0.05
 SIGNERF_RAYS = 16384
 SIGNERF_MICRO = 4
 SIGNERF_SAMPLES = SIGNERF_RAYS // SIGNERF_MICRO * 48
+# The proposal schedule's calls of K10 and K4 in phase 5b: a render chunk's
+# samples of the first proposal field (256 a ray).
+PROPOSAL_SAMPLES = CHUNK * 256
 SIGNERF_STEPS = 300
 SIGNERF_CAMERA_OPT_STEPS = 2
 BASE_SCHEDULE = (8, 2048, 16)  # levels, max_res, F of the base field
@@ -368,9 +374,11 @@ def phase_environment(torch) -> str:
 
 
 # Kernels whose ptxas report phase 2 checks for spills (a substring of the
-# entry's name); it prints the registers of all but the first two.
+# entry's name); it prints the registers of all but the first two. K5's
+# tile loop runs in three: K5's, K6's coords half's and K4's coords half's
+# (`encode_bwd_dot_kernel`, at the base field and the proposal schedule).
 NO_SPILL = ("density_kernel", "encode_kernel", "grad_dot_kernel", "grad_bwd_tables_kernel",
-            "density_bwd_coords_kernel", "grad_dot_bwd_coords_kernel")
+            "density_bwd_coords_kernel", "grad_dot_bwd_coords_kernel", "encode_bwd_dot_kernel")
 
 
 def phase_build():
@@ -391,7 +399,7 @@ def phase_build():
     print(f"phase 2 build K1 to K10 ({len(cuda_build.SOURCES)} nvcc at once): {secs:.2f} s into "
           f"{cuda_build.BUILD_DIR} | " + " | ".join(usage))
     # The kernels on the encode tile (K1, K3, K5, K10), K9's tables half and
-    # the coords halves of K2 (both instantiations) and K6 keep their
+    # the coords halves of K2, K4 (both instantiations) and K6 keep their
     # registers: no spills.
     reports = {}
     for i, ln in enumerate(log):
@@ -616,14 +624,15 @@ def phase_k3_k6(torch) -> dict:
                 errs.append(f"{leaf} {err:.2e}")
                 entry = result.get(leaf, result.get("K6 tables"))
                 entry["max_abs_err"] = max(entry["max_abs_err"], float((a - b).abs().max()))
-                # K5 and K6's coords half are exactly 0 on an axis at a knot of
-                # every level (u = 0 or 1).
-                if leaf in ("K5", "K6 coords") and label == "boundary" and not (
+                # K5 and the coords halves of K4 (K5's function) and K6 are
+                # exactly 0 on an axis at a knot of every level (u = 0 or 1).
+                if leaf in ("K5", "K4 coords", "K6 coords") and label == "boundary" and not (
                         bool((a[:2] == 0).all()) and float(a[2, 1]) == 0.0 and float(a[3, 1]) == 0.0
                         and (leaf == "K5" or float(a[2, 2]) == 0.0 and float(a[3, 0]) == 0.0)):
                     fail(f"{leaf} N={n}: not exactly 0 on an axis at a knot: {a[:4].tolist()}")
             line.append(", ".join(errs))
-        print(" ".join(line) + (" (K5 and K6 coords exactly 0 at the knots)" if label == "boundary" else ""),
+        print(" ".join(line) + (" (K5, K4 coords and K6 coords exactly 0 at the knots)" if label == "boundary"
+                                else ""),
               flush=True)
         if label == "boundary":
             continue
@@ -644,7 +653,8 @@ def phase_k3_k6(torch) -> dict:
                 result[k]["ms"], result[k]["plain_ms"] = k_ms, p_ms
                 add_bound(result[k], factor_bounds(args[0], args[1], args[2], n)[k])
             b_ms, b_by = factor_bounds(args[0], args[1], args[2], n)[k]
-            line.append(f"{k} {k_ms:.4f} vs {p_ms:.4f} ({p_ms / k_ms:.2f}x, bound {b_ms:.4f} {b_by});")
+            line.append(f"{k} {k_ms:.4f} vs {p_ms:.4f} ({p_ms / k_ms:.2f}x, bound {b_ms:.4f} {b_by}, "
+                        f"{b_ms / k_ms:.1%} of it);")
         print(" ".join(line), flush=True)
         del args, g, ct
     torch.cuda.empty_cache()
@@ -837,7 +847,7 @@ def phase_k8_k10(torch) -> dict:
 
     k9_tables_layouts(torch, ffc, gen, dev, result)
     # The proposal schedule (5 levels, F = 8): K10 and K4, its backward.
-    for n in (257, CHUNK * 256):
+    for n in (257, PROPOSAL_SAMPLES):
         res, feat, tables, *_, x = make_case(torch, 5, 128, 8, 16, 1, n, gen, dev)
         if n == 257:
             x[:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]], device=dev)
@@ -848,6 +858,9 @@ def phase_k8_k10(torch) -> dict:
         want4 = ffc.encode_bwd_plain(res, feat, tables, x, g, True, True)
         e10 = float((a - b).abs().max()) / float(b.abs().max())
         e4 = [rel_err(u, v) for u, v in zip(got4, want4)]
+        if n == 257 and not (bool((got4[1][:2] == 0).all()) and all(
+                float(got4[1][r, c]) == 0.0 for r, c in ((2, 1), (2, 2), (3, 0), (3, 1)))):
+            fail(f"K4 coords at the proposal schedule: not exactly 0 on an axis at a knot: {got4[1][:4].tolist()}")
         timing = ""
         if n != 257:
             k_ms, p_ms = twin_ms(torch, lambda: ffc.dense_encode_cuda(res, feat, tables, x),
@@ -855,11 +868,42 @@ def phase_k8_k10(torch) -> dict:
             b_ms, b_by = grad_bounds(res, feat, tables, n)["K10"]
             timing = (f"; K10 {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / k_ms:.1%} "
                       f"of it)")
+            bounds = factor_bounds(res, feat, tables, n)
+            for k, flags in (("K4 tables", (True, False)), ("K4 coords", (False, True))):
+                k_ms, p_ms = twin_ms(torch, lambda: ffc.encode_bwd_cuda(res, feat, tables, x, g, *flags),
+                                     lambda: ffc.encode_bwd_plain(res, feat, tables, x, g, *flags))
+                b_ms, b_by = bounds[k]
+                timing += (f"; {k} {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                           f"{b_ms / k_ms:.1%} of it)")
         print(f"phase 5b proposal schedule N={n}: K10 {e10:.2e} of max|ref| (bound {K3_TOL}); its backward, "
-              f"K4 tables {e4[0]:.2e}, coords {e4[1]:.2e} (bound {K456_TOL}){timing}", flush=True)
+              f"K4 tables {e4[0]:.2e}, coords {e4[1]:.2e} (bound {K456_TOL})"
+              f"{' (coords exactly 0 at the knots)' if n == 257 else ''}{timing}", flush=True)
         if e10 > K3_TOL or max(e4) > K456_TOL or not bool(torch.isfinite(a).all()):
             fail(f"K10 or K4 at the proposal schedule, N={n}, disagrees with its twin")
         del res, tables, x, g, a, b, got4, want4
+    torch.cuda.empty_cache()
+    # K4's coords half at the proposal schedule (K5's tile loop on
+    # 256-sample tiles) at the three layouts: ray-ordered is 256 samples a
+    # ray.
+    line = f"phase 5b proposal schedule K4 coords N={PROPOSAL_SAMPLES}, kernel ms at three layouts:"
+    for layout in LAYOUTS:
+        res, feat, tables, *_, x = make_case(torch, 5, 128, 8, 16, 1, PROPOSAL_SAMPLES, gen, dev)
+        if layout == "ray-ordered":
+            x = ray_ordered_coords(torch, 256, gen, PROPOSAL_SAMPLES // 256).to(dev)
+        elif layout == "one cell":
+            x = one_cell_coords(torch, PROPOSAL_SAMPLES, gen).to(dev)
+        g = torch.randn(PROPOSAL_SAMPLES, 5 * feat, generator=gen).to(dev)
+        run = lambda: ffc.encode_bwd_cuda(res, feat, tables, x, g, False, True)[1]  # noqa: E731
+        got = run()
+        torch.cuda.synchronize()
+        err = rel_err(got, ffc.encode_bwd_plain(res, feat, tables, x, g, False, True)[1])
+        if err > K456_TOL or not bool(torch.isfinite(got).all()):
+            fail(f"K4 coords proposal {layout} N={PROPOSAL_SAMPLES}: norm-relative error {err:.3g} > {K456_TOL}")
+        ms = (cuda_ms(run, 20) + cuda_ms(run, 20)) / 2
+        b_ms = factor_bounds(res, feat, tables, PROPOSAL_SAMPLES)["K4 coords"][0]
+        line += f" {layout} {ms:.4f} ({b_ms / ms:.1%} of the bound {b_ms:.4f}), norm-rel error {err:.2e};"
+        del res, tables, x, g, got
+    print(line, flush=True)
     torch.cuda.empty_cache()
     return result
 
@@ -1537,7 +1581,7 @@ PROFILE_GROUPS = [
     ("K1", ("density_kernel",)),
     ("K2", ("density_bwd_tables_kernel", "density_bwd_coords_kernel")),
     ("K3", ("encode_kernel",)),
-    ("K4", ("encode_bwd_tables_kernel", "encode_bwd_coords_kernel")),
+    ("K4", ("encode_bwd_tables_kernel", "encode_bwd_dot_kernel")),
     ("K5", ("grad_dot_kernel",)),
     ("K6", ("grad_dot_bwd_tables_kernel", "grad_dot_bwd_coords_kernel")),
     ("LPIPS convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd", "fft")),

@@ -43,11 +43,19 @@
 // (PERF.md has the times). The lerps are rounded as in K1, so K3's
 // features are the plain twin's bit for bit.
 //
-// K4's coords half: one thread per (sample, level)
-// item, item = n L + l, so a thread gathers two 32-byte rows per axis and
-// reads the 64 contiguous bytes of g at item * F (four 16-byte loads);
-// consecutive threads cover consecutive bytes. It sums a sample's levels
-// with warp shuffles (the L items of a sample are L neighbouring lanes).
+// K4's coords half is K5's function on K4's cotangent (du_a = sum_l sum_F
+// g f_b f_c d_a, K5's s_a, under the same knot rule), so it runs on K5's
+// tile loop (grad_dot_tiles.cuh): at the base field K5's exact
+// instantiation and grid, at the proposal schedule tiles of 256 samples,
+// each thread walking its sample's 5 levels, with every level's tables in
+// shared memory. Each
+// sample's levels are summed in registers and shared memory and its row
+// of g_coords is written once: no device-memory atomics. It replaced one
+// thread per (sample, level) item that read g with plain loads, every
+// level's tables from device memory, and at the proposal schedule (5
+// levels do not tile a warp's shuffles) added its levels into zeroed
+// coords grads with device-memory atomicAdds (PERF.md has both designs'
+// times).
 //
 // K4's tables half is K2's scatter (fused_factor_density_bwd.cu): one
 // thread per sample, the levels in a loop, so the lanes of a warp are 32
@@ -82,10 +90,9 @@
 // K3's. K10's backward is K4 (signerf_tpu_torch/ops/factor_grid_kernel.py).
 //
 // K3 is instantiated for the base field (F = 16, 8 levels); K10 and K4 for
-// the base field and the proposal fields (F = 8, 5 levels; K4's tables half
-// takes them through the same code). With 5 levels a sample's items do not
-// tile a warp, so K4's coords half adds its levels with device-memory
-// atomics into zeroed coords grads instead of shuffles.
+// the base field and the proposal fields (F = 8, 5 levels; K4's tables
+// half takes them through the same code, its coords half through the tile
+// loop's two block shapes).
 //
 // Built with nvcc into a shared library with a plain C interface and bound
 // with ctypes (signerf_tpu_torch/ops/fused_factor_cuda.py).
@@ -96,6 +103,7 @@
 #include <cstdint>
 
 #include "factor_grid_common.cuh"
+#include "grad_dot_tiles.cuh"
 
 namespace {
 
@@ -103,7 +111,6 @@ using factor_grid::interp;
 using factor_grid::Schedule;
 
 constexpr int kThreads = 128;  // K4's tables half
-constexpr int kBwdThreads = 256;
 
 // K3 and K10: persistent blocks of enc_threads threads walk over tiles of
 // enc_tile samples, with a double-buffered f32 stage of [tile][L F]; the
@@ -209,58 +216,13 @@ encode_bwd_tables_kernel(const float* __restrict__ coords, const float* __restri
   }
 }
 
-// K4's coords half: one thread per (sample, level) item, blocks walking
-// over tiles.
-template <int F, int L>
-__global__ void __launch_bounds__(kBwdThreads)
-encode_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
-                         const __nv_bfloat16* __restrict__ tables, Schedule s,
-                         float* __restrict__ g_coords) {  // [N, 3]
-  // With L | 32 a sample's L items are neighbouring lanes of one warp.
-  constexpr bool kShuffle = 32 % L == 0;
-  const int t = threadIdx.x;
-  const int64_t n_items = static_cast<int64_t>(n) * L;
-  const int64_t num_tiles = (n_items + kBwdThreads - 1) / kBwdThreads;
-  for (int64_t tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int64_t item = tile * kBwdThreads + t;
-    const bool valid = item < n_items;
-    const int64_t sample = item / L;
-    const int l = static_cast<int>(item % L);
-    const int res = s.res[l];
-    float gu[3] = {0.f, 0.f, 0.f};
-    if (valid) {
-      float fa[3][F], da[3][F], wa[3], sa[3];
-      int ia[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float u = fminf(fmaxf(coords[sample * 3 + a], 0.f), 1.f);
-        interp<F, true>(tables + s.offset[l][a], u, res, ia[a], wa[a], sa[a], fa[a], da[a]);
-      }
-      float gv[F];
-      factor_grid::load_row_f32<F>(grad + item * F, gv);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int b = (a + 1) % 3, c = (a + 2) % 3;
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < F; ++k) acc = fmaf(gv[k] * fa[b][k] * fa[c][k], da[a][k], acc);
-        gu[a] = acc;
-      }
-    }
-    if constexpr (kShuffle) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) gu[a] = factor_grid::sum_levels<L>(gu[a]);
-      if (valid && l == 0) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) g_coords[sample * 3 + a] = gu[a];
-      }
-    } else {  // g_coords zeroed by the caller
-      if (valid) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) atomicAdd(g_coords + sample * 3 + a, gu[a]);
-      }
-    }
-  }
+// K4's coords half: K5's tile loop (see the header) on K4's cotangent g.
+template <int F, int L, int kMinBlocks = factor_grid::dot_min_blocks<F, L>()>
+__global__ void __launch_bounds__(factor_grid::kDotThreads, kMinBlocks)
+encode_bwd_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad, const float* __restrict__ ct,
+                      int n, const __nv_bfloat16* __restrict__ tables, Schedule s, int n_shared, int shared_elems,
+                      float* __restrict__ g_coords) {  // [N, 3]; ct unused
+  factor_grid::grad_dot_tiles<F, L, false>(coords, grad, nullptr, n, tables, s, n_shared, shared_elems, g_coords);
 }
 
 template <int F, int L, bool kDenseHat>
@@ -288,19 +250,6 @@ int launch_tables(const float* c, const float* g, int n, const __nv_bfloat16* t,
                   cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   encode_bwd_tables_kernel<F, L><<<blocks, kThreads, 0, stream>>>(c, g, n, t, s, gt);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int F, int L>
-int launch_coords(const float* c, const float* g, int n, const __nv_bfloat16* t, const Schedule& s, float* gc,
-                  cudaStream_t stream) {
-  auto kernel = encode_bwd_coords_kernel<F, L>;
-  int resident = 0;
-  const cudaError_t err = factor_grid::resident_blocks(kernel, kBwdThreads, 0, resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = (static_cast<int64_t>(n) * L + kBwdThreads - 1) / kBwdThreads;
-  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
-  kernel<<<grid, kBwdThreads, 0, stream>>>(c, g, n, t, s, gc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,8 +295,8 @@ extern "C" int factor_dense_encode_forward(const void* coords, int n, const void
 
 // K4, given g [N, L F] f32. mode 0 ("tables"): adds the line grads into
 // g_tables (packed like `tables`, f32, zeroed by the caller). mode 1
-// ("coords"): writes g_coords [N, 3] (f32, zeroed by the caller). Returns as
-// the forward does.
+// ("coords"): writes every row of g_coords [N, 3] f32 (nothing is added to
+// it, so it need not be zeroed). Returns as the forward does.
 extern "C" int fused_factor_encode_backward(const void* coords, const void* grad, int n,
                                             const void* tables, const int* resolutions,
                                             int num_levels, int feat, void* g_tables,
@@ -365,11 +314,11 @@ extern "C" int fused_factor_encode_backward(const void* coords, const void* grad
   auto st = static_cast<cudaStream_t>(stream);
   if (feat == 16 && num_levels == 8) {  // base field
     if (mode == 0) return launch_tables<16, 8>(c, g, n, t, s, gt, st);
-    return launch_coords<16, 8>(c, g, n, t, s, gc, st);
+    return factor_grid::launch_dot_tiles<16, 8, false>(encode_bwd_dot_kernel<16, 8>, c, g, nullptr, n, t, s, gc, st);
   }
   if (feat == 8 && num_levels == 5) {  // proposal fields (K10's backward)
     if (mode == 0) return launch_tables<8, 5>(c, g, n, t, s, gt, st);
-    return launch_coords<8, 5>(c, g, n, t, s, gc, st);
+    return factor_grid::launch_dot_tiles<8, 5, false>(encode_bwd_dot_kernel<8, 5>, c, g, nullptr, n, t, s, gc, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -65,12 +65,11 @@
 // lanes at one part were slower (PERF.md).
 //
 // K6's coords half reads what K5 reads, plus ct [N, 3], and writes [N, 3]:
-// it is K5's tile loop (grad_dot_tiles, a template parameter apart), with
-// each tile's ct staged beside its coordinates (double-buffered, a thread a
-// value) and a part's sums those of G_hat (factor_grid::part8_dot_ct) under
-// the same knot rule, so an axis at a knot of every level gives exactly 0.
-// On the H100 it is 1.6x faster than one thread per (sample, level) item
-// reading g with plain loads and every level from device memory (PERF.md).
+// it is K5's tile loop with each tile's ct staged beside its coordinates
+// and a part's sums those of G_hat (factor_grid::part8_dot_ct) under the
+// same knot rule. The tile loop, and what sharing it bought, is described
+// in grad_dot_tiles.cuh; K4's coords half (fused_factor_encode.cu) runs on
+// it too.
 //
 // K6's tables half is K2's scatter (fused_factor_density_bwd.cu), as K4's:
 // one thread per sample and the levels in a loop, so a warp's lanes are 32
@@ -104,6 +103,7 @@
 #include <cstdint>
 
 #include "factor_grid_common.cuh"
+#include "grad_dot_tiles.cuh"
 
 namespace {
 
@@ -111,178 +111,23 @@ using factor_grid::interp;
 using factor_grid::Schedule;
 
 constexpr int kThreads = 128;  // K6's tables half
-// K5: persistent blocks of kDotThreads threads, tiles of kDotTile samples;
-// the coarse levels, up to kDotSharedLevels of them whose tables fit
-// kDotSharedBytes (levels 0 to 3 of the base field, 23 KB), read their
-// tables from a copy in shared memory.
-constexpr int kDotThreads = 256;
-constexpr int kDotTile = 32;
-constexpr int kDotSharedLevels = 4;
-constexpr int kDotSharedBytes = 24 * 1024;
 
-// K5's tile loop, shared by K5 and K6's coords half (kCt): persistent
-// blocks of kDotThreads threads walk over tiles of kDotTile samples (see the
-// header). Shared memory: g [2][kDotTile][L F] f32, the tiles' coordinates
-// [2][kDotTile][3] (and with kCt the cotangents ct [2][kDotTile][3]), the
-// groups' sums [2][G][kDotTile][3], two mbarriers, each level's resolution
-// and three table offsets [L][4] (read with a level index that differs
-// between warps, the schedule would otherwise be copied to local memory),
-// then the coarse levels' tables (shared_elems bf16, levels [0, n_shared)).
-// Each buffer serves every other tile, so one __syncthreads a tile orders
-// them all.
-template <int F>
-__host__ __device__ constexpr int dot_groups() { return kDotThreads / (kDotTile * (F / 8)); }
-
-template <int F, int L, bool kCt>
-constexpr int dot_smem_bytes(int shared_table_bytes) {
-  return (2 * kDotTile * L * F + (kCt ? 4 : 2) * kDotTile * 3 + 2 * dot_groups<F>() * kDotTile * 3) * 4 + 2 * 8 +
-         L * 16 + shared_table_bytes;
-}
-
-// Tile `tile` of g [N, L F] into `dst`, completing on `bar` (one thread).
-template <int D>
-__device__ __forceinline__ void load_g_tile(float* dst, const float* __restrict__ grad, int tile, int n,
-                                            uint64_t* bar) {
-  const int64_t s0 = static_cast<int64_t>(tile) * kDotTile;
-  const int rows = n - s0 < kDotTile ? static_cast<int>(n - s0) : kDotTile;
-  const uint32_t bytes = static_cast<uint32_t>(rows) * D * 4;
-  factor_grid::mbar_expect_tx(bar, bytes);
-  factor_grid::bulk_load(dst, grad + s0 * D, bytes, bar);
-}
-
-// Writes out [N, 3]: K5's s = sum_l sum_F d_a f_b f_c g (factor_grid::part8_dot)
-// or, with kCt, K6's du = sum_l sum_F G_hat_a d_a (factor_grid::part8_dot_ct).
-template <int F, int L, bool kCt>
-__device__ __forceinline__ void grad_dot_tiles(const float* __restrict__ coords, const float* __restrict__ grad,
-                                               const float* __restrict__ ct, int n,
-                                               const __nv_bfloat16* __restrict__ tables, const Schedule& s,
-                                               int n_shared, int shared_elems, float* __restrict__ out) {
-  constexpr int D = L * F;
-  constexpr int P = F / 8;            // parts of a level
-  constexpr int G = dot_groups<F>();  // groups of threads, each on every G-th level
-  constexpr int kTile3 = kDotTile * 3;
-  static_assert(F % 8 == 0 && G * kDotTile * P == kDotThreads && L % G == 0, "a whole number of levels a thread");
-  static_assert((kCt ? 2 : 1) * kTile3 <= kDotThreads, "a thread a coordinate (and a cotangent)");
-  extern __shared__ __align__(128) uint8_t smem[];
-  float* s_g = reinterpret_cast<float*>(smem);  // [2][kDotTile][D]
-  float* s_u = s_g + 2 * kDotTile * D;          // [2][kDotTile][3]
-  float* s_ct = s_u + 2 * kTile3;               // [2][kDotTile][3], kCt only
-  float* s_sum = s_ct + (kCt ? 2 * kTile3 : 0);  // [2][G][kDotTile][3]
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_sum + 2 * G * kTile3);  // [2]
-  int* s_lv = reinterpret_cast<int*>(bar + 2);  // [L][4]
-  __nv_bfloat16* s_tab = reinterpret_cast<__nv_bfloat16*>(s_lv + 4 * L);
-  const int t = threadIdx.x;
-  const int h = t % P, smp = t / P % kDotTile, grp = t / (kDotTile * P);
-  const int num_tiles = (n + kDotTile - 1) / kDotTile;
-  // Threads [0, 3 kDotTile) stage the coordinates (clamped to [0, 1]), with
-  // kCt threads [3 kDotTile, 6 kDotTile) the cotangents.
-  const bool ct_thread = kCt && t >= kTile3 && t < 2 * kTile3;
-  const int j3 = ct_thread ? t - kTile3 : t;
-  const auto staged = [&](int tile) {
-    const int64_t at = static_cast<int64_t>(tile) * kTile3 + j3;
-    if (tile >= num_tiles || at >= static_cast<int64_t>(n) * 3) return 0.f;
-    return ct_thread ? __ldg(ct + at) : fminf(fmaxf(__ldg(coords + at), 0.f), 1.f);
-  };
-  float* const s_in = ct_thread ? s_ct : s_u;
-  const bool stager = t < kTile3 || ct_thread;
-  for (int i = t; i < shared_elems / 8; i += kDotThreads) factor_grid::cp_async16(s_tab + 8 * i, tables + 8 * i);
-  if (t == 0) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      s_lv[4 * l] = s.res[l];
-      s_lv[4 * l + 1] = s.offset[l][0];
-      s_lv[4 * l + 2] = s.offset[l][1];
-      s_lv[4 * l + 3] = s.offset[l][2];
-    }
-    factor_grid::mbar_init(bar, 1);
-    factor_grid::mbar_init(bar + 1, 1);
-    factor_grid::fence_mbar_init();
-    load_g_tile<D>(s_g, grad, blockIdx.x, n, bar);  // the grid has at most num_tiles blocks
-  }
-  if (stager) s_in[j3] = staged(blockIdx.x);
-  factor_grid::cp_async_wait_all();
-  __syncthreads();  // barriers, tables and the first tile's coordinates ready
-  int it = 0;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x, ++it) {
-    const int buf = it & 1;
-    const int next = tile + gridDim.x;
-    const int64_t s0 = static_cast<int64_t>(tile) * kDotTile;
-    // The next tile's g, coordinates and cotangents come in while this one
-    // is gathered: g into the other buffer (last read before the previous
-    // tile's __syncthreads), the others into a register until then.
-    if (t == 0 && next < num_tiles) load_g_tile<D>(s_g + (buf ^ 1) * kDotTile * D, grad, next, n, bar + (buf ^ 1));
-    const float in_next = stager ? staged(next) : 0.f;
-    const float* tu = s_u + buf * kTile3 + 3 * smp;
-    const float u[3] = {tu[0], tu[1], tu[2]};
-    float cv[3] = {0.f, 0.f, 0.f};
-    if constexpr (kCt) {
-      const float* tc = s_ct + buf * kTile3 + 3 * smp;
-      cv[0] = tc[0], cv[1] = tc[1], cv[2] = tc[2];
-    }
-    factor_grid::mbar_wait(bar + buf, (it >> 1) & 1);
-    const float* g_row = s_g + (buf * kDotTile + smp) * D;
-    float acc[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < L / G; ++j) {
-      const int l = j * G + grp;
-      const float4* src = reinterpret_cast<const float4*>(g_row + l * F + 8 * h);
-      const float4 lo = src[0], hi = src[1];
-      const float gv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      // l >= j G: past the shared levels for every thread once j G is.
-      const int4 lv = reinterpret_cast<const int4*>(s_lv)[l];
-      if (j * G < kDotSharedLevels && l < n_shared) {
-        const __nv_bfloat16* const line[3] = {s_tab + lv.y, s_tab + lv.z, s_tab + lv.w};
-        if constexpr (kCt) {
-          factor_grid::part8_dot_ct<F, false>(line, lv.x, 8 * h, u, cv, gv, acc);
-        } else {
-          factor_grid::part8_dot<F, false>(line, lv.x, 8 * h, u, gv, acc);
-        }
-      } else {
-        const __nv_bfloat16* const line[3] = {tables + lv.y, tables + lv.z, tables + lv.w};
-        if constexpr (kCt) {
-          factor_grid::part8_dot_ct<F, true>(line, lv.x, 8 * h, u, cv, gv, acc);
-        } else {
-          factor_grid::part8_dot<F, true>(line, lv.x, 8 * h, u, gv, acc);
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int o = P / 2; o > 0; o >>= 1) acc[a] += __shfl_xor_sync(0xffffffffu, acc[a], o);
-    }
-    float* sums = s_sum + buf * G * kTile3;
-    if (h == 0) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) sums[(grp * kDotTile + smp) * 3 + a] = acc[a];
-    }
-    if (stager) s_in[(buf ^ 1) * kTile3 + j3] = in_next;
-    __syncthreads();  // this tile's sums and the next tile's coordinates are in
-    if (t < kTile3 && s0 * 3 + t < static_cast<int64_t>(n) * 3) {
-      float v = sums[t];
-#pragma unroll
-      for (int q = 1; q < G; ++q) v += sums[q * kTile3 + t];
-      out[s0 * 3 + t] = v;
-    }
-  }
-}
-
-// K5 (see the header).
-template <int F, int L>
-__global__ void __launch_bounds__(kDotThreads, 3)
-grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad, int n,
-                const __nv_bfloat16* __restrict__ tables, Schedule s, int n_shared, int shared_elems,
+// K5 (see the header; ct unused).
+template <int F, int L, int kMinBlocks = factor_grid::dot_min_blocks<F, L>()>
+__global__ void __launch_bounds__(factor_grid::kDotThreads, kMinBlocks)
+grad_dot_kernel(const float* __restrict__ coords, const float* __restrict__ grad, const float* __restrict__ ct,
+                int n, const __nv_bfloat16* __restrict__ tables, Schedule s, int n_shared, int shared_elems,
                 float* __restrict__ out) {  // [N, 3]
-  grad_dot_tiles<F, L, false>(coords, grad, nullptr, n, tables, s, n_shared, shared_elems, out);
+  factor_grid::grad_dot_tiles<F, L, false>(coords, grad, nullptr, n, tables, s, n_shared, shared_elems, out);
 }
 
 // K6's coords half: K5's tiles, with ct staged beside the coordinates.
-template <int F, int L>
-__global__ void __launch_bounds__(kDotThreads, 3)
+template <int F, int L, int kMinBlocks = factor_grid::dot_min_blocks<F, L>()>
+__global__ void __launch_bounds__(factor_grid::kDotThreads, kMinBlocks)
 grad_dot_bwd_coords_kernel(const float* __restrict__ coords, const float* __restrict__ grad,
                            const float* __restrict__ ct, int n, const __nv_bfloat16* __restrict__ tables, Schedule s,
                            int n_shared, int shared_elems, float* __restrict__ g_coords) {  // [N, 3]
-  grad_dot_tiles<F, L, true>(coords, grad, ct, n, tables, s, n_shared, shared_elems, g_coords);
+  factor_grid::grad_dot_tiles<F, L, true>(coords, grad, ct, n, tables, s, n_shared, shared_elems, g_coords);
 }
 
 // K6's tables half and grad_g: one thread per sample, the levels in a loop
@@ -348,29 +193,13 @@ grad_dot_bwd_tables_kernel(const float* __restrict__ coords, const float* __rest
   }
 }
 
-// K5 (ct null) or K6's coords half on K5's tiles: the coarse levels whose
-// tables fit kDotSharedBytes go to shared memory, one block a tile up to
-// the resident blocks.
+// K5 (ct null) or K6's coords half on K5's tiles.
 template <int F, int L, bool kCt>
 int launch_tiles(const float* c, const float* g, const float* ct, int n, const __nv_bfloat16* t, const Schedule& s,
                  float* out, cudaStream_t stream) {
-  int n_shared = 0, shared_elems = 0;  // levels [0, n_shared) and their packed tables
-  while (n_shared < kDotSharedLevels && n_shared < L &&
-         (shared_elems + 3 * s.res[n_shared] * F) * 2 <= kDotSharedBytes)
-    shared_elems += 3 * s.res[n_shared++] * F;
-  const int smem = dot_smem_bytes<F, L, kCt>(shared_elems * 2);
-  const auto launch = [&](auto kernel, auto... args) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int resident = 0;
-    if ((err = factor_grid::resident_blocks(kernel, kDotThreads, smem, resident)) != cudaSuccess)
-      return static_cast<int>(err);
-    const int tiles = (n + kDotTile - 1) / kDotTile;
-    kernel<<<tiles < resident ? tiles : resident, kDotThreads, smem, stream>>>(args...);
-    return static_cast<int>(cudaGetLastError());
-  };
-  if constexpr (kCt) return launch(grad_dot_bwd_coords_kernel<F, L>, c, g, ct, n, t, s, n_shared, shared_elems, out);
-  return launch(grad_dot_kernel<F, L>, c, g, n, t, s, n_shared, shared_elems, out);
+  if constexpr (kCt)
+    return factor_grid::launch_dot_tiles<F, L, true>(grad_dot_bwd_coords_kernel<F, L>, c, g, ct, n, t, s, out, stream);
+  return factor_grid::launch_dot_tiles<F, L, false>(grad_dot_kernel<F, L>, c, g, nullptr, n, t, s, out, stream);
 }
 
 template <int F, int L>

@@ -25,13 +25,14 @@ from typing import Dict, Tuple
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _FACTOR_HEADER = _CSRC / "factor_grid_common.cuh"
+_DOT_HEADER = _CSRC / "grad_dot_tiles.cuh"  # K5's tile loop, also run by K4 and K6
 # library name -> (source, headers it includes); a header enters only the
 # build keys of the sources that include it.
 SOURCES: Dict[str, Tuple[Path, Tuple[Path, ...]]] = {
     "fused_factor_density": (_CSRC / "fused_factor_density.cu", (_FACTOR_HEADER,)),  # K1
     "fused_factor_density_bwd": (_CSRC / "fused_factor_density_bwd.cu", (_FACTOR_HEADER,)),  # K2
-    "fused_factor_encode": (_CSRC / "fused_factor_encode.cu", (_FACTOR_HEADER,)),  # K3, K4, K10
-    "fused_factor_grad_dot": (_CSRC / "fused_factor_grad_dot.cu", (_FACTOR_HEADER,)),  # K5, K6
+    "fused_factor_encode": (_CSRC / "fused_factor_encode.cu", (_FACTOR_HEADER, _DOT_HEADER)),  # K3, K4, K10
+    "fused_factor_grad_dot": (_CSRC / "fused_factor_grad_dot.cu", (_FACTOR_HEADER, _DOT_HEADER)),  # K5, K6
     "fused_factor_grad": (_CSRC / "fused_factor_grad.cu", (_FACTOR_HEADER,)),  # K8, K9
     "flash_attention": (_CSRC / "flash_attention.cu", ()),  # K7
 }
@@ -76,7 +77,7 @@ ARGTYPES = {
     "fused_factor_encode_backward": [
         _P, _P, _I,  # coords [N, 3] f32, g [N, D] f32, N
         _P, ctypes.POINTER(_I), _I, _I,  # packed tables bf16, resolutions (host), levels, F
-        _P, _P,  # grads: tables (packed, f32, zeroed), coords [N, 3] f32 (zeroed)
+        _P, _P,  # grads: tables (packed, f32, zeroed), coords [N, 3] f32 (written)
         _I,  # mode: 0 tables, 1 coords
         _P,  # cudaStream_t
     ],

@@ -36,12 +36,14 @@ its sums are reproducible to f32 rounding, not bitwise). K2's coords half
 is K1's kernel with the VJP behind it: K1's encode tile, the three MLP
 products on the tensor cores, then a second pass over the taps. K5 walks
 K3's tiles and parts, with each tile's g brought into shared memory by one
-bulk copy, and K6's coords half walks K5's tiles (ct staged beside the
-coordinates). K8 and the coords halves of K4 and K9 run one thread per
-(sample, level). The tables halves of K4, K6 and K9 take K2's scatter: one
-thread per sample with the levels in a loop, the line grads summed over
-runs of lanes on one row and added with vector reductions into L2, no
-shared-memory atomics. All keep K1's taps and f32 contract. K5, K6, K8,
+bulk copy; the coords halves of K4 (K5's function on K4's cotangent) and
+K6 (ct staged beside the coordinates) walk K5's tiles, K4's at the
+proposal schedule on tiles of 256 samples, a thread a sample. K8 and K9's
+coords half run one thread per (sample, level). The tables halves of K4,
+K6 and K9 take K2's scatter: one thread per sample with the levels in a
+loop, the line grads summed over runs of lanes on one row and added with
+vector reductions into L2, no shared-memory atomics. All keep K1's taps
+and f32 contract. K5, K6, K8,
 K9 and the coords half of K4 take the derivative of an axis' value as 0 at
 an exact knot, as both JAX versions do (K2's coords half takes the slope
 of the cell K1 reads there).
@@ -324,8 +326,8 @@ def encode_bwd_cuda(
         _launch("fused_factor_encode", "fused_factor_encode_backward", device,
                 *common, g_tables.data_ptr(), None, 0)
         encode_bwd_table_launches += 1
-    if coords_half:  # zeroed: levels that do not tile a warp add atomically
-        g_coords = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    if coords_half:  # the kernel writes every row
+        g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
         _launch("fused_factor_encode", "fused_factor_encode_backward", device,
                 *common, None, g_coords.data_ptr(), 1)
         encode_bwd_coords_launches += 1

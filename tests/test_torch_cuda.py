@@ -2,8 +2,9 @@
 twins, their input checks, one model chunk through K1, one train step
 through K1 and K2, the tables halves of K2, K4, K6 and K9 at ray-ordered
 and one-cell coordinates and their run-to-run spread, the coords halves of
-K2 and K6 at every layout and at ragged and knot rows, K5 and K6's coords
-half with their exact zeros at the knots, K7 at every ragged tail
+K2, K4 (both schedules) and K6 at every layout and at ragged and knot
+rows, K5 and the coords halves of K4 and K6 with their exact zeros at the
+knots, K4's coords half equal to K5 bit for bit at the base field, K7 at every ragged tail
 of its tiles on strided views, one `signerf` micro-batch and eval chunk
 through K1 to K6, K8 and K9 against K5 and K6, the entry points of K8
 to K10, K7 at the edit pass's shapes, one small dataset-generator pass
@@ -578,6 +579,55 @@ def test_k6_coords_half_at_every_layout_with_exact_zeros_at_knots(cuda, layout):
     assert [float(got[2, 1]), float(got[2, 2]), float(got[3, 0]), float(got[3, 1])] == [0.0] * 4
 
 
+def k4_coords_args(name, layout, device, seed=16):
+    """Tables of `name`'s schedule ("final": the base field), x01 at
+    `layout` ("257" and "100003": uniform with ragged last tiles) with four
+    rows on knots of every level, and g."""
+    if layout in ("ray-ordered", "one cell"):
+        args, g, _ = k46_layout_args(name, layout, device, seed)
+    elif name == "final":
+        args, g, _ = encode_args(int(layout), device, seed)
+    else:
+        res, feat, tables, *_, x = make_args(name, int(layout), device, seed)
+        args = (res, feat, tables, x)
+        g = torch.randn(len(x), len(res) * feat, generator=torch.Generator().manual_seed(seed + 1)).to(device)
+    args[3][:4] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0], [0.5, 0.0, 1.0], [1.0, 0.0, 0.5]], device=device)
+    return args, g
+
+
+@pytest.mark.parametrize("layout", ["257", "100003", "ray-ordered", "one cell"])
+@pytest.mark.parametrize("name", ["final", "proposal", "prop256"])
+def test_k4_coords_half_at_both_schedules_with_exact_zeros_at_knots(cuda, name, layout):
+    """K4's coords half alone on K5's tile loop (at the proposal schedule
+    on tiles of 256 samples, a thread a sample; at max_res 256 its finest
+    level's tables stay in device memory): uniform at N = 257 and 100,003
+    (ragged last tiles), ray-ordered and in one cell, with four rows on
+    knots of every level, where an axis is exactly 0."""
+    args, g = k4_coords_args(name, layout, cuda)
+    t4, c4 = ffc.encode_bwd_table_launches, ffc.encode_bwd_coords_launches
+    lines, got = ffc.encode_bwd_cuda(*args, g, tables_half=False, coords_half=True)
+    torch.cuda.synchronize()
+    assert lines is None
+    assert (ffc.encode_bwd_table_launches, ffc.encode_bwd_coords_launches) == (t4, c4 + 1)
+    want = ffc.encode_bwd_plain(*args, g, tables_half=False, coords_half=True)[1]
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert rel(got, want) < 1e-4  # f32 sums in another order (chip_smoke.py's K456_TOL)
+    assert bool((got[:2] == 0).all())
+    assert [float(got[2, 1]), float(got[2, 2]), float(got[3, 0]), float(got[3, 1])] == [0.0] * 4
+
+
+@pytest.mark.parametrize("layout", ["100003", "ray-ordered", "one cell"])
+def test_k4_coords_half_is_k5_bit_for_bit_at_the_base_field(cuda, layout):
+    """At the base field K4's coords half is a launch of K5's own
+    instantiation of the tile loop on the same g, in the same grid: the
+    same sums in the same order."""
+    args, g = k4_coords_args("final", layout, cuda, seed=17)
+    got = ffc.encode_bwd_cuda(*args, g, tables_half=False, coords_half=True)[1]
+    s = ffc.grad_dot_cuda(*args, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, s)
+
+
 def k9_layout_args(layout, device, seed=7):
     """Base-field tables, x01 at `layout` and a cotangent ct [N, 3, L F]."""
     args, _, _ = k46_layout_args("final", layout, device, seed)
@@ -721,7 +771,8 @@ def test_k10_and_its_backward_match_twins(cuda, name, n):
         k3 = ffc.encode_cuda(res, feat, tables, x)
         torch.testing.assert_close(got, k3, rtol=0, atol=0.01 * float(k3.abs().max()))
     # The entry point's backward runs K4's two launches (proposal: K4's
-    # 5-level instantiation, coords by atomics), against K4's twin on the CPU.
+    # 5-level instantiations, its coords half on the tile loop's 256-sample
+    # tiles), against K4's twin on the CPU.
     lines = [t.float() for t in torch.split(tables, [r * feat for r in res for _ in range(3)])]
     lines = [t.view(-1, feat) for t in lines]
     gout = torch.randn(n, len(res) * feat, generator=torch.Generator().manual_seed(5))
