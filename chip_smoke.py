@@ -122,6 +122,24 @@ the result line):
      /generate until the refinement (300 steps) completes, each with exact
      K1, K2-tables and K7 launches (K7 from the pipeline's schedule), the
      dataset schema, peak memory;
+ 14g. the hash-grid backend (`encoding_backend="hash"`, nerfacto's own
+     encoding, plain PyTorch: K1 to K10 launch 0 times on every hash
+     path) at its published widths: (a) `hashgrid_encode` alone for the
+     base table (16 x 2 from 2^19, 16 to 2048) and both proposal tables
+     (5 x 2 from 2^17, to 128 and 256) at a render chunk's and a 4096-ray
+     train step's N, forward and forward + backward against a bytes bound
+     (32-byte sectors for the base table's hashed levels), and against
+     float64 and float32 on the CPU at N = 4096; (b) the render CLI with
+     `--model.encoding-backend hash` on phase 6's scene, rays/s and warm
+     frame median; (c) the `signerf_nerfacto` train CLI with the hash
+     backend for 300 steps on 14c's scene (step median, rays/s, peak
+     memory), PSNR and accumulation of its 8 views beside 14c's factor
+     NeRF (rays in the scene box, and between the near and far planes),
+     both export subcommands on its checkpoint; (d) the `signerf` train
+     CLI with the hash backend, 4 steps at 16,384 rays, then finite
+     normals and a nonzero base-table gradient from the orientation loss
+     alone; and two identical 10-step hash runs from one seed, their
+     per-step |d loss|; the phase's wall;
  15. K7 (signerf_tpu_torch/csrc/flash_attention.cu) against its plain twin
      and an f32 reference at (B, S, H) = (1, 9216, 10), (1, 2304, 20),
      (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1) and
@@ -1313,9 +1331,10 @@ SIGNERF_COUNTS = expect_counts(K1=8, K2_tables=8, K3=4, K4_tables=4, K5=4, K6_ta
 
 
 def phase_train(torch, card: str, data: Path, tmp: Path, method: str, steps: int, rays: int,
-                micro: int, expected, phase: int) -> dict:
-    """The train CLI at full width; per-micro-batch losses and CUDA events
-    are recorded through the train step's loss function (no host sync)."""
+                micro: int, expected, phase, extra=(), label=None) -> dict:
+    """The train CLI at full width (with `extra` flags, output under
+    tmp / (label or method)); per-micro-batch losses and CUDA events are
+    recorded through the train step's loss function (no host sync)."""
     import warnings
 
     from signerf_tpu_torch import train as cli
@@ -1333,7 +1352,7 @@ def phase_train(torch, card: str, data: Path, tmp: Path, method: str, steps: int
         events.append(ev)
         return total, ld
 
-    out = tmp / method
+    out = tmp / (label or method)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tts.default_loss_fn = recording_loss
@@ -1342,7 +1361,7 @@ def phase_train(torch, card: str, data: Path, tmp: Path, method: str, steps: int
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            rc = cli.main(train_argv(method, data, out, steps))
+            rc = cli.main(train_argv(method, data, out, steps, *extra))
     finally:
         tts.default_loss_fn = real_loss
     torch.cuda.synchronize()
@@ -1372,7 +1391,7 @@ def phase_train(torch, card: str, data: Path, tmp: Path, method: str, steps: int
         fail(f"no step-{steps:09d}.pt written: {[c.name for c in ckpts]}")
     launched = ", ".join(f"{k} {v}" for k, v in got.items() if v)
     print(
-        f"phase {phase} train CLI: {method}, {steps} steps of {rays} rays ({micro} micro-batches) at "
+        f"phase {phase} train CLI: {' '.join((method, *extra))}, {steps} steps of {rays} rays ({micro} micro-batches) at "
         f"full width, loss {float(loss[0]):.5f} -> {float(loss[-1]):.5f} (mean of first 20 {first:.5f}, "
         f"last 20 {last:.5f}); launches {launched}, all others 0; uncalibrated-LPIPS warning "
         f"{'printed' if uncalibrated else 'none'}; warm step median {median:.3f} ms over {len(step_ms)} "
@@ -1842,10 +1861,12 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
                                   [BUNNY_SCENE["scale"] * parsed.dataparser_scale] * 3)
     verts = obj.transform_vertices(verts, pose).astype(np.float32)
     render = make_eval_render(model, chunk_size=CHUNK)
+    acc_means = []
 
     def view(i):
         rb = cams.generate_rays(camera_index=i, aabb=scene_aabb)
         out = render(rb.reshape((h * w,)), appearance_mode="index")
+        acc_means.append(out["accumulation"].mean())
         rgb, depth = out["rgb"].reshape(h, w, 3), out["depth"].reshape(h, w, 1)
         mask, cond = ec.aabb_mask_condition(depth, rb.origins, rb.directions, mcfg)
         return rgb, depth, mask, cond
@@ -1923,7 +1944,7 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
           + ", ".join(f"{c:.3f}" for c in white_cov) + f"; on {card}", flush=True)
     return {"layout": layout, "image_sheet": image_sheet, "mask_sheet": mask_sheet, "cond_sheet": cond_sheet,
             "target": scaled[TARGET_VIEW], "count": len(refs), "coverage": coverage, "data": data,
-            "ckpt_dir": ckpt_dir}
+            "ckpt_dir": ckpt_dir, "psnr": psnr, "accumulation": [float(a) for a in acc_means]}
 
 
 # The edit pass (phase 14d): SIGNeRF's product path through the trainer API
@@ -2646,6 +2667,350 @@ def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
             "k7_shapes": k7_shapes, "k7_launches": k7_total}
 
 
+# Phase 14g: the hash-grid backend (`encoding_backend="hash"`), nerfacto's
+# own encoding, at its published widths: the base field 16 levels x 2
+# features from 2^19 entries a level (16 to 2048), the proposal fields 5 x 2
+# from 2^17 (16 to 128 and to 256). It is plain PyTorch (the JAX function is
+# plain jnp), so K1 to K10 must launch 0 times on every hash path.
+HASH_FLAG = ("--pipeline.model.encoding-backend", "hash")
+# (name, levels, log2 T, max_res, samples per ray) of the three hash tables
+HASH_SCHEDULES = [("proposal", 5, 17, 128, 256), ("prop256", 5, 17, 256, 96), ("final", 16, 19, 2048, 48)]
+L2_BYTES = 50 * 2**20  # the H100's L2
+SECTOR = 32  # bytes a DRAM access moves
+# The card's encode (and its table gradient) against the same function in
+# float64 on the CPU, max abs error over max |ref| (gradient: norm-relative).
+# pos * res rounds in f32 to 2^-24 of res grid units (res up to 2048: 1.2e-4
+# of a cell), which moves a feature by that times the corner values'
+# difference (tables of +-1 here): up to ~5e-4 of max |ref| (measured 1.4e-4
+# at the base field on an H100). Trilinear weights are continuous across
+# cells, so a floor that flips at a knot adds nothing more. Against the same
+# function in f32 on the CPU the features differ by FMA contraction only, the
+# table gradient also by the atomics' order.
+HASH_F64_TOL = 1e-3
+HASH_F32_TOL = 1e-6
+HASH_TRAIN_STEPS = 300
+HASH_SIGNERF_STEPS = 4
+HASH_REPEAT_STEPS = 10
+
+
+def hash_encode_bound(levels: int, log2_t: int, max_res: int, n: int, backward: bool):
+    """The least bytes of one encode call (and of its table gradient), over
+    HBM's rate: positions read once, features written once (and the
+    cotangent read, the table gradient written once); the table read once
+    where the field's whole table fits in L2, else a 32-byte sector for each
+    corner read (and each scatter-add) of a hashed level, whose random 8-byte
+    reads in a table larger than L2 each cost one."""
+    from signerf_tpu_torch.ops.hashgrid import hashgrid_resolutions
+
+    feat, t = 2, 2**log2_t
+    table_bytes = levels * t * feat * 4
+    nbytes = 12 * n + 4 * levels * feat * n
+    for res in hashgrid_resolutions(levels, 16, max_res):
+        dense = (res + 1) ** 3 <= t
+        level_bytes = min((res + 1) ** 3, t) * feat * 4
+        sectors = table_bytes > L2_BYTES and not dense
+        nbytes += 8 * n * SECTOR if sectors else level_bytes
+        if backward and sectors:
+            nbytes += 8 * n * SECTOR
+    if backward:
+        nbytes += 4 * levels * feat * n + table_bytes
+    return bound(nbytes)
+
+
+def phase_hash_encode(torch, card: str) -> None:
+    """(a) `hashgrid_encode` alone on the card at a render chunk's and a
+    4096-ray train step's N for each table: forward, and forward +
+    backward (the table's gradient), CUDA events, against the bytes bound;
+    the card's result and table gradient against float64 on the CPU."""
+    from signerf_tpu_torch.ops.hashgrid import hashgrid_encode, hashgrid_resolutions, init_hashgrid_table
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for name, levels, log2_t, max_res, per_ray in HASH_SCHEDULES:
+        res = hashgrid_resolutions(levels, 16, max_res)
+        table = (init_hashgrid_table(gen, levels, 2**log2_t, 2) * 1e4).requires_grad_(True)
+        for where, rays in (("chunk", CHUNK), ("train", TRAIN_RAYS)):
+            n = rays * per_ray
+            x = torch.rand(n, 3, generator=gen, device=dev)
+            cot = torch.randn(n, levels * 2, generator=gen, device=dev)
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: hashgrid_encode(table, x, res), 10)
+
+            def fwd_bwd():
+                table.grad = None
+                hashgrid_encode(table, x, res).backward(cot)
+
+            both = cuda_ms(fwd_bwd, 10)
+            b_f, _ = hash_encode_bound(levels, log2_t, max_res, n, False)
+            b_b, _ = hash_encode_bound(levels, log2_t, max_res, n, True)
+            out[(name, where)] = {"n": n, "fwd_ms": fwd, "fwd_bwd_ms": both, "bound_fwd_ms": b_f,
+                                  "bound_fwd_bwd_ms": b_b}
+        # the card against float64 on the CPU at N = 4096
+        x = torch.rand(4096, 3, generator=gen, device=dev)
+        x[:8] = torch.tensor([0.0, 1.0, 0.5], device=dev)  # the top corner and a clamp bound
+        cot = torch.randn(4096, levels * 2, generator=gen, device=dev)
+        table.grad = None
+        got = hashgrid_encode(table, x, res)
+        got.backward(cot)
+        errs = []
+        for dtype in (torch.float64, torch.float32):
+            t_cpu = table.detach().cpu().to(dtype).requires_grad_(True)
+            ref = hashgrid_encode(t_cpu, x.cpu().to(dtype), res)
+            ref.backward(cot.cpu().to(dtype))
+            ref = ref.detach().double()
+            errs += [float((got.detach().cpu().double() - ref).abs().max() / ref.abs().max()),
+                     rel_err(table.grad.cpu(), t_cpu.grad)]
+        out[(name, "cpu")] = errs
+        if max(errs[:2]) > HASH_F64_TOL or max(errs[2:]) > HASH_F32_TOL:
+            fail(f"hash encode ({name}) on the card vs the CPU (float64 features, gradient; float32 features, "
+                 f"gradient): {errs}")
+    rows = []
+    for (name, where), s in out.items():
+        if where == "cpu":
+            rows.append(f"{name} at N = 4096 vs float64 on the CPU: features {s[0]:.2e}, table gradient {s[1]:.2e} "
+                        f"(bound {HASH_F64_TOL}), vs float32 on the CPU: {s[2]:.2e}, {s[3]:.2e} (bound {HASH_F32_TOL})")
+            continue
+        rows.append(f"{name} {where} N = {s['n']}: forward {s['fwd_ms']:.3f} ms (bound {s['bound_fwd_ms']:.3f}, "
+                    f"{s['bound_fwd_ms'] / s['fwd_ms']:.1%}), forward + backward {s['fwd_bwd_ms']:.3f} ms (bound "
+                    f"{s['bound_fwd_bwd_ms']:.3f}, {s['bound_fwd_bwd_ms'] / s['fwd_bwd_ms']:.1%})")
+    print("phase 14g(a) hash encode alone (plain PyTorch, bytes-bound: 32-byte sectors for the base table's "
+          "hashed levels): " + "; ".join(rows) + f"; on {card}", flush=True)
+
+
+def phase_hash_render(torch, card: str, data: Path, tmp: Path) -> None:
+    """(b) The render CLI with the hash override on phase 6's scene (seeded
+    random weights), then warm frames of the same model: rays/s, frame
+    median; K1 to K10 launch 0 times."""
+    import dataclasses
+
+    from signerf_tpu_torch import render as cli
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.models.nerfacto import NerfactoModelConfig
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    w, h, arc = SCENE["width"], SCENE["height"], SCENE["arc"]
+    argv = ["--data", str(data), "--output", str(tmp / "hash_renders"), "--arc", str(arc), "--device", "cuda",
+            "--model.encoding-backend", "hash"]
+    torch.cuda.synchronize()
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    if rc != 0 or sum(counts(ffc).values()) != 0:
+        fail(f"hash render CLI: rc {rc}, launches {counts(ffc)}")
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    dev = torch.device("cuda")
+    model = cli.build_model(dataclasses.replace(NerfactoModelConfig(), encoding_backend="hash"),
+                            len(parsed.image_filenames), dev)
+    cams = cli.arc_cameras(parsed.cameras.to(dev), arc, 1.0, 70.0)
+    aabb = torch.as_tensor(parsed.scene_box_aabb, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    frame_s, frames = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for frame in cli.render_cameras(model, cams, aabb):
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+            frames.append(frame)
+            t0 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for f in frames:
+        acc = f["accumulation"]
+        if not all(bool(torch.isfinite(v).all()) for v in f.values()) or float(acc.max()) > 1.0 + 1e-5:
+            fail("hash render: non-finite outputs or accumulation above 1")
+    warm = sorted(frame_s[arc:])
+    median_s = warm[len(warm) // 2]
+    print(f"phase 14g(b) render CLI with --model.encoding-backend hash: {arc} x {w}x{h} in "
+          f"{arc * -(-(w * h) // CHUNK)} chunks of {CHUNK}, exit 0 in {cli_s:.3f} s ({arc * w * h / cli_s:.0f} rays/s "
+          f"incl. start-up and PNG writes), K1 to K10 launches 0; warm frames "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in warm)} "
+          f"ms, median {median_s * 1e3:.3f} ms = {w * h / median_s:.0f} rays/s (the factor backend: phase 6); peak "
+          f"memory {peak:.3f} GiB; on {card}", flush=True)
+
+
+def hash_views(torch, model, parsed, box: bool = True):
+    """PSNR and mean accumulation of each dataset view, rendered through
+    `make_eval_render` with its own appearance code, its rays cut to the
+    scene box (as 14c renders them) or, without `box`, between the model's
+    near and far planes (as the train step casts them)."""
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+    from signerf_tpu_torch.ops.image_metrics import psnr as psnr_fn
+    from signerf_tpu_torch.utils.images import load_rgb
+
+    dev = torch.device("cuda")
+    cams = parsed.cameras.to(dev)
+    aabb = torch.as_tensor(parsed.scene_box_aabb, device=dev)
+    render = make_eval_render(model, chunk_size=CHUNK)
+    h, w = cams.height, cams.width
+    psnr, acc = [], []
+    for i, f in enumerate(parsed.image_filenames):
+        rays = cams.generate_rays(camera_index=i, aabb=aabb if box else None)
+        out = render(rays.reshape((h * w,)), appearance_mode="index")
+        gt = torch.from_numpy(load_rgb(f)).to(dev).float() / 255.0
+        psnr.append(float(psnr_fn(out["rgb"].reshape(h, w, 3), gt)))
+        acc.append(float(out["accumulation"].mean()))
+    return psnr, acc
+
+
+def phase_hash_train(torch, card: str, tmp: Path, ref: dict) -> None:
+    """(c) The `signerf_nerfacto` train CLI with the hash backend on phase
+    14c's grey-backdrop scene (its flags), HASH_TRAIN_STEPS steps: the
+    step times, rays/s and peak memory of `phase_train`, then PSNR and
+    accumulation of its 8 views beside 14c's factor NeRF, and both export
+    subcommands on its checkpoint."""
+    import dataclasses
+
+    from signerf_tpu_torch import export
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, load_checkpoint
+    from signerf_tpu_torch.geometry.obj import load_obj
+    from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    data = ref["data"]
+    train = phase_train(torch, card, data, tmp, "signerf_nerfacto", HASH_TRAIN_STEPS, TRAIN_RAYS, 1,
+                        expect_counts(), "14g(c)", extra=(*REFERENCE_FLAGS, *HASH_FLAG), label="hash_nerfacto")
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    cfg = dataclasses.replace(NerfactoModelConfig(), background_color=REFERENCE_FLAGS[1], encoding_backend="hash")
+    model = NerfactoModel(cfg, len(parsed.image_filenames))
+    model.load_state_dict(load_checkpoint(latest_checkpoint(train["ckpt_dir"]))["params"], strict=True)
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    psnr, acc = hash_views(torch, model.to(torch.device("cuda")).eval(), parsed)
+    views_s = time.perf_counter() - t0
+    psnr_free, acc_free = hash_views(torch, model, parsed, box=False)
+    flags = ["--data", str(data), "--load-dir", str(train["ckpt_dir"]), "--device", "cuda",
+             "--model.background-color", REFERENCE_FLAGS[1], "--model.encoding-backend", "hash"]
+    t0 = time.perf_counter()
+    rc_pc = export.main(["pointcloud", "--output", str(tmp / "hash.ply"), *flags])
+    pc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc_mesh = export.main(["mesh", "--output", str(tmp / "hash.obj"), "--resolution", str(EDIT_MESH_RESOLUTION),
+                           "--iso", EDIT_MESH_ISO, *flags])
+    mesh_s = time.perf_counter() - t0
+    points = export.read_ply_header(tmp / "hash.ply") if rc_pc == 0 else 0
+    verts, faces = load_obj(tmp / "hash.obj") if rc_mesh == 0 else ([], [])
+    if sum(counts(ffc).values()) != 0 or points <= 0 or len(faces) == 0:
+        fail(f"hash views and exports: launches {counts(ffc)}, {points} points, {len(faces)} faces")
+    factor = NerfactoModel(dataclasses.replace(cfg, encoding_backend="factor"), len(parsed.image_filenames))
+    factor.load_state_dict(load_checkpoint(latest_checkpoint(ref["ckpt_dir"]))["params"], strict=True)
+    f_psnr_free, f_acc_free = hash_views(torch, factor.to(torch.device("cuda")).eval(), parsed, box=False)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    fmt = lambda xs, f: ", ".join(f"{v:{f}}" for v in xs) + f" (mean {mean(xs):{f}})"  # noqa: E731
+    print(f"phase 14g(c) hash signerf_nerfacto on 14c's scene: its {len(psnr)} views in {views_s:.3f} s; rays in "
+          f"the scene box (as 14c): PSNR {fmt(psnr, '.2f')} dB, accumulation {fmt(acc, '.4f')}; 14c's factor NeRF: "
+          f"PSNR {fmt(ref['psnr'], '.2f')}, accumulation {fmt(ref['accumulation'], '.4f')}; rays between the near "
+          f"and far planes (as trained): hash PSNR {fmt(psnr_free, '.2f')}, accumulation {fmt(acc_free, '.4f')}; "
+          f"factor PSNR {fmt(f_psnr_free, '.2f')}, accumulation {fmt(f_acc_free, '.4f')}; "
+          f"export pointcloud {points} points in {pc_s:.3f} s, export mesh (resolution {EDIT_MESH_RESOLUTION}, "
+          f"iso {EDIT_MESH_ISO}) {len(verts)} vertices, {len(faces)} faces in {mesh_s:.3f} s; K1 to K10 launches 0; "
+          f"on {card}", flush=True)
+
+
+def phase_hash_signerf(torch, card: str, data: Path, tmp: Path) -> None:
+    """(d) The `signerf` train CLI with the hash backend, a few steps at
+    16,384 rays (4 micro-batches, normals through autograd, second order),
+    then one micro-batch of its checkpoint: finite normals, and the
+    orientation loss alone reaches the base table."""
+    import dataclasses
+
+    from signerf_tpu_torch import train as cli
+    from signerf_tpu_torch.data.datamanager import SIGNeRFDataManager
+    from signerf_tpu_torch.data.pixel_samplers import sample_patches
+    from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, load_checkpoint
+    from signerf_tpu_torch.method_configs import signerf_method
+    from signerf_tpu_torch.models.signerf import SIGNeRFModel
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    out = tmp / "hash_signerf"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    rc = cli.main(train_argv("signerf", data, out, HASH_SIGNERF_STEPS, "--steps-per-call", "1", *HASH_FLAG))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rc != 0 or sum(counts(ffc).values()) != 0:
+        fail(f"hash signerf train CLI: rc {rc}, launches {counts(ffc)}")
+    pipe = signerf_method().pipeline
+    dm = SIGNeRFDataManager(dataclasses.replace(pipe.datamanager, dataparser=dataclasses.replace(
+        pipe.datamanager.dataparser, data=data)), dev)
+    model = SIGNeRFModel(dataclasses.replace(pipe.model, encoding_backend="hash", use_lpips=False), dm.num_images)
+    model.load_state_dict(load_checkpoint(latest_checkpoint(out / "experiment" / "signerf" / "checkpoints"))["params"],
+                          strict=True)
+    model = model.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    idx = sample_patches(gen, SIGNERF_RAYS // SIGNERF_MICRO, 32, dm.num_images, dm.cameras.height, dm.cameras.width)
+    out_mb = model(dm.cameras.generate_rays_at(idx), None, train=True, anneal=1.0)
+    for key in ("normals_samples", "normals", "pred_normals"):
+        if not bool(torch.isfinite(out_mb[key]).all()):
+            fail(f"hash signerf: non-finite {key}")
+    model.zero_grad()
+    model.normals_losses(out_mb)["orientation_loss"].backward()
+    g = model.field.encoding.table.grad
+    if g is None or not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+        fail("hash signerf: the orientation loss gives no finite, nonzero base-table gradient")
+    print(f"phase 14g(d) signerf train CLI with the hash backend: {HASH_SIGNERF_STEPS} steps of {SIGNERF_RAYS} rays "
+          f"({SIGNERF_MICRO} micro-batches, gradient normals by autograd through the hash encode, kept "
+          f"differentiable) exit 0 in {wall:.3f} s, peak memory {peak:.3f} GiB, K1 to K10 launches 0; one micro-batch "
+          f"of its checkpoint: normals finite, orientation-loss gradient in the base table norm "
+          f"{float(g.norm()):.4g} over {int((g != 0).any(-1).sum())} of {g.shape[0] * g.shape[1]} rows; on {card}",
+          flush=True)
+
+
+def phase_hash_repeat(torch, card: str, tmp: Path, ref: dict) -> None:
+    """The spread between two identical training runs: the hash
+    `signerf_nerfacto` twice from the same seed, HASH_REPEAT_STEPS steps,
+    each step's loss recorded; index_add_'s atomics in the table gradient
+    make the sums' order differ between runs."""
+    from signerf_tpu_torch import train as cli
+    from signerf_tpu_torch.engine import train_step as tts
+
+    real_loss = tts.default_loss_fn
+    runs = []
+    for run in range(2):
+        losses = []
+
+        def recording_loss(model, outputs, batch):
+            total, ld = real_loss(model, outputs, batch)
+            losses.append(total.detach())
+            return total, ld
+
+        tts.default_loss_fn = recording_loss
+        try:
+            rc = cli.main(train_argv("signerf_nerfacto", ref["data"], tmp / f"hash_repeat{run}", HASH_REPEAT_STEPS,
+                                     "--steps-per-call", "1", *REFERENCE_FLAGS, *HASH_FLAG))
+        finally:
+            tts.default_loss_fn = real_loss
+        if rc != 0 or len(losses) != HASH_REPEAT_STEPS:
+            fail(f"hash repeat run {run}: rc {rc}, {len(losses)} losses")
+        runs.append([float(v) for v in losses])
+    deltas = [abs(a - b) for a, b in zip(*runs)]
+    rel = [d / abs(a) for d, a in zip(deltas, runs[0])]
+    print(f"phase 14g run-to-run: hash signerf_nerfacto twice from seed 42, {HASH_REPEAT_STEPS} steps of "
+          f"{TRAIN_RAYS} rays on 14c's scene: per-step |d loss| " + ", ".join(f"{d:.3e}" for d in deltas)
+          + " (relative " + ", ".join(f"{r:.2e}" for r in rel) + f"); losses of run 0 "
+          + ", ".join(f"{v:.6f}" for v in runs[0]) + f"; on {card}", flush=True)
+    if not all(d == d for d in deltas):
+        fail("hash repeat: a loss is NaN")
+
+
+def phase_hash(torch, card: str, data: Path, tmp: Path, ref: dict) -> None:
+    """Phase 14g, the hash backend: (a) to (d) and the run-to-run spread."""
+    t0 = time.perf_counter()
+    phase_hash_encode(torch, card)
+    phase_hash_render(torch, card, data, tmp)
+    phase_hash_train(torch, card, tmp, ref)
+    phase_hash_signerf(torch, card, data, tmp)
+    phase_hash_repeat(torch, card, tmp, ref)
+    print(f"phase 14g wall {time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+
+
 # K7 and the SDXL inpaint. The 3x3 sheet of 512 px cells (1536 px square)
 # is the JAX package's production regime: a latent of 192^2, so the UNet's
 # self-attention runs at S = 9216 with 10 heads (block 1) and S = 2304 with
@@ -3001,6 +3366,7 @@ def main() -> int:
         ref = phase_reference_sheet(torch, card, tmp, train["ckpt_dir"])
         edit = phase_edit_pass(torch, card, tmp, ref)
         viewer = phase_viewer(torch, card, tmp, ref)
+        phase_hash(torch, card, data, tmp, ref)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k7 = phase_k7(torch, card)

@@ -1,8 +1,10 @@
 """JAX params <-> the port's `state_dict`, and JAX LPIPS params -> the port's.
 
-The port's modules carry the flax names (`field.encoding.line_0_0`,
-`field.mlp_base.dense_0.kernel`, `field.mlp_pred_normals.dense_2.bias`,
-`proposal_0.MLP_0.dense_1.bias`, ...), so a JAX `NerfactoModel.init` tree
+The port's modules carry the flax names (`field.encoding.line_0_0`, or
+`field.encoding.table` and `proposal_0.HashGridEncoding_0.table` with the
+hash backend, `field.mlp_base.dense_0.kernel`,
+`field.mlp_pred_normals.dense_2.bias`, `proposal_0.MLP_0.dense_1.bias`,
+...), so a JAX `NerfactoModel.init` tree of either backend
 maps onto `NerfactoModel.state_dict()` by joining the tree path with dots.
 No tensor is transposed: the port keeps flax's [in, out] Dense kernel
 layout (`factor_grid.dense_bf16` computes x @ kernel, and the CUDA kernels

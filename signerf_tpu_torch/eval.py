@@ -5,10 +5,11 @@ appearance code from a checkpoint (loaded through the restore surgery) and
 writes PSNR, SSIM and (with `--lpips true`) LPIPS against the ground-truth
 images as a JSON summary.
 
-Flags: --data PATH, --load-dir PATH, --output PATH (default eval.json),
---device DEV (default cuda), --lpips true|false, --lpips-weights PATH.npz
-(without it LPIPS is a random-feature distance and a warning says so),
---model.KEY VALUE (SIGNeRFModelConfig).
+Flags: --data PATH, --load-dir PATH (its newest step-*.pt, else its newest
+JAX step-*.ckpt), --output PATH (default eval.json), --device DEV (default
+cuda), --lpips true|false, --lpips-weights PATH.npz (without it LPIPS is a
+random-feature distance and a warning says so), --model.KEY VALUE
+(SIGNeRFModelConfig, e.g. --model.encoding-backend hash).
 """
 
 from __future__ import annotations

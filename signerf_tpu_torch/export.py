@@ -9,8 +9,9 @@ shape-mode proxy (`--pipeline.dataset-generator.renderer.object-path`).
 
 Flags:
   --data PATH          dataset (transforms.json or its directory)
-  --load-dir PATH      checkpoint directory (newest step-*.pt, through the
-                       restore surgery); without it a seeded random init
+  --load-dir PATH      checkpoint directory (newest step-*.pt, else newest JAX
+                       step-*.ckpt, through the restore surgery); without it
+                       a seeded random init
   --output PATH        output file (default point_cloud.ply / mesh.obj)
   --num-points N       uniform subsample target (default 1_000_000)
   --downscale K        render at 1/K resolution (default 2)

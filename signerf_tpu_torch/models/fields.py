@@ -1,18 +1,24 @@
 """Neural fields: the nerfacto field and the proposal density field.
 
-Port of `signerf_tpu/models/fields.py`, factor-grid backend only (the hash
-backend raises). Parameter names follow the flax modules, so the
-`state_dict` keys are the JAX tree paths joined with dots, for example
-`field.encoding.line_0_0` and `field.mlp_base.dense_0.kernel`. Dense
-kernels keep flax's [in, out] layout.
+Port of `signerf_tpu/models/fields.py`, both encoding backends: the
+factorized grid ("factor", the default) and the instant-ngp hash grid
+("hash", nerfstudio's `HashEncoding`); any other name raises. Parameter
+names follow the flax modules, so the `state_dict` keys are the JAX tree
+paths joined with dots, for example `field.encoding.line_0_0`,
+`field.encoding.table` (hash), `proposal_0.HashGridEncoding_0.table` and
+`field.mlp_base.dense_0.kernel`. Dense kernels keep flax's [in, out]
+layout.
 
-The density of both fields goes through `ops/factor_grid.fused_density_mlp`:
-the CUDA kernels (K1 forward, K2 backward) for a CUDA tensor, their plain
-twins for a CPU tensor. With gradient normals the base field's density and
-its spatial gradient come instead from `factor_density_geo_and_grad`: the
-encode (K3, K4) and the grad-dot contraction (K5, K6) on the card. The
-color, pred-normal and base MLPs outside the kernels stay plain PyTorch
-under the same bf16 Dense contract.
+With the factor backend the density of both fields goes through
+`ops/factor_grid.fused_density_mlp`: the CUDA kernels (K1 forward, K2
+backward) for a CUDA tensor, their plain twins for a CPU tensor. With
+gradient normals the base field's density and its spatial gradient come
+instead from `factor_density_geo_and_grad`: the encode (K3, K4) and the
+grad-dot contraction (K5, K6) on the card. With the hash backend the
+density is `ops/hashgrid.hashgrid_encode` (plain PyTorch, as the JAX
+function is plain `jnp`) then the bf16 `MLP`. The color, pred-normal and
+base MLPs outside the kernels stay plain PyTorch under the same bf16
+Dense contract.
 """
 
 from __future__ import annotations
@@ -32,7 +38,10 @@ from signerf_tpu_torch.ops.factor_grid import (
     fused_density_mlp,
     grad_encode_dot,
 )
+from signerf_tpu_torch.ops.hashgrid import hashgrid_encode, hashgrid_resolutions, init_hashgrid_table
 from signerf_tpu_torch.ops.sh import sh_encode
+
+ENCODING_BACKENDS = ("factor", "hash")
 
 
 class _TruncExp(torch.autograd.Function):
@@ -137,11 +146,36 @@ class FactorGridEncoding(nn.Module):
         ]
 
 
-def _check_factor_backend(encoding_backend: str) -> None:
-    if encoding_backend != "factor":
-        raise NotImplementedError(
-            f"encoding_backend={encoding_backend!r}: the port has the factor grid only"
-        )
+class HashGridEncoding(nn.Module):
+    """The learned multiresolution hash table `table` [L, 2^log2, F] f32."""
+
+    def __init__(
+        self,
+        num_levels: int = 16,
+        features_per_level: int = 2,
+        log2_hashmap_size: int = 19,
+        base_res: int = 16,
+        max_res: int = 2048,
+    ):
+        super().__init__()
+        self.resolutions = hashgrid_resolutions(num_levels, base_res, max_res)
+        self.table = nn.Parameter(torch.empty(num_levels, 2**log2_hashmap_size, features_per_level))
+
+    @property
+    def out_dim(self) -> int:
+        return self.table.shape[0] * self.table.shape[2]
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.table.copy_(init_hashgrid_table(generator, *self.table.shape))
+
+    def forward(self, positions01: torch.Tensor) -> torch.Tensor:
+        return hashgrid_encode(self.table, positions01, self.resolutions)
+
+
+def _check_backend(encoding_backend: str) -> None:
+    if encoding_backend not in ENCODING_BACKENDS:
+        raise ValueError(f"encoding_backend={encoding_backend!r}: one of {ENCODING_BACKENDS}")
 
 
 def _density_logits(
@@ -159,6 +193,9 @@ def _density_logits(
 class NerfactoField(nn.Module):
     """Density + color field with an appearance embedding.
 
+    The encoding is `encoding`: a `FactorGridEncoding` (factor backend) or
+    a `HashGridEncoding` (hash backend, `num_levels` x `features_per_level`
+    features from a table of 2^`log2_hashmap_size` entries a level).
     `forward(positions [R, S, 3], directions [R, 3])` returns
     {"density": [R, S], "rgb": [R, S, 3]} and, with `predict_normals`,
     "pred_normals" [R, S, 3] from the `mlp_pred_normals` head.
@@ -167,6 +204,9 @@ class NerfactoField(nn.Module):
     def __init__(
         self,
         num_images: int,
+        num_levels: int = 16,
+        features_per_level: int = 2,
+        log2_hashmap_size: int = 19,
         base_res: int = 16,
         max_res: int = 2048,
         hidden_dim: int = 64,
@@ -183,21 +223,28 @@ class NerfactoField(nn.Module):
         predict_normals: bool = False,
     ):
         super().__init__()
-        _check_factor_backend(encoding_backend)
+        _check_backend(encoding_backend)
+        self.encoding_backend = encoding_backend
         self.predict_normals = predict_normals
         self.geo_feat_dim = geo_feat_dim
         self.sh_levels = sh_levels
         self.average_init_density = average_init_density
         self.appearance_embed_dim = appearance_embed_dim
         self.use_appearance_embedding = use_appearance_embedding
-        cfg = FactorGridConfig(
-            num_levels=factor_num_levels,
-            base_res=base_res,
-            max_res=max_res,
-            features_per_level=factor_features_per_level,
-        )
-        self.encoding = FactorGridEncoding(cfg)
-        self.mlp_base = MLP(cfg.out_dim, hidden_dim, 2, 1 + geo_feat_dim)
+        if encoding_backend == "factor":
+            self.encoding = FactorGridEncoding(
+                FactorGridConfig(
+                    num_levels=factor_num_levels,
+                    base_res=base_res,
+                    max_res=max_res,
+                    features_per_level=factor_features_per_level,
+                )
+            )
+            enc_dim = self.encoding.config.out_dim
+        else:
+            self.encoding = HashGridEncoding(num_levels, features_per_level, log2_hashmap_size, base_res, max_res)
+            enc_dim = self.encoding.out_dim
+        self.mlp_base = MLP(enc_dim, hidden_dim, 2, 1 + geo_feat_dim)
         head_in = sh_levels**2 + geo_feat_dim
         if use_appearance_embedding:
             head_in += appearance_embed_dim
@@ -220,7 +267,10 @@ class NerfactoField(nn.Module):
 
     def density(self, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """positions [..., 3] world -> (density [...], geo_feat [..., G])."""
-        h = _density_logits(self.encoding, self.mlp_base, positions)
+        if self.encoding_backend == "hash":
+            h = self.mlp_base(self.encoding(contract_to_unit(positions)))
+        else:
+            h = _density_logits(self.encoding, self.mlp_base, positions)
         density = self.average_init_density * trunc_exp(h[..., 0] - 1.0)
         return density, h[..., 1:]
 
@@ -339,12 +389,15 @@ def factor_density_geo_and_grad(
 
 
 class HashMLPDensityField(nn.Module):
-    """Small density-only field used as a proposal network (factor grid
-    `FactorGridEncoding_0` + 2-layer `MLP_0`)."""
+    """Small density-only field used as a proposal network: the factor grid
+    `FactorGridEncoding_0` or the hash grid `HashGridEncoding_0`, then a
+    2-layer `MLP_0`."""
 
     def __init__(
         self,
         num_levels: int = 5,
+        features_per_level: int = 2,
+        log2_hashmap_size: int = 17,
         base_res: int = 16,
         max_res: int = 128,
         hidden_dim: int = 16,
@@ -352,22 +405,34 @@ class HashMLPDensityField(nn.Module):
         factor_features_per_level: int = 8,
     ):
         super().__init__()
-        _check_factor_backend(encoding_backend)
-        cfg = FactorGridConfig(
-            num_levels=num_levels,
-            base_res=base_res,
-            max_res=max_res,
-            features_per_level=factor_features_per_level,
-        )
-        self.FactorGridEncoding_0 = FactorGridEncoding(cfg)
-        self.MLP_0 = MLP(cfg.out_dim, hidden_dim, 2, 1)
+        _check_backend(encoding_backend)
+        self.encoding_backend = encoding_backend
+        if encoding_backend == "factor":
+            cfg = FactorGridConfig(
+                num_levels=num_levels,
+                base_res=base_res,
+                max_res=max_res,
+                features_per_level=factor_features_per_level,
+            )
+            self.FactorGridEncoding_0 = FactorGridEncoding(cfg)
+            enc_dim = cfg.out_dim
+        else:
+            self.HashGridEncoding_0 = HashGridEncoding(
+                num_levels, features_per_level, log2_hashmap_size, base_res, max_res
+            )
+            enc_dim = self.HashGridEncoding_0.out_dim
+        self.MLP_0 = MLP(enc_dim, hidden_dim, 2, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.FactorGridEncoding_0.reset_parameters(generator)
+        hashed = self.encoding_backend == "hash"
+        (self.HashGridEncoding_0 if hashed else self.FactorGridEncoding_0).reset_parameters(generator)
         for layer in self.MLP_0.layers():
             layer.reset_parameters(generator)
 
     def forward(self, positions: torch.Tensor) -> torch.Tensor:
         """positions [..., 3] world -> density [...]."""
-        h = _density_logits(self.FactorGridEncoding_0, self.MLP_0, positions)
+        if self.encoding_backend == "hash":
+            h = self.MLP_0(self.HashGridEncoding_0(contract_to_unit(positions)))
+        else:
+            h = _density_logits(self.FactorGridEncoding_0, self.MLP_0, positions)
         return trunc_exp(h[..., 0] - 1.0)

@@ -1,14 +1,15 @@
-"""Nerfacto model: proposal sampling, factor-grid field, volumetric
-rendering, and its training losses.
+"""Nerfacto model: proposal sampling, the fields, volumetric rendering,
+and its training losses.
 
-Port of `signerf_tpu/models/nerfacto.py`, factor backend. `NerfactoModel`
-is an `nn.Module` whose children `field`, `proposal_0` and `proposal_1` (and
-the parameter `camera_opt` when it is on) carry the JAX params tree's names.
-With `predict_normals` the base field also predicts normals, and with
-`use_gradient_normals` its density and spatial gradient come from
-`fields.factor_density_geo_and_grad` (K3 to K6 on the card), whose normals
-the orientation and pred-normal losses take at the reference's detach
-points.
+Port of `signerf_tpu/models/nerfacto.py`, both encoding backends.
+`NerfactoModel` is an `nn.Module` whose children `field`, `proposal_0` and
+`proposal_1` (and the parameter `camera_opt` when it is on) carry the JAX
+params tree's names. With `predict_normals` the base field also predicts
+normals, and with `use_gradient_normals` the density's spatial gradient
+gives the gradient normals, which the orientation and pred-normal losses
+take at the reference's detach points: in closed form from
+`fields.factor_density_geo_and_grad` (K3 to K6 on the card) with the factor
+backend, by autograd through the hash encode with the hash backend.
 """
 
 from __future__ import annotations
@@ -31,9 +32,34 @@ from signerf_tpu_torch.models.fields import (
 from signerf_tpu_torch.models.samplers import proposal_sample, render_weights
 
 
+def density_geo_and_autograd(
+    field: NerfactoField, positions: torch.Tensor, differentiable: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(density [...], geo [..., G], d density / d x [..., 3]) by autograd
+    through the field's density: the same three components as the JAX
+    package's three forward-mode JVPs, in one backward pass (each sample's
+    density depends on its own position only). With `differentiable` the
+    gradient keeps its graph (second order, for the orientation loss);
+    otherwise it is detached. Under `torch.inference_mode()` (the eval
+    render) the gradient is taken on a normal copy of the positions and
+    the outputs come back detached."""
+    with torch.inference_mode(False), torch.enable_grad():
+        x = positions.clone() if positions.is_inference() else positions
+        if not x.requires_grad:
+            x = x.detach().requires_grad_(True)
+        density, geo = field.density(x)
+        (grad,) = torch.autograd.grad(
+            density, x, torch.ones_like(density), retain_graph=True, create_graph=differentiable
+        )
+    if positions.is_inference():
+        density, geo = density.detach(), geo.detach()
+    return density, geo, grad
+
+
 @dataclasses.dataclass
 class ProposalNetArgs:
     hidden_dim: int = 16
+    log2_hashmap_size: int = 17
     num_levels: int = 5
     max_res: int = 128
 
@@ -41,12 +67,17 @@ class ProposalNetArgs:
 @dataclasses.dataclass
 class NerfactoModelConfig:
     """The knobs of the JAX package's `NerfactoModelConfig` that the forward
-    and the training losses read, with the same names and defaults. The
-    hash-grid knobs come with the slice that reads them."""
+    and the training losses read, with the same names and defaults.
+    `num_levels`, `features_per_level` and `log2_hashmap_size` (and the
+    proposal args' `log2_hashmap_size`) size the hash grid; the factor grid
+    keeps the fields' own level counts."""
 
     near_plane: float = 0.05
     far_plane: float = 1000.0
     background_color: str = "last_sample"
+    num_levels: int = 16
+    features_per_level: int = 2
+    log2_hashmap_size: int = 19
     base_res: int = 16
     max_res: int = 2048
     hidden_dim: int = 64
@@ -54,7 +85,7 @@ class NerfactoModelConfig:
     appearance_embed_dim: int = 32
     use_appearance_embedding: bool = True
     average_init_density: float = 1.0
-    encoding_backend: str = "factor"
+    encoding_backend: str = "factor"  # "factor" or "hash"
     num_proposal_samples_per_ray: Tuple[int, ...] = (256, 96)
     num_nerf_samples_per_ray: int = 48
     num_proposal_iterations: int = 2
@@ -93,6 +124,9 @@ class NerfactoModel(nn.Module):
         self.num_train_images = num_train_images
         self.field = NerfactoField(
             num_images=num_train_images,
+            num_levels=config.num_levels,
+            features_per_level=config.features_per_level,
+            log2_hashmap_size=config.log2_hashmap_size,
             base_res=config.base_res,
             max_res=config.max_res,
             hidden_dim=config.hidden_dim,
@@ -110,6 +144,7 @@ class NerfactoModel(nn.Module):
                 f"proposal_{i}",
                 HashMLPDensityField(
                     num_levels=args.num_levels,
+                    log2_hashmap_size=args.log2_hashmap_size,
                     max_res=args.max_res,
                     hidden_dim=args.hidden_dim,
                     encoding_backend=config.encoding_backend,
@@ -185,13 +220,16 @@ class NerfactoModel(nn.Module):
         )
         grad = None
         if cfg.predict_normals and cfg.use_gradient_normals:
-            # The density's spatial gradient in closed form, sharing the
-            # primal; the reference's orientation loss backprops through it
-            # into the field, so it stays differentiable while training.
-            density, geo, grad = factor_density_geo_and_grad(
-                self.field, samples.positions,
-                differentiable_grad=train and not cfg.fast_normals_losses,
-            )
+            # The density's spatial gradient, sharing the primal; the
+            # reference's orientation loss backprops through it into the
+            # field, so it stays differentiable while training.
+            differentiable = train and not cfg.fast_normals_losses
+            if cfg.encoding_backend == "factor":
+                density, geo, grad = factor_density_geo_and_grad(
+                    self.field, samples.positions, differentiable_grad=differentiable
+                )
+            else:
+                density, geo, grad = density_geo_and_autograd(self.field, samples.positions, differentiable)
             field_out = self.field.head_only(density, geo, directions, cam_idx, train, appearance_mode)
         else:
             field_out = self.field(samples.positions, directions, cam_idx, train, appearance_mode)

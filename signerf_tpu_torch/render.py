@@ -6,7 +6,8 @@ cameras, or for a circle of cameras, and writes PNGs.
 Flags:
   --data PATH          dataset (transforms.json or its directory)
   --load-dir PATH      checkpoint directory; the newest step-*.pt written by
-                       the port's trainer is loaded through the restore
+                       the port's trainer (else the newest step-*.ckpt of
+                       the JAX package) is loaded through the restore
                        surgery (engine/checkpoints.py)
   --output PATH        output directory (default renders/)
   --arc N              render an N-camera circle instead of the dataset cameras
@@ -14,7 +15,8 @@ Flags:
   --downscale K        render at 1/K resolution
   --depth true         also write inverted-depth visualizations
   --device DEV         torch device (default cuda); `cuda` without a card raises
-  --model.KEY VALUE    NerfactoModelConfig overrides
+  --model.KEY VALUE    NerfactoModelConfig overrides, e.g.
+                       --model.encoding-backend hash (must match the checkpoint)
 
 Without --load-dir the weights are a seeded random init. With it, the
 appearance codes and camera-opt come from that init and everything else
@@ -52,10 +54,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def restore(model: torch.nn.Module, path: Path) -> None:
-    """Load a `step-*.pt` checkpoint through the restore surgery: the
-    appearance codes and camera-opt stay the model's own seeded init (as
-    `surgical_restore` in the JAX package and the reference do), every other
-    tensor comes from the checkpoint."""
+    """Load a `step-*.pt` (or JAX `step-*.ckpt`) checkpoint through the
+    restore surgery: the appearance codes and camera-opt stay the model's
+    own seeded init (as `surgical_restore` in the JAX package and the
+    reference do), every other tensor comes from the checkpoint."""
     model.load_state_dict(surgical_restore(path, model.state_dict()), strict=True)
 
 

@@ -10,8 +10,9 @@ TF32 on the card.
 
 Flags, as in the JAX CLI:
   --data PATH          dataset (transforms.json or its directory)
-  --load-dir PATH      start from the newest step-*.pt there (restore surgery,
-                       step reset to 0)
+  --load-dir PATH      start from the newest step-*.pt there, else the newest
+                       JAX step-*.ckpt (params only; restore surgery, step
+                       reset to 0)
   --output-dir PATH    experiment output root (checkpoints under
                        <output-dir>/<experiment-name>/<method>/checkpoints)
   --train-only True    plain training, no edit flow
@@ -27,6 +28,7 @@ Flags, as in the JAX CLI:
   --device DEV         torch device (default cuda); `cuda` without a card raises
   --a.b.c VALUE        any SIGNeRFTrainerConfig field, e.g.
                        --max-num-iterations 300 --pipeline.model.use-camera-opt True
+                       --pipeline.model.encoding-backend hash
 
 Checkpoints are `step-{step:09d}.pt`: a `torch.save` of {"step", "params"
 (the model's state_dict), "optimizer"}.

@@ -238,19 +238,22 @@ def test_render_cli_missing_checkpoint(dataset, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter that imports the render, train and eval CLIs, the
-    diffusion port, the factor-grid kernels' entry points and the editing
-    geometry has neither JAX, flax, nor any module of the JAX package loaded."""
+    """A fresh interpreter that imports the render, train, eval and export
+    CLIs, the diffusion port, the factor-grid kernels' entry points, the hash
+    grid, the checkpoint reader (JAX `.ckpt` included) and the editing
+    geometry has neither JAX, flax, msgpack, nor any module of the JAX
+    package loaded."""
     code = (
         "import sys, signerf_tpu_torch.render, signerf_tpu_torch.convert, "
-        "signerf_tpu_torch.train, signerf_tpu_torch.eval, "
+        "signerf_tpu_torch.train, signerf_tpu_torch.eval, signerf_tpu_torch.export, "
+        "signerf_tpu_torch.ops.hashgrid, signerf_tpu_torch.engine.checkpoints, "
         "signerf_tpu_torch.diffusion.diffuser, signerf_tpu_torch.diffusion.sdxl_pipeline, "
         "signerf_tpu_torch.diffusion.weight_conversion, signerf_tpu_torch.ops.fused_factor_cuda, "
         "signerf_tpu_torch.ops.factor_grid_kernel, signerf_tpu_torch.geometry, "
         "signerf_tpu_torch.geometry.primitives, signerf_tpu_torch.editing.conditions, "
         "signerf_tpu_torch.editing.sheet; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'signerf_tpu')); print(bad); sys.exit(1 if bad else 0)"
+        "('jax', 'jaxlib', 'flax', 'signerf_tpu', 'msgpack')); print(bad); sys.exit(1 if bad else 0)"
     )
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
