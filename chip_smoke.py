@@ -160,13 +160,34 @@ the result line):
  18. one CFG branch at the sheet shape through K7 and through the twin;
  19. a profile of one sampler step's model work: device busy share, K7's
      share, the top kernels;
+ 21. the JAX package's last modules and knobs (run after 14g, (e) and (f)
+     after 19): (a) K3 and K4's tables half at the proposal fields'
+     train-step and render-chunk sample counts against their twins, then
+     `signerf_nerfacto` with linear proposal networks (`use_linear`)
+     through the train CLI, 300 steps on 14c's scene (K1 and K2's tables
+     half once a step for the base field, K3 and K4's tables half twice
+     for the proposal fields), its views' PSNR beside 14c's NeRF and one
+     512 px frame through the render CLI; (b) a 10-camera
+     `CameraArcDataset` at 512 px rendered from phase 7's checkpoint over
+     `FixedIndicesEvalCameraDataloader`; (c) `FactorGridEncoding` with
+     planes (the JAX defaults) and (d) `encode_with_grad` on phase 7's
+     base-field lines at N = 196,608, forward and backward, against the
+     twins; (g) `CachedImageStore` on the card against numpy's draws; (h)
+     the FLOP model's counts and shares at the measured rays/s; two
+     identical 10-step factor runs' per-step |d loss|; (e) the SDXL VAE's
+     posterior sample at 1024 px; (f) the full SDXL pipeline written in
+     the JAX package's msgpack layout (f32, ~18.9 GB, by this script's own
+     writer of flax's format), read by `SDXLInpaintPipeline.create`, every
+     tensor checked, one 1536 px sheet sampler step on it (K7); exact
+     launches in each;
  20. a JSON line per kernel, then {"ok": true, "device": {...}} last. A
      kernel's launches are summed over the main path's phases that run it
-     (K1: 6, 7, 11, 14, 14d, 14e and 14f; K2's tables half: 7, 11, 14d,
-     14e and 14f; K3 and K5: 11 and 14; K7: 16, 14d and 14f), and its times
-     and bound are per
-     call, each kind of call weighted by its launches, so that launches x
-     (ms - bound_ms) is the time the path loses to it.
+     (K1: 6, 7, 11, 14, 14d, 14e, 14f and 21; K2's tables half: 7, 11,
+     14d, 14e, 14f and 21; K3: 11, 14 and 21; K4's tables half: 11 and
+     21; K5: 11 and 14; K7: 16, 14d, 14f and 21; K8 and K9's tables half: 14b and
+     21), and its times and bound are per call, each kind of call weighted
+     by its launches, so that launches x (ms - bound_ms) is the time the
+     path loses to it.
 
 The script imports torch and the port only.
 """
@@ -601,6 +622,18 @@ def twin_ms(torch, kernel, plain, iters: int = 20):
     k2 = cuda_ms(kernel, iters)
     p2 = cuda_ms(plain, 3)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def with_twins(ffc, names, fn):
+    """fn() with the kernels `names` swapped for their plain twins."""
+    kernels = {name: getattr(ffc, f"{name}_cuda") for name in names}
+    for name in names:
+        setattr(ffc, f"{name}_cuda", getattr(ffc, f"{name}_plain"))
+    try:
+        return fn()
+    finally:
+        for name, fn_ in kernels.items():
+            setattr(ffc, f"{name}_cuda", fn_)
 
 
 def phase_k3_k6(torch) -> dict:
@@ -1753,14 +1786,7 @@ def phase_grad_entry_points(torch, card: str, data: Path, ckpt_dir: Path) -> dic
     launched = counts(ffc)
     if launched != GRAD_ENTRY_COUNTS(1):
         fail(f"the entry points of K8 to K10 launched {launched}, expected {GRAD_ENTRY_COUNTS(1)}")
-    kernels = {name: getattr(ffc, f"{name}_cuda") for name in GRAD_ENTRY_KERNELS}
-    for name in GRAD_ENTRY_KERNELS:
-        setattr(ffc, f"{name}_cuda", getattr(ffc, f"{name}_plain"))
-    try:
-        want = run()
-    finally:
-        for name, fn in kernels.items():
-            setattr(ffc, f"{name}_cuda", fn)
+    want = with_twins(ffc, GRAD_ENTRY_KERNELS, run)
     errs = []
     for k, a in got.items():
         b = want[k]
@@ -2831,7 +2857,7 @@ def phase_hash_render(torch, card: str, data: Path, tmp: Path) -> None:
           f"memory {peak:.3f} GiB; on {card}", flush=True)
 
 
-def hash_views(torch, model, parsed, box: bool = True):
+def view_metrics(torch, model, parsed, box: bool = True):
     """PSNR and mean accumulation of each dataset view, rendered through
     `make_eval_render` with its own appearance code, its rays cut to the
     scene box (as 14c renders them) or, without `box`, between the model's
@@ -2879,9 +2905,9 @@ def phase_hash_train(torch, card: str, tmp: Path, ref: dict) -> None:
     model.load_state_dict(load_checkpoint(latest_checkpoint(train["ckpt_dir"]))["params"], strict=True)
     zero_counts(ffc)
     t0 = time.perf_counter()
-    psnr, acc = hash_views(torch, model.to(torch.device("cuda")).eval(), parsed)
+    psnr, acc = view_metrics(torch, model.to(torch.device("cuda")).eval(), parsed)
     views_s = time.perf_counter() - t0
-    psnr_free, acc_free = hash_views(torch, model, parsed, box=False)
+    psnr_free, acc_free = view_metrics(torch, model, parsed, box=False)
     flags = ["--data", str(data), "--load-dir", str(train["ckpt_dir"]), "--device", "cuda",
              "--model.background-color", REFERENCE_FLAGS[1], "--model.encoding-backend", "hash"]
     t0 = time.perf_counter()
@@ -2897,7 +2923,7 @@ def phase_hash_train(torch, card: str, tmp: Path, ref: dict) -> None:
         fail(f"hash views and exports: launches {counts(ffc)}, {points} points, {len(faces)} faces")
     factor = NerfactoModel(dataclasses.replace(cfg, encoding_backend="factor"), len(parsed.image_filenames))
     factor.load_state_dict(load_checkpoint(latest_checkpoint(ref["ckpt_dir"]))["params"], strict=True)
-    f_psnr_free, f_acc_free = hash_views(torch, factor.to(torch.device("cuda")).eval(), parsed, box=False)
+    f_psnr_free, f_acc_free = view_metrics(torch, factor.to(torch.device("cuda")).eval(), parsed, box=False)
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     fmt = lambda xs, f: ", ".join(f"{v:{f}}" for v in xs) + f" (mean {mean(xs):{f}})"  # noqa: E731
     print(f"phase 14g(c) hash signerf_nerfacto on 14c's scene: its {len(psnr)} views in {views_s:.3f} s; rays in "
@@ -3305,6 +3331,609 @@ def phase_diffusion_profile(torch, card: str, sh: dict) -> None:
           + "; ".join(f"{k[:70]} {v:.2f} ms ({v / busy:.1%})" for k, v in top) + f"; on {card}", flush=True)
 
 
+# Phase 21, the JAX package's last modules and knobs in the port. (a)
+# nerfstudio's linear proposal networks: each proposal field is the encode
+# (K3 forward, K4's tables half backward) and one bf16 Dense, the base
+# field stays on K1 / K2, so a train step launches K1 and K2's tables half
+# once and K3 and K4's tables half twice.
+LINEAR_ARGS = json.dumps([{"max_res": 128, "use_linear": True}, {"max_res": 256, "use_linear": True}])
+LINEAR_FLAG = ("--pipeline.model.proposal-net-args-list", LINEAR_ARGS)
+LINEAR_COUNTS = expect_counts(K1=1, K2_tables=1, K3=2, K4_tables=2)
+PROPOSAL_FIELDS = [("proposal", 128, 256), ("prop256", 256, 96)]  # name, max_res, samples a ray
+ARC_CAMERAS = 10
+PLANE_DEFAULTS = dict(include_planes=True, plane_res=128, plane_features=8)  # the JAX config's defaults
+REPEAT_STEPS = 10
+CACHE = dict(size=4, every=2, fetches=5, seed=0)
+
+
+def proposal_case(torch, max_res: int, n: int, gen, dev):
+    """Proposal-field tables (5 levels of F = 8 to `max_res`), uniform
+    coordinates and g [N, 40] on the card."""
+    from signerf_tpu_torch.ops import factor_grid as fg
+
+    cfg = fg.FactorGridConfig(num_levels=5, base_res=16, max_res=max_res, features_per_level=8)
+    lines = [[torch.randn(r, 8, generator=gen) * 0.2 for _ in range(3)] for r in cfg.resolutions]
+    x, g = torch.rand(n, 3, generator=gen), torch.randn(n, cfg.out_dim, generator=gen)
+    return (cfg.resolutions, 8, fg.pack_tables(lines).to(dev), x.to(dev)), g.to(dev)
+
+
+def phase_proposal_encode(torch) -> dict:
+    """K3 (its proposal-field instantiation, new with the linear proposal
+    networks) and K4's tables half against their twins at the sample counts
+    of a 4096-ray train step and an 8192-ray render chunk of both proposal
+    fields: error, times and bounds per call."""
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(21)
+    out = {"max_abs_err": {"K3": 0.0, "K4 tables": 0.0}}
+    line = ["phase 21(a) K3 and K4's tables half at the proposal fields, kernel vs plain twin:"]
+    for name, max_res, samples in PROPOSAL_FIELDS:
+        for where, rays in (("train", TRAIN_RAYS), ("chunk", CHUNK)):
+            n = rays * samples
+            args, g = proposal_case(torch, max_res, n, gen, dev)
+            bounds = factor_bounds(args[0], args[1], args[2], n)
+            calls = [("K3", lambda: ffc.encode_cuda(*args), lambda: ffc.encode_plain(*args))]
+            if where == "train":
+                calls.append(("K4 tables", lambda: ffc.encode_bwd_cuda(*args, g)[0],
+                              lambda: ffc.encode_bwd_plain(*args, g)[0]))
+            for k, kern, plain in calls:
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                if k == "K3":
+                    err, tol = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12), K3_TOL
+                else:
+                    err, tol = rel_err(got, want), K456_TOL
+                if err > tol or not bool(torch.isfinite(got).all()):
+                    fail(f"{k} {name} {where} N={n}: error {err:.3g} > {tol}")
+                out["max_abs_err"][k] = max(out["max_abs_err"][k], float((got - want).abs().max()))
+                del got, want
+                k_ms, p_ms = twin_ms(torch, kern, plain)
+                b_ms, b_by = bounds[k]
+                out[(k, name, where)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+                line.append(f"{k} {name} {where} N={n}: error {err:.2e}, {k_ms:.4f} vs {p_ms:.4f} ms (bound "
+                            f"{b_ms:.4f} {b_by}, {b_ms / k_ms:.1%} of it);")
+            del args, g
+    torch.cuda.empty_cache()
+    print(" ".join(line), flush=True)
+    return out
+
+
+def linear_config(torch):
+    import dataclasses
+
+    from signerf_tpu_torch.models.nerfacto import NerfactoModelConfig, ProposalNetArgs
+
+    args = tuple(ProposalNetArgs(**a) for a in json.loads(LINEAR_ARGS))
+    return dataclasses.replace(NerfactoModelConfig(), background_color=REFERENCE_FLAGS[1],
+                               proposal_net_args_list=args)
+
+
+def phase_linear_proposals(torch, card: str, tmp: Path, ref: dict, phase7: dict) -> dict:
+    """(a) `signerf_nerfacto` with linear proposal networks through the
+    train CLI on 14c's scene (phase 7's steps and rays), its 8 views' PSNR
+    beside 14c's factor NeRF, and one 512 px frame through the render CLI."""
+    import dataclasses
+
+    from signerf_tpu_torch import render as render_cli
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, load_checkpoint
+    from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    data = ref["data"]
+    train = phase_train(torch, card, data, tmp, "signerf_nerfacto", TRAIN_STEPS, TRAIN_RAYS, 1, LINEAR_COUNTS,
+                        "21(a)", extra=(*REFERENCE_FLAGS, *LINEAR_FLAG), label="linear_nerfacto")
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    model = NerfactoModel(linear_config(torch), len(parsed.image_filenames))
+    model.load_state_dict(load_checkpoint(latest_checkpoint(train["ckpt_dir"]))["params"], strict=True)
+    if any(".MLP_0." in k for k in model.state_dict()):
+        fail("linear proposal networks with an MLP_0")
+    chunks = -(-(SCENE["width"] * SCENE["height"]) // CHUNK)
+    zero_counts(ffc)
+    psnr, acc = view_metrics(torch, model.to(torch.device("cuda")).eval(), parsed)
+    torch.cuda.synchronize()
+    views = len(psnr)
+    if counts(ffc) != expect_counts(K1=chunks, K3=2 * chunks)(views):
+        fail(f"linear proposals, {views} views: launches {counts(ffc)}, expected K1 {chunks} and K3 "
+             f"{2 * chunks} a view")
+    psnr_free, acc_free = view_metrics(torch, model, parsed, box=False)
+    factor = NerfactoModel(dataclasses.replace(NerfactoModelConfig(), background_color=REFERENCE_FLAGS[1]),
+                           len(parsed.image_filenames))
+    factor.load_state_dict(load_checkpoint(latest_checkpoint(ref["ckpt_dir"]))["params"], strict=True)
+    f_psnr_free, f_acc_free = view_metrics(torch, factor.to(torch.device("cuda")).eval(), parsed, box=False)
+    zero_counts(ffc)
+    out = tmp / "linear_render"
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    rc = render_cli.main(["--data", str(data), "--output", str(out), "--load-dir", str(train["ckpt_dir"]), "--arc",
+                          "1", "--device", "cuda", "--depth", "false", "--model.background-color",
+                          REFERENCE_FLAGS[1], "--model.proposal-net-args-list", LINEAR_ARGS])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    render = counts(ffc)
+    if rc != 0 or render != expect_counts(K1=chunks, K3=2 * chunks)(1) or not (out / "rgb_00000.png").exists():
+        fail(f"render CLI with linear proposals: rc {rc}, launches {render}")
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    print(f"phase 21(a) linear proposal networks on 14c's scene: train rays/s {train['rays_per_s']:.0f} (phase 7, "
+          f"nerfacto's MLP proposals on the white scene: {phase7['rays_per_s']:.0f}); its {views} views in the scene "
+          f"box: PSNR " + ", ".join(f"{v:.2f}" for v in psnr) + f" (mean {mean(psnr):.2f}) dB, accumulation mean "
+          f"{mean(acc):.4f}; 14c's factor NeRF with MLP proposals: PSNR mean {mean(ref['psnr']):.2f} dB, "
+          f"accumulation mean {mean(ref['accumulation']):.4f}; rays between the near and far planes (as trained): "
+          f"linear PSNR mean {mean(psnr_free):.2f} dB, accumulation mean {mean(acc_free):.4f}, 14c's NeRF "
+          f"{mean(f_psnr_free):.2f} dB, {mean(f_acc_free):.4f}; views launched K1 {chunks} and K3 {2 * chunks} a "
+          f"view, no other kernel; render CLI, one {SCENE['width']} px frame: K1 {render['K1']}, K3 {render['K3']}, "
+          f"wall {cli_s:.3f} s; on {card}", flush=True)
+    return {"train": train, "views": views, "chunks": chunks, "render_frames": 1}
+
+
+def phase_camera_arc(torch, card: str, data: Path, ckpt_dir: Path) -> dict:
+    """(b) `CameraArcDataset` cameras around the scene, phase 7's checkpoint
+    rendered over `FixedIndicesEvalCameraDataloader`."""
+    from signerf_tpu_torch.data.camera_arc import (
+        CameraArcDataset,
+        CameraArcDatasetConfig,
+        FixedIndicesEvalCameraDataloader,
+    )
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, load_checkpoint
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+    from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    model = NerfactoModel(NerfactoModelConfig(), len(parsed.image_filenames))
+    model.load_state_dict(load_checkpoint(latest_checkpoint(ckpt_dir))["params"], strict=True)
+    model = model.to(dev).eval()
+    w, h = SCENE["width"], SCENE["height"]
+    # the render CLI's arc: radius 1 in the NeRF's frame, the dataset's focal
+    fx = float(parsed.cameras.fx[0])
+    arc = CameraArcDataset(CameraArcDatasetConfig(num_cameras=ARC_CAMERAS, radius=1.0, theta=70.0, width=w,
+                                                  height=h, fx=fx, fy=fx))
+    if arc.cameras.device.type != "cuda":
+        fail("CameraArcDataset did not put its cameras on the card")
+    loader = FixedIndicesEvalCameraDataloader(arc.cameras, range(ARC_CAMERAS), torch.as_tensor(parsed.scene_box_aabb))
+    render = make_eval_render(model, chunk_size=CHUNK)
+    chunks = -(-(w * h) // CHUNK)
+    frame_ms, acc, order = [], [], []
+    torch.cuda.synchronize()
+    zero_counts(ffc)
+    for i, bundle in loader:
+        t0 = time.perf_counter()
+        out = render(bundle.reshape((h * w,)))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        order.append(i)
+        for k, v in out.items():
+            if not bool(torch.isfinite(v).all()):
+                fail(f"camera arc view {i}: non-finite {k}")
+        acc.append(float(out["accumulation"].mean()))
+    got = counts(ffc)
+    if got != expect_counts(K1=3 * chunks)(ARC_CAMERAS) or order != list(range(ARC_CAMERAS)):
+        fail(f"camera arc: launches {got}, expected K1 3 x {chunks} x {ARC_CAMERAS}; order {order}")
+    if not min(acc) > 0.0:
+        fail(f"camera arc: a view's accumulation is {min(acc)}")
+    warm = sorted(frame_ms[1:])
+    print(f"phase 21(b) CameraArcDataset, {ARC_CAMERAS} cameras at {w}x{h} (radius 1, theta 70, fx {fx:.1f}), phase "
+          f"7's checkpoint over FixedIndicesEvalCameraDataloader: K1 {got['K1']} (= 3 x {chunks} x {ARC_CAMERAS}), "
+          f"no other kernel; frame median {warm[len(warm) // 2]:.3f} ms (range {warm[0]:.3f} to {warm[-1]:.3f}, "
+          f"first {frame_ms[0]:.3f}); outputs finite, mean accumulation " + ", ".join(f"{a:.2e}" for a in acc)
+          + f"; on {card}", flush=True)
+    return {"chunks": chunks * ARC_CAMERAS}
+
+
+def base_encoding(torch, ckpt_dir: Path, **knobs):
+    """A `FactorGridEncoding` at the base field's schedule (with `knobs`)
+    holding the line tables of the checkpoint in `ckpt_dir`, on the card."""
+    from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, load_checkpoint
+    from signerf_tpu_torch.models.fields import FactorGridEncoding
+    from signerf_tpu_torch.ops.factor_grid import FactorGridConfig
+
+    levels, max_res, feat = BASE_SCHEDULE
+    enc = FactorGridEncoding(FactorGridConfig(num_levels=levels, base_res=16, max_res=max_res,
+                                              features_per_level=feat, **knobs))
+    enc.reset_parameters(torch.Generator().manual_seed(21))
+    params = load_checkpoint(latest_checkpoint(ckpt_dir))["params"]
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.startswith("line_"):
+                p.copy_(params[f"field.encoding.{name}"])
+    return enc.to(torch.device("cuda"))
+
+
+def phase_planes(torch, card: str, ckpt_dir: Path) -> dict:
+    """(c) `FactorGridEncoding` with planes (the JAX defaults) on phase 7's
+    base-field lines at one `signerf` micro-batch's N, forward and backward,
+    against the same module on the twins."""
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    enc = base_encoding(torch, ckpt_dir, **PLANE_DEFAULTS)
+    gen = torch.Generator().manual_seed(22)
+    n = SIGNERF_SAMPLES
+    x = torch.rand(n, 3, generator=gen).to(dev)
+    ct = torch.randn(n, enc.out_dim, generator=gen).to(dev)
+
+    def run():
+        enc.zero_grad()
+        out = enc(x)
+        (out * ct).sum().backward()
+        return out.detach(), {k: p.grad.clone() for k, p in enc.named_parameters()}
+
+    torch.cuda.synchronize()
+    zero_counts(ffc)
+    got, g_got = run()
+    torch.cuda.synchronize()
+    launched = counts(ffc)
+    if launched != expect_counts(K3=1, K4_tables=1)(1):
+        fail(f"planes: launches {launched}, expected K3 1 and K4 tables 1")
+    want, g_want = with_twins(ffc, ("encode", "encode_bwd"), run)
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+    if err > 2**-8 or not bool(torch.isfinite(got).all()) or tuple(got.shape) != (n, enc.out_dim):
+        fail(f"planes: features {tuple(got.shape)}, error {err:.3g} of max|ref| > 2^-8")
+    errs = {k: rel_err(g_got[k], g_want[k]) for k in g_got}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > K456_TOL:
+        fail(f"planes: {worst}'s gradient {errs[worst]:.3g} from the twin's > {K456_TOL}")
+    fwd_ms = cuda_ms(lambda: enc(x), 5)
+    step_ms = cuda_ms(run, 5)
+    twin_ms_ = with_twins(ffc, ("encode", "encode_bwd"), lambda: cuda_ms(run, 2))
+    print(f"phase 21(c) FactorGridEncoding with planes (plane_res {PLANE_DEFAULTS['plane_res']}, plane_features "
+          f"{PLANE_DEFAULTS['plane_features']}, D = {enc.out_dim}) on phase 7's base-field lines, N={n}: launches K3 "
+          f"{launched['K3']}, K4 tables {launched['K4 tables']}, no other kernel; features {err:.2e} of max|ref| from "
+          f"the twins', worst gradient {worst} {errs[worst]:.2e} norm-relative (lines and planes; bound {K456_TOL}); "
+          f"forward {fwd_ms:.3f} ms, forward + backward {step_ms:.3f} ms (on the twins {twin_ms_:.3f} ms); on {card}",
+          flush=True)
+    return {"K3": 1, "K4 tables": 1}
+
+
+def phase_encode_with_grad(torch, card: str, ckpt_dir: Path) -> dict:
+    """(d) `FactorGridEncoding.encode_with_grad` on phase 7's base-field
+    lines at the same N, values and the VJP w.r.t. the lines, against the
+    same calls on the twins."""
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    enc = base_encoding(torch, ckpt_dir)
+    gen = torch.Generator().manual_seed(23)
+    n, d = SIGNERF_SAMPLES, enc.out_dim
+    x = torch.rand(n, 3, generator=gen).to(dev)
+    ct_f, ct_d = torch.randn(n, d, generator=gen).to(dev), torch.randn(n, 3, d, generator=gen).to(dev)
+
+    def run():
+        enc.zero_grad()
+        f, df = enc.encode_with_grad(x)
+        ((f * ct_f).sum() + (df * ct_d).sum()).backward()
+        return f.detach(), df.detach(), {k: p.grad.clone() for k, p in enc.named_parameters()}
+
+    torch.cuda.synchronize()
+    zero_counts(ffc)
+    f, df, g = run()
+    torch.cuda.synchronize()
+    launched = counts(ffc)
+    expected = expect_counts(K3=1, K4_tables=1, K8=1, K9_tables=1)(1)
+    if launched != expected:
+        fail(f"encode_with_grad: launches {launched}, expected {expected}")
+    twins = ("encode", "encode_bwd", "grad", "grad_bwd")
+    f_w, df_w, g_w = with_twins(ffc, twins, run)
+    e_f = float((f - f_w).abs().max()) / max(float(f_w.abs().max()), 1e-12)
+    e_d = rel_err(df, df_w)
+    errs = {k: rel_err(g[k], g_w[k]) for k in g}
+    worst = max(errs, key=errs.get)
+    if e_f > K3_TOL or e_d > K456_TOL or errs[worst] > K456_TOL or not bool(torch.isfinite(df).all()):
+        fail(f"encode_with_grad vs the twins: features {e_f:.3g}, d features {e_d:.3g}, {worst} {errs[worst]:.3g}")
+    fwd_ms = cuda_ms(lambda: enc.encode_with_grad(x), 5)
+    step_ms = cuda_ms(run, 5)
+    print(f"phase 21(d) encode_with_grad on phase 7's base-field lines, N={n}: launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items() if v) + f", no other kernel; vs the twins: features "
+          f"{e_f:.2e} of max|ref|, d features {e_d:.2e}, worst line gradient {worst} {errs[worst]:.2e} "
+          f"(norm-relative); forward {fwd_ms:.3f} ms, forward + VJP {step_ms:.3f} ms; on {card}", flush=True)
+    return launched
+
+
+def phase_image_cache(torch, card: str, data: Path) -> None:
+    """(g) `CachedImageStore` on the card over the scene's images."""
+    import numpy as np
+
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.data.datamanager import CachedImageStore, load_images
+
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
+    files, w, h = parsed.image_filenames, SCENE["width"], SCENE["height"]
+    full = torch.from_numpy(load_images(files, w, h)).cuda()
+    t0 = time.perf_counter()
+    store = CachedImageStore(files, w, h, CACHE["size"], CACHE["every"], seed=CACHE["seed"])
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(CACHE["seed"])
+    want = rng.choice(len(files), CACHE["size"], replace=False)
+    subsets, fetch_ms = [], []
+    for k in range(1, CACHE["fetches"] + 1):
+        if k % CACHE["every"] == 0:
+            want = rng.choice(len(files), CACHE["size"], replace=False)
+        t0 = time.perf_counter()
+        images, idx = store.fetch()
+        torch.cuda.synchronize()
+        fetch_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(idx, want) or images.device.type != "cuda" or images.dtype != torch.uint8:
+            fail(f"CachedImageStore fetch {k}: indices {idx.tolist()} on {images.device}, numpy's {want.tolist()}")
+        if not torch.equal(images, full[torch.as_tensor(idx, device=full.device)]):
+            fail(f"CachedImageStore fetch {k}: rows differ from the full stack's")
+        subsets.append(idx.tolist())
+    print(f"phase 21(g) CachedImageStore, {CACHE['size']} of {len(files)} images of {w}x{h} on the card, resampled "
+          f"every {CACHE['every']} fetches: subsets " + ", ".join(map(str, subsets)) + " equal numpy's RandomState("
+          f"{CACHE['seed']}) draws, rows equal the full stack's; build {build_s * 1e3:.1f} ms, fetches "
+          + ", ".join(f"{v:.1f}" for v in fetch_ms) + f" ms; on {card}", flush=True)
+
+
+def phase_flops(torch, card: str, phase7: dict, linear: dict) -> None:
+    """(h) The FLOP model: per-ray counts of phase 7's model and (a)'s,
+    their tensor-core and CUDA-core shares at the measured train rays/s."""
+    from signerf_tpu_torch.models.nerfacto import NerfactoModelConfig
+    from signerf_tpu_torch.ops import flops
+
+    for label, cfg, rays in (("phase 7 (MLP proposals)", NerfactoModelConfig(), phase7["rays_per_s"]),
+                             ("21(a) (linear proposals)", linear_config(torch), linear["train"]["rays_per_s"])):
+        f = flops.nerfacto_flops(cfg)
+        tc = flops.utilization(f.train_tc_per_ray, rays, flops.BF16_FLOP_PER_S)
+        cc = flops.utilization(f.train_f32_per_ray, rays, flops.F32_FLOP_PER_S)
+        print(f"phase 21(h) FLOP model, {label}: render {f.render_per_ray / 1e6:.3f} MFLOP a ray "
+              f"(tensor cores {f.render_tc_per_ray / 1e6:.3f}, f32 {f.render_f32_per_ray / 1e6:.3f}); train "
+              f"{f.train_per_ray / 1e6:.3f} MFLOP a ray (tensor cores {f.train_tc_per_ray / 1e6:.3f}, f32 "
+              f"{f.train_f32_per_ray / 1e6:.3f}); at {rays:.0f} train rays/s: tensor cores {tc:.3f}% of "
+              f"{flops.BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, CUDA cores {cc:.3f}% of "
+              f"{flops.F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; breakdown: "
+              + "; ".join(r.strip() for r in flops.breakdown_str(f).split("\n")) + f"; on {card}", flush=True)
+
+
+def phase_factor_repeat(torch, card: str, tmp: Path, ref: dict) -> None:
+    """The spread between two identical factor training runs (ROADMAP
+    Queue 3): `signerf_nerfacto` twice from seed 42 on 14c's scene, each
+    step's loss recorded, as 14g's check does for the hash backend."""
+    from signerf_tpu_torch import train as cli
+    from signerf_tpu_torch.engine import train_step as tts
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    real_loss = tts.default_loss_fn
+    runs = []
+    for run in range(2):
+        losses = []
+
+        def recording_loss(model, outputs, batch):
+            total, ld = real_loss(model, outputs, batch)
+            losses.append(total.detach())
+            return total, ld
+
+        tts.default_loss_fn = recording_loss
+        zero_counts(ffc)
+        try:
+            rc = cli.main(train_argv("signerf_nerfacto", ref["data"], tmp / f"factor_repeat{run}", REPEAT_STEPS,
+                                     "--steps-per-call", "1", *REFERENCE_FLAGS))
+        finally:
+            tts.default_loss_fn = real_loss
+        torch.cuda.synchronize()
+        if rc != 0 or len(losses) != REPEAT_STEPS or counts(ffc) != NERFACTO_COUNTS(REPEAT_STEPS):
+            fail(f"factor repeat run {run}: rc {rc}, {len(losses)} losses, launches {counts(ffc)}")
+        runs.append([float(v) for v in losses])
+    deltas = [abs(a - b) for a, b in zip(*runs)]
+    rel = [d / abs(a) for d, a in zip(deltas, runs[0])]
+    same = next((i for i, d in enumerate(deltas) if d != 0.0), REPEAT_STEPS)
+    print(f"phase 21 run-to-run (factor): signerf_nerfacto twice from seed 42, {REPEAT_STEPS} steps of {TRAIN_RAYS} "
+          f"rays on 14c's scene ({' '.join(REFERENCE_FLAGS)}; K1, K2 tables 3 a step): the loss equal bit for bit "
+          f"for the first {same} step(s); per-step |d loss| " + ", ".join(f"{d:.3e}" for d in deltas) + " (relative "
+          + ", ".join(f"{r:.2e}" for r in rel) + "); losses of run 0 " + ", ".join(f"{v:.6f}" for v in runs[0])
+          + f"; on {card}", flush=True)
+    if not all(d == d for d in deltas):
+        fail("factor repeat: a loss is NaN")
+
+
+def phase_last_modules(torch, card: str, data: Path, tmp: Path, ref: dict, phase7: dict) -> dict:
+    """Phase 21 (a) to (d), (g), (h) and the factor run-to-run check."""
+    t0 = time.perf_counter()
+    stats = phase_proposal_encode(torch)
+    linear = phase_linear_proposals(torch, card, tmp, ref, phase7)
+    arc = phase_camera_arc(torch, card, data, phase7["ckpt_dir"])
+    planes = phase_planes(torch, card, phase7["ckpt_dir"])
+    ewg = phase_encode_with_grad(torch, card, phase7["ckpt_dir"])
+    phase_image_cache(torch, card, ref["data"])
+    phase_flops(torch, card, phase7, linear)
+    phase_factor_repeat(torch, card, tmp, ref)
+    print(f"phase 21 wall, (a) to (d), (g), (h) and the run-to-run check: {time.perf_counter() - t0:.1f} s; on "
+          f"{card}", flush=True)
+    return {"stats": stats, "linear": linear, "arc_chunks": arc["chunks"], "repeat_steps": 2 * REPEAT_STEPS,
+            "K3": planes["K3"] + ewg["K3"], "K4 tables": planes["K4 tables"] + ewg["K4 tables"], "K8": ewg["K8"],
+            "K9 tables": ewg["K9 tables"]}
+
+
+# Phase 21 (f): flax's msgpack (flax/serialization.py) as the JAX package's
+# scripts/convert_sdxl_weights.py writes it: nested maps of str keys, each
+# array an ext of type 1 whose payload is the msgpack of (shape, dtype name,
+# C-order bytes). This script imports neither flax (the card's machine has
+# none) nor msgpack.
+def _msgpack_uint(n: int) -> bytes:
+    if n < 128:
+        return bytes([n])
+    for code, fmt, top in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16), (0xCE, ">I", 1 << 32)):
+        if n < top:
+            return bytes([code]) + struct.pack(fmt, n)
+    return b"\xcf" + struct.pack(">Q", n)
+
+
+def _msgpack_header(n: int, small: int, small_max: int, codes) -> bytes:
+    if n < small_max:
+        return bytes([small | n])
+    for code, fmt, top in codes:
+        if n < top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n}")
+
+
+def _msgpack_str(s: str) -> bytes:
+    raw = s.encode()
+    return _msgpack_header(len(raw), 0xA0, 32, ((0xD9, ">B", 1 << 8), (0xDA, ">H", 1 << 16))) + raw
+
+
+def _msgpack_map(n: int) -> bytes:
+    return _msgpack_header(n, 0x80, 16, ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32)))
+
+
+def write_flax_msgpack(f, tree) -> int:
+    """Write `tree` (nested dicts of f32 numpy arrays or a callable that
+    gives one) to the open file `f`, one array at a time; -> bytes written."""
+    written = f.write(_msgpack_map(len(tree)))
+    for key, val in tree.items():
+        written += f.write(_msgpack_str(str(key)))
+        if isinstance(val, dict):
+            written += write_flax_msgpack(f, val)
+            continue
+        arr = val()
+        shape = _msgpack_header(arr.ndim, 0x90, 16, ((0xDC, ">H", 1 << 16),)) + b"".join(
+            _msgpack_uint(d) for d in arr.shape)
+        head = b"\x93" + shape + _msgpack_str(arr.dtype.name) + b"\xc6" + struct.pack(">I", arr.nbytes)
+        written += f.write(b"\xc9" + struct.pack(">I", len(head) + arr.nbytes) + b"\x01" + head)
+        written += f.write(memoryview(arr).cast("B"))
+    return written
+
+
+def jax_layout(torch, pipe) -> dict:
+    """The pipeline's five components as the JAX params tree: the port's
+    dotted names split into nested dicts, conv kernels from OIHW back to
+    HWIO, each leaf a callable giving its f32 host copy."""
+    from signerf_tpu_torch.convert import SDXL_COMPONENTS
+
+    tree = {}
+    for comp in SDXL_COMPONENTS:
+        for name, t in getattr(pipe, comp).state_dict().items():
+            node = tree.setdefault(comp, {})
+            *path, leaf = name.split(".")
+            for part in path:
+                node = node.setdefault(part, {})
+            hwio = leaf == "kernel" and t.dim() == 4
+            node[leaf] = (lambda t=t, hwio=hwio: (t.permute(2, 3, 1, 0) if hwio else t).float().contiguous()
+                          .cpu().numpy())
+    return tree
+
+
+def host_rss_gib() -> float:
+    """This process's resident set, GiB (/proc/self/status)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2**20
+    fail("/proc/self/status has no VmRSS")
+
+
+class RssPeak:
+    """The largest resident set seen while the block runs, sampled every
+    20 ms by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = host_rss_gib(), threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, host_rss_gib())
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_gib())
+
+
+def phase_last_sdxl(torch, card: str, sh: dict) -> dict:
+    """Phase 21 (e) the VAE's posterior sample at 1024 px and (f) the full
+    pipeline written in the JAX package's msgpack layout (f32), loaded by
+    `SDXLInpaintPipeline.create`, every tensor checked, then one sampler
+    step of the 1536 px sheet on it."""
+    import warnings
+
+    import numpy as np
+
+    from signerf_tpu_torch.diffusion.sdxl_pipeline import SDXLInpaintPipeline
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    pipe = sh["diffuser"].pipeline
+    vae = pipe.vae
+    img = (torch.rand(1, 1024, 1024, 3, generator=torch.Generator().manual_seed(24)) * 2 - 1).to(dev)
+    with torch.no_grad():
+        mean = vae.encode(img)
+        a = vae.encode(img, generator=torch.Generator(device=dev).manual_seed(5))
+        b = vae.encode(img, generator=torch.Generator(device=dev).manual_seed(5))
+        none = vae.encode(img, generator=None, noise=None)
+        enc_ms = cuda_ms(lambda: vae.encode(img, generator=torch.Generator(device=dev).manual_seed(5)), 3)
+    if not (torch.equal(a, b) and torch.equal(none, mean)) or torch.equal(a, mean) or not bool(
+            torch.isfinite(a).all()):
+        fail("VAE posterior: two draws of one generator differ, or noise=None is not the mean")
+    moved = rel_err(a.float(), mean.float())
+    print(f"phase 21(e) the SDXL VAE's posterior at 1024 px: latents {tuple(a.shape)} {a.dtype}; two encodes with "
+          f"one seeded generator equal bit for bit, noise=None equal to the mean bit for bit, the sample "
+          f"{moved:.3e} of the mean's norm from it; encode with a draw {enc_ms:.3f} ms; on {card}", flush=True)
+
+    t_all = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_sdxl_msgpack"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        path = root / "sdxl_params.msgpack"
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            size = write_flax_msgpack(f, jax_layout(torch, pipe))
+        write_s = time.perf_counter() - t0
+        rss_before = host_rss_gib()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, RssPeak() as rss:
+            warnings.simplefilter("always")
+            loaded = SDXLInpaintPipeline.create(root)
+        load_s = time.perf_counter() - t0
+        rss_after = host_rss_gib()
+        dev_peak = torch.cuda.max_memory_allocated() / 2**30 - base_alloc
+        if any("RANDOM-INIT" in str(w.message) for w in caught):
+            fail("create(weights_path) with sdxl_params.msgpack warned RANDOM-INIT")
+        checked = 0
+        for comp in ("unet", "controlnet", "vae", "clip_l", "clip_g"):
+            want = getattr(pipe, comp).state_dict()
+            got = getattr(loaded, comp).state_dict()
+            if sorted(got) != sorted(want):
+                fail(f"{comp}: the loaded names differ from the source's")
+            for k, v in got.items():
+                if v.dtype != torch.bfloat16 or not torch.equal(v, want[k]):
+                    fail(f"{comp}.{k}: loaded {v.dtype} differs from the source's bf16")
+                checked += 1
+        fa.launches = 0
+        t0 = time.perf_counter()
+        out = loaded.img2img(sh["sheet"], "", mask=sh["mask"], control_image=sh["depth"], num_steps=2)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        steps = loaded.last_run["sampler_steps"]
+        if steps != 1 or fa.launches != K7_PER_STEP or not np.isfinite(out).all() or out.shape != sh["sheet"].shape:
+            fail(f"one sheet step on the loaded weights: {steps} steps, K7 {fa.launches} launches (expected "
+                 f"{K7_PER_STEP}), output {out.shape}, finite {np.isfinite(out).all()}")
+        launches = fa.launches
+        del loaded
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 21(f) JAX-format SDXL weights: the full pipeline written as flax msgpack of f32 arrays (the JAX "
+          f"layout, conv kernels HWIO), {size / 1e9:.3f} GB in {write_s:.1f} s; SDXLInpaintPipeline.create read it "
+          f"(memory-mapped, cast to bf16 leaf by leaf) in {load_s:.1f} s without the RANDOM-INIT warning, host "
+          f"resident set {rss_before:.2f} GiB before, peak {rss.peak:.2f} GiB during and {rss_after:.2f} GiB after "
+          f"the load, device peak {dev_peak:.2f} GiB above "
+          f"the {base_alloc:.2f} GiB held before; {checked} tensors equal to the source's bf16; one 1536 px sheet "
+          f"sampler step on them: K7 {launches} launches, output finite, {step_s:.3f} s; phase wall "
+          f"{time.perf_counter() - t_all:.1f} s; on {card}", flush=True)
+    return {"k7_launches": launches, "steps": 1}
+
+
 def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms", bound_key="",
                  replaces="signerf_tpu/ops/fused_factor_pallas.py"):
     return {
@@ -3367,6 +3996,7 @@ def main() -> int:
         edit = phase_edit_pass(torch, card, tmp, ref)
         viewer = phase_viewer(torch, card, tmp, ref)
         phase_hash(torch, card, data, tmp, ref)
+        last = phase_last_modules(torch, card, data, tmp, ref, train)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k7 = phase_k7(torch, card)
@@ -3374,27 +4004,41 @@ def main() -> int:
     phase_per_view(torch, card, sheet)
     phase_cfg_branch(torch, card, sheet)
     phase_diffusion_profile(torch, card, sheet)
+    last_sdxl = phase_last_sdxl(torch, card, sheet)
     launched = signerf["launches"]
     # Calls of each field at a render chunk's and a train step's N in phases
     # 6, 7, 11, 14, the edit pass (14d, 14e) and the viewer (14f; the eval
     # render and a `signerf` step call only the proposal fields, the latter
     # in each of its micro-batches), and the base field's at the mesh
     # export's N.
-    chunks = render_launches // 3 + edit["chunks"] + viewer["chunks"]
-    steps = train["launches"]["K1"] // 3 + edit["train_steps"] + viewer["train_steps"]
+    chunks = render_launches // 3 + edit["chunks"] + viewer["chunks"] + last["arc_chunks"]
+    steps = train["launches"]["K1"] // 3 + edit["train_steps"] + viewer["train_steps"] + last["repeat_steps"]
     eval_chunks, micro = evaluation["K1"] // 2, launched["K1"] // 2
     fields = [(name, name != "final") for name, _, _ in TRAIN_SCHEDULES]
     k1_calls = [(chunks + eval_chunks * proposal, k1["per_call"][(name, "chunk")]) for name, proposal in fields]
     k1_calls += [(steps + micro * proposal, k1["per_call"][(name, "train")]) for name, proposal in fields]
     k1_calls += [(edit["mesh_calls"] + viewer["mesh_calls"], k1["per_call"][("final", "mesh")])]
+    # Phase 21(a): the linear proposals' steps and chunks run K1 (and K2's
+    # tables half) for the base field only, K3 (and K4's tables half) for
+    # the proposal fields.
+    linear, p21 = last["linear"], last["stats"]
+    lin_steps = linear["train"]["launches"]["K1"]
+    lin_chunks = (linear["views"] + linear["render_frames"]) * linear["chunks"]
+    k1_calls += [(lin_steps, k1["per_call"][("final", "train")]), (lin_chunks, k1["per_call"][("final", "chunk")])]
     k2_tables = [(steps + micro * proposal, k2["per_call"][name]["tables"]) for name, proposal in fields]
+    k2_tables += [(lin_steps, k2["per_call"]["final"]["tables"])]
+    k3_calls = [(launched["K3"], k36["K3"]), (evaluation["K3"], k36["K3"]["eval"]), (last["K3"], k36["K3"])]
+    k4_calls = [(launched["K4 tables"], k36["K4 tables"]), (last["K4 tables"], k36["K4 tables"])]
+    for name, _, _ in PROPOSAL_FIELDS:
+        k3_calls += [(lin_steps, p21[("K3", name, "train")]), (lin_chunks, p21[("K3", name, "chunk")])]
+        k4_calls += [(lin_steps, p21[("K4 tables", name, "train")])]
     # K7 per call over the sheet inpaint's shapes (phase 16), the edit pass's
     # and the viewer's (14d, 14f).
-    k7_calls = {shape: 2 * n * sheet["steps"] for shape, n in K7_SHEET_CALLS.items()}
+    k7_calls = {shape: 2 * n * (sheet["steps"] + last_sdxl["steps"]) for shape, n in K7_SHEET_CALLS.items()}
     for shape, n in itertools.chain(edit["k7_shapes"].items(), viewer["k7_shapes"].items()):
         k7_calls[shape] = k7_calls.get(shape, 0) + n
     k7_stats = per_call("K7", [(n, k7["per_shape"][shape]) for shape, n in k7_calls.items()], k7["max_abs_err"])
-    k7_counted = sheet["launches"] + edit["k7_launches"] + viewer["k7_launches"]
+    k7_counted = sheet["launches"] + edit["k7_launches"] + viewer["k7_launches"] + last_sdxl["k7_launches"]
     if k7_stats["launches"] != k7_counted:
         fail(f"K7: {k7_stats['launches']} launches weighted, {k7_counted} counted")
     k2_coords = [(camopt["K2 coords"] // 3, k2["per_call"][name]["coords"]) for name, _ in fields]
@@ -3405,11 +4049,11 @@ def main() -> int:
                      None, per_call("K2 tables half", k2_tables, k2["max_abs_err"])),
         kernel_entry("fused_factor_density_bwd (coords half, per call)", "fused_factor_density_bwd.cu", 1776, None,
                      per_call("K2 coords half", k2_coords, k2["max_abs_err"])),
-        kernel_entry("fused_factor_encode", "fused_factor_encode.cu", 196, None,
-                     per_call("K3", [(launched["K3"], k36["K3"]), (evaluation["K3"], k36["K3"]["eval"])],
-                              k36["K3"]["max_abs_err"])),
-        kernel_entry("fused_factor_encode_bwd (tables half)", "fused_factor_encode.cu", 626,
-                     launched["K4 tables"], k36["K4 tables"]),
+        kernel_entry("fused_factor_encode (per call)", "fused_factor_encode.cu", 196, None,
+                     per_call("K3", k3_calls, max(k36["K3"]["max_abs_err"], p21["max_abs_err"]["K3"]))),
+        kernel_entry("fused_factor_encode_bwd (tables half, per call)", "fused_factor_encode.cu", 626, None,
+                     per_call("K4 tables half", k4_calls,
+                              max(k36["K4 tables"]["max_abs_err"], p21["max_abs_err"]["K4 tables"]))),
         kernel_entry("fused_factor_encode_bwd (coords half)", "fused_factor_encode.cu", 640,
                      signerf_camopt["K4 coords"], k36["K4 coords"]),
         kernel_entry("fused_factor_grad_dot", "fused_factor_grad_dot.cu", 1037, None,
@@ -3421,9 +4065,9 @@ def main() -> int:
                      signerf_camopt["K6 coords"], k36["K6 coords"]),
         kernel_entry("flash_attention (per call)", "flash_attention.cu", 216, None, k7_stats,
                      replaces="signerf_tpu/diffusion/unet.py"),
-        kernel_entry("fused_factor_grad", "fused_factor_grad.cu", 399, grad_entry["K8"], k810["K8"]),
-        kernel_entry("fused_factor_grad_bwd (tables half)", "fused_factor_grad.cu", 902, grad_entry["K9 tables"],
-                     k810["K9 tables"]),
+        kernel_entry("fused_factor_grad", "fused_factor_grad.cu", 399, grad_entry["K8"] + last["K8"], k810["K8"]),
+        kernel_entry("fused_factor_grad_bwd (tables half)", "fused_factor_grad.cu", 902,
+                     grad_entry["K9 tables"] + last["K9 tables"], k810["K9 tables"]),
         kernel_entry("fused_factor_grad_bwd (coords half)", "fused_factor_grad.cu", 916, grad_entry["K9 coords"],
                      k810["K9 coords"]),
         kernel_entry("factor_dense_encode (factor_encode_pallas)", "fused_factor_encode.cu", 79, grad_entry["K10"],

@@ -9,11 +9,21 @@ ray direction [(u - cx) / fx, -(v - cy) / fy, -1].
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from signerf_tpu_torch.ops.intersection import intersect_with_aabb
+
+
+class CameraType(enum.IntEnum):
+    """nerfstudio's camera types; rays are generated for PERSPECTIVE only,
+    as in the JAX package, which carries the field but never reads it."""
+
+    PERSPECTIVE = 0
+    FISHEYE = 1
+    EQUIRECTANGULAR = 2
 
 
 @dataclasses.dataclass
@@ -90,9 +100,22 @@ class Cameras:
     distortion_params: Optional[torch.Tensor] = None  # [N, 6] k1..k4, p1, p2
     width: int = 0
     height: int = 0
+    camera_type: int = int(CameraType.PERSPECTIVE)
 
     def __len__(self) -> int:
         return self.camera_to_worlds.shape[0]
+
+    def slice(self, idx) -> "Cameras":
+        """A subset of the cameras (an index, a slice or an index tensor),
+        with the same size and camera type."""
+        keep = lambda t: None if t is None else t[idx]  # noqa: E731
+        return dataclasses.replace(
+            self,
+            **{name: keep(getattr(self, name)) for name in ("camera_to_worlds", "fx", "fy", "cx", "cy",
+                                                            "distortion_params")},
+        )
+
+    __getitem__ = slice
 
     @property
     def device(self) -> torch.device:

@@ -15,12 +15,15 @@ turns a JAX `LPIPSParams` (as numpy) into the port's, HWIO conv kernels to
 OIHW.
 
 `sdxl_from_jax` does the same for the SDXL pipeline's five components: a
-rename by path, and conv kernels from HWIO to OIHW.
+rename by path, and conv kernels from HWIO to OIHW. `load_sdxl_from_jax_`
+copies such a tree straight into the modules one leaf at a time (each
+leaf cast to its parameter's device and dtype), for trees as large as the
+full SDXL's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -31,18 +34,16 @@ from signerf_tpu_torch.ops.lpips import LPIPSParams, from_hwio
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested dict of arrays (the JAX params tree, as numpy) -> flat
     {dotted name: f32 tensor}."""
-    out: Dict[str, torch.Tensor] = {}
+    return {name: torch.from_numpy(np.array(val, dtype=np.float32)) for name, val in _leaves(params)}
 
-    def walk(prefix: str, node: Mapping[str, Any]) -> None:
-        for key, val in node.items():
-            name = f"{prefix}{key}"
-            if isinstance(val, Mapping):
-                walk(name + ".", val)
-            else:
-                out[name] = torch.from_numpy(np.array(val, dtype=np.float32))
 
-    walk("", params)
-    return out
+def _leaves(node: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) of a nested dict, depth first in its order."""
+    for key, val in node.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
 
 
 def jax_params_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
@@ -63,17 +64,52 @@ def lpips_from_jax(params: Any) -> LPIPSParams:
     return from_hwio(params.convs, params.lins, params.net)
 
 
+SDXL_COMPONENTS = ("unet", "controlnet", "vae", "clip_l", "clip_g")
+
+
+def _sdxl_leaves(params: Mapping[str, Any]) -> Iterator[Tuple[str, str, torch.Tensor]]:
+    """(component, the port's name, tensor) for each leaf of the JAX SDXL
+    params: tensors as given (views stay views), numpy or jax arrays as f32
+    tensors, conv kernels permuted from HWIO to OIHW (a view)."""
+    for comp in SDXL_COMPONENTS:
+        for name, val in _leaves(params[comp]):
+            t = val if isinstance(val, torch.Tensor) else torch.from_numpy(np.array(val, dtype=np.float32))
+            if name.endswith("kernel") and t.dim() == 4:
+                t = t.permute(3, 2, 0, 1)
+            yield comp, name, t
+
+
 def sdxl_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX SDXL pipeline's params (`{unet, controlnet, vae, clip_l,
     clip_g}`, arrays as numpy) -> `{component: state_dict}` of the port's
     `SDXLInpaintPipeline` (f32 tensors; loading casts them to the modules'
     bf16). Dense kernels keep flax's [in, out] layout; conv kernels go from
     HWIO to `F.conv2d`'s OIHW."""
-    out: Dict[str, Dict[str, torch.Tensor]] = {}
-    for comp in ("unet", "controlnet", "vae", "clip_l", "clip_g"):
-        sd = state_dict_from_jax(params[comp])
-        for name, val in sd.items():
-            if name.endswith("kernel") and val.dim() == 4:
-                sd[name] = val.permute(3, 2, 0, 1).contiguous()
-        out[comp] = sd
+    out: Dict[str, Dict[str, torch.Tensor]] = {comp: {} for comp in SDXL_COMPONENTS}
+    for comp, name, t in _sdxl_leaves(params):
+        out[comp][name] = torch.empty(t.shape, dtype=torch.float32).copy_(t)
     return out
+
+
+@torch.no_grad()
+def load_sdxl_from_jax_(modules: Mapping[str, torch.nn.Module], params: Mapping[str, Any]) -> None:
+    """Copy the JAX SDXL pipeline's params (`{unet, controlnet, vae,
+    clip_l, clip_g}`, leaves as tensors, for example read-only views from
+    `engine.checkpoints.msgpack_restore_file`, or numpy arrays) into the
+    port's modules of those names, leaf by leaf: each leaf goes to its
+    parameter's device and dtype in one copy, so no converted copy of the
+    tree is ever built. Strict, as `load_state_dict(strict=True)`: every
+    name on both sides, same shapes."""
+    targets = {comp: modules[comp].state_dict() for comp in SDXL_COMPONENTS}
+    seen = {comp: set() for comp in SDXL_COMPONENTS}
+    for comp, name, src in _sdxl_leaves(params):
+        if name not in targets[comp]:
+            raise KeyError(f"{comp}: unexpected parameter {name!r}")
+        if tuple(src.shape) != tuple(targets[comp][name].shape):
+            raise ValueError(f"{comp}.{name}: shape {tuple(src.shape)}, expected {tuple(targets[comp][name].shape)}")
+        targets[comp][name].copy_(src)
+        seen[comp].add(name)
+    for comp in SDXL_COMPONENTS:
+        missing = sorted(set(targets[comp]) - seen[comp])
+        if missing:
+            raise KeyError(f"{comp}: missing parameters {missing[:5]} ({len(missing)} in all)")

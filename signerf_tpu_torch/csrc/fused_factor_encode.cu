@@ -89,9 +89,10 @@
 // products, one rounding) and the axes multiplied in f32. Its bound is
 // K3's. K10's backward is K4 (signerf_tpu_torch/ops/factor_grid_kernel.py).
 //
-// K3 is instantiated for the base field (F = 16, 8 levels); K10 and K4 for
-// the base field and the proposal fields (F = 8, 5 levels; K4's tables
-// half takes them through the same code, its coords half through the tile
+// K3, K10 and K4 are instantiated for the base field (F = 16, 8 levels)
+// and the proposal fields (F = 8, 5 levels: the linear proposal networks'
+// encode, and K10's; K3 and K10 take them through the same kernel, K4's
+// tables half through the same code, its coords half through the tile
 // loop's two block shapes).
 //
 // Built with nvcc into a shared library with a plain C interface and bound
@@ -272,6 +273,7 @@ extern "C" int fused_factor_encode_forward(const void* coords, int n, const void
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (feat == 16 && num_levels == 8) return launch_forward<16, 8, false>(c, n, t, s, o, st);  // base field
+  if (feat == 8 && num_levels == 5) return launch_forward<8, 5, false>(c, n, t, s, o, st);  // proposal fields
   return cudaErrorInvalidValue;
 }
 

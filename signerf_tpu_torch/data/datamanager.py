@@ -11,8 +11,11 @@ size, as the JAX loader does: images bilinearly with the arithmetic of the
 JAX package's native PNG codec (`native/image_codec.cpp`, the path it takes
 for PNGs), masks by nearest neighbour with Pillow's `NEAREST` sampling.
 
-Not ported yet: the `CachedImageStore` subset cache (its `cache_images`
-knobs are unknown keys; every image is held on the device).
+`CachedImageStore` is the JAX package's subset cache (a resampled subset of
+the images, for datasets larger than the device). As in the JAX package,
+`SIGNeRFDataManager` never builds one: the config's `cache_images` and
+`cache_resample_every` are accepted and carried, and every image is held
+on the device.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -116,8 +119,11 @@ class SIGNeRFDataManagerConfig:
         default_factory=SIGNeRFDataParserConfig
     )
     train_num_rays_per_batch: int = 4096
+    eval_num_rays_per_batch: int = 4096
     patch_size: int = 1
     micro_batches: int = 0  # 0: auto (see auto_micro_batches)
+    cache_images: int = -1  # -1: all on the device; K > 0: a CachedImageStore's subset size
+    cache_resample_every: int = 0  # the subset's resample period in fetches (0: never)
 
 
 def auto_micro_batches(num_rays: int, patch_size: int, use_mask: bool) -> int:
@@ -165,3 +171,48 @@ class SIGNeRFDataManager:
         return SamplerSettings(
             num_rays=num_rays, patch_size=patch, use_mask=use_mask, micro_batches=micro
         )
+
+
+class CachedImageStore:
+    """A subset of `cache_size` images held on `device` (the card unless the
+    caller names another) as one uint8
+    [K, H, W, 3] tensor, its subset drawn again every `resample_every`
+    fetches (0: never). The draws are the JAX package's:
+    `np.random.RandomState(seed).choice(len(filenames), cache_size,
+    replace=False)` at construction and at each resample, so the subsets'
+    indices are the JAX store's."""
+
+    def __init__(
+        self,
+        filenames: Sequence[Path],
+        width: int,
+        height: int,
+        cache_size: int,
+        resample_every: int = 0,
+        seed: int = 0,
+        device=None,
+    ):
+        self.filenames = list(filenames)
+        self.width = width
+        self.height = height
+        self.cache_size = min(cache_size, len(self.filenames))
+        self.resample_every = resample_every
+        self.device = torch.device("cuda" if device is None else device)
+        self._rng = np.random.RandomState(seed)
+        self._fetches = 0
+        self.current_indices: np.ndarray = np.array([], np.int64)
+        self.images: Optional[torch.Tensor] = None
+        self._resample()
+
+    def _resample(self) -> None:
+        self.current_indices = self._rng.choice(len(self.filenames), size=self.cache_size, replace=False)
+        stack = load_images([self.filenames[i] for i in self.current_indices], self.width, self.height)
+        self.images = torch.from_numpy(stack).to(self.device)
+
+    def fetch(self) -> Tuple[torch.Tensor, np.ndarray]:
+        """-> (images [K, H, W, 3] uint8 on the device, dataset indices [K]);
+        every `resample_every`-th fetch draws a new subset first."""
+        self._fetches += 1
+        if self.resample_every > 0 and self._fetches % self.resample_every == 0:
+            self._resample()
+        return self.images, self.current_indices

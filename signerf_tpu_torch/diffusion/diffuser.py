@@ -51,7 +51,8 @@ class DiffuserConfig:
     controlnet_conditioning_scale_end: float = 1.0
     controlnet_control_mode: str = "Balanced"
     # in-process knobs
-    sdxl_weights_path: Optional[str] = None  # directory with sdxl_params.pt; random if None
+    # directory with sdxl_params.pt or the JAX package's sdxl_params.msgpack; random if None
+    sdxl_weights_path: Optional[str] = None
     mask_blur: int = 4
     inpainting_fill: int = 1  # A1111 fill mode: 0 fill, 1 original, 2 noise, 3 zeros
     sharding_axis: Optional[str] = None  # accepted for config parity; the port has no mesh

@@ -13,12 +13,15 @@ the sequential-CFG gate runs the uncond and cond branches one after the
 other at sheet scale. The mesh, tensor parallelism and the meshed flash
 path of the JAX package are not ported.
 
-Weights: `create` loads `<weights_path>/sdxl_params.pt` (`{component:
-state_dict}` in the port's names, e.g. written by `convert.sdxl_from_jax`
-or `weight_conversion.convert_all` and `torch.save`) if it is there;
-otherwise it builds the full architecture on the meta device, materialises
-it in bf16 directly on the target device and fills it with flax's
-distributions (random weights: the edited pixels are noise), and warns.
+Weights: `create` builds the full architecture on the meta device and
+materialises it in bf16 directly on the target device. It loads
+`<weights_path>/sdxl_params.pt` (`{component: state_dict}` in the port's
+names, e.g. written by `convert.sdxl_from_jax` or
+`weight_conversion.convert_all` and `torch.save`) if it is there, else the
+JAX package's `<weights_path>/sdxl_params.msgpack` (read through a memory
+map and cast leaf by leaf, so the host holds no converted copy);
+otherwise it fills the modules with flax's distributions (random weights:
+the edited pixels are noise), and warns.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from signerf_tpu_torch.convert import load_sdxl_from_jax_
 from signerf_tpu_torch.diffusion import sampler as S
 from signerf_tpu_torch.diffusion import unet as unet_mod
 from signerf_tpu_torch.diffusion.clip import CLIP_BIGG_CONFIG, CLIP_L_CONFIG, CLIPTextConfig, CLIPTextModel
@@ -44,6 +48,7 @@ from signerf_tpu_torch.diffusion.unet import (
     UNetConfig,
 )
 from signerf_tpu_torch.diffusion.vae import TINY_VAE_CONFIG, AutoencoderKL, VAEConfig
+from signerf_tpu_torch.engine.checkpoints import msgpack_restore_file
 
 COMPONENTS = ("unet", "controlnet", "vae", "clip_l", "clip_g")
 
@@ -169,7 +174,12 @@ class SDXLInpaintPipeline:
     ) -> "SDXLInpaintPipeline":
         """The full SDXL architecture unless `config` says otherwise (the
         tiny config is for tests), on the card unless `device` says
-        otherwise, in bf16. Sets `init_seconds` on the result."""
+        otherwise, in bf16. Weights come from `weights_path`'s
+        `sdxl_params.pt` (the port's `{component: state_dict}`), else its
+        `sdxl_params.msgpack` (the JAX package's params tree, flax msgpack,
+        as `scripts/convert_sdxl_weights.py` writes it), else a seeded
+        random init with a RANDOM-INIT warning. Sets `init_seconds` on the
+        result."""
         t0 = time.perf_counter()
         config = config or SDXLConfig()
         device = resolve_device(device)
@@ -179,19 +189,24 @@ class SDXLInpaintPipeline:
         with torch.device("meta"):
             modules = cls.build_modules(config)
         modules = {k: m.to_empty(device=device) for k, m in modules.items()}
-        blob = Path(weights_path) / "sdxl_params.pt" if weights_path is not None else None
-        if blob is not None and blob.exists():
-            state = torch.load(blob, map_location=device, weights_only=True)
+        root = Path(weights_path) if weights_path is not None else None
+        if root is not None and (root / "sdxl_params.pt").exists():
+            state = torch.load(root / "sdxl_params.pt", map_location=device, weights_only=True)
             for name, mod in modules.items():
                 mod.load_state_dict(state[name], strict=True)
+        elif root is not None and (root / "sdxl_params.msgpack").exists():
+            # the JAX package's weights (scripts/convert_sdxl_weights.py,
+            # f32): decoded as views of the mapped file, cast leaf by leaf
+            load_sdxl_from_jax_(modules, msgpack_restore_file(root / "sdxl_params.msgpack"))
         else:
             from signerf_tpu_torch.utils.calibration import warn_uncalibrated
 
             warn_uncalibrated(
                 "SDXL",
-                f"(weights_path={weights_path!r}) edited images will be noise, not edits. Convert real "
-                "checkpoints with signerf_tpu_torch.diffusion.weight_conversion into sdxl_params.pt "
-                "and pass weights_path.",
+                f"(weights_path={weights_path!r} holds neither sdxl_params.pt nor sdxl_params.msgpack) "
+                "edited images will be noise, not edits. Convert real checkpoints with "
+                "signerf_tpu_torch.diffusion.weight_conversion into sdxl_params.pt, or with the JAX "
+                "package's scripts/convert_sdxl_weights.py into sdxl_params.msgpack, and pass weights_path.",
             )
             gen = torch.Generator(device=device).manual_seed(seed)
             for name in COMPONENTS:

@@ -11,15 +11,17 @@ does (symmetric padding 1 would shift every latent). The mid attention
 (head dim 512) is a plain matmul, as in JAX; above `ATTN_CHUNK_TOKENS`
 tokens it runs in blocks of `ATTN_QUERY_CHUNK` queries, each with the
 whole key axis, so the softmax is exact and the scores stay [chunk, S].
-The encoders are deterministic (the posterior mean): the pipeline never
-samples the posterior.
+The encoders return the posterior mean unless the caller passes a
+`torch.Generator` or the standard normal draw itself (`noise`): then a
+posterior sample, as the JAX `encode(rng=...)`. The pipeline never
+samples.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -131,11 +133,13 @@ class Encoder(nn.Module):
                 h = getattr(self, f"down_{i}_downsample")(h)
         return h
 
-    def mid_out(self, h: torch.Tensor) -> torch.Tensor:
-        """Down features -> the posterior mean (the global attention runs here)."""
+    def mid_out(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Down features -> the posterior's (mean, logvar) (the global
+        attention runs here)."""
         h = self.mid_res_2(self.mid_attn(self.mid_res_1(h)))
         h = self.quant_conv(self.conv_out(F.silu(self.conv_norm_out(h))))
-        return h[..., : self.config.latent_channels]
+        c = self.config.latent_channels
+        return h[..., :c], h[..., c:]
 
 
 class Decoder(nn.Module):
@@ -182,9 +186,25 @@ class AutoencoderKL(nn.Module):
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)
 
-    def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] in [-1, 1] -> scaled latents [B, H/2^k, W/2^k, C] bf16."""
-        return self.encoder.mid_out(self.encoder.down(images)) * self.config.scaling_factor
+    def _latents(self, moments, generator: Optional[torch.Generator], noise: Optional[torch.Tensor]):
+        """(mean, logvar) -> scaled latents: the mean, or with `generator`
+        (a standard normal draw) or `noise` (the draw itself, e.g. JAX's)
+        the posterior sample mean + exp(0.5 clip(logvar, -30, 20)) eps, in
+        the mean's dtype."""
+        mean, logvar = moments
+        if generator is not None or noise is not None:
+            if noise is None:
+                noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+            std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+            mean = mean + std * noise.to(device=mean.device, dtype=mean.dtype)
+        return mean * self.config.scaling_factor
+
+    def encode(
+        self, images: torch.Tensor, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """[B, H, W, 3] in [-1, 1] -> scaled latents [B, H/2^k, W/2^k, C]
+        bf16: the posterior mean, or a sample of it (see `_latents`)."""
+        return self._latents(self.encoder.mid_out(self.encoder.down(images)), generator, noise)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents -> images [B, H, W, 3] in [-1, 1] bf16."""
@@ -194,9 +214,12 @@ class AutoencoderKL(nn.Module):
         """Conv-only encoder features (no attention, fully local)."""
         return self.encoder.down(images)
 
-    def encode_from_features(self, feats: torch.Tensor) -> torch.Tensor:
-        """Down features -> scaled latents (mid attention + output convs)."""
-        return self.encoder.mid_out(feats) * self.config.scaling_factor
+    def encode_from_features(
+        self, feats: torch.Tensor, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Down features -> scaled latents (mid attention + output convs),
+        the posterior mean or a sample of it (see `_latents`)."""
+        return self._latents(self.encoder.mid_out(feats), generator, noise)
 
     def decode_mid(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents -> latent-resolution decoder features (the global

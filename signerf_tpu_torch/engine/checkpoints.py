@@ -21,7 +21,9 @@ weights (the dataset hot-swap retrains the proposal networks).
 
 from __future__ import annotations
 
+import mmap
 import struct
+import warnings
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
@@ -98,13 +100,15 @@ _SCALARS = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">
 
 
 class _MsgpackReader:
-    """A msgpack decoder over a bytes buffer: maps, arrays, strings, bins,
-    ints, floats, nil and bools, and flax's ndarray and numpy-scalar ext
-    types (decoded to CPU tensors)."""
+    """A msgpack decoder over a buffer: maps, arrays, strings, bins, ints,
+    floats, nil and bools, and flax's ndarray and numpy-scalar ext types
+    (decoded to CPU tensors: copies, or with ``copy=False`` read-only views
+    of the buffer)."""
 
-    def __init__(self, data):
+    def __init__(self, data, copy: bool = True):
         self.buf = memoryview(data)
         self.pos = 0
+        self.copy = copy
 
     def _take(self, n: int) -> memoryview:
         if self.pos + n > len(self.buf):
@@ -124,7 +128,7 @@ class _MsgpackReader:
         code = self._unpack(">b")
         payload = self._take(n)
         if code in (_EXT_NDARRAY, _EXT_NPSCALAR):
-            return _ndarray_from_msgpack(payload)
+            return _ndarray_from_msgpack(payload, self.copy)
         raise ValueError(f"msgpack ext type {code} is not a flax array")
 
     def read(self) -> Any:
@@ -146,7 +150,7 @@ class _MsgpackReader:
         if b in _LENGTHS:
             n = self._unpack(_LENGTHS[b])
             if b <= 0xC6:
-                return bytes(self._take(n))
+                return bytes(self._take(n)) if self.copy else self._take(n)
             if b <= 0xC9:
                 return self._ext(n)
             if b <= 0xDB:
@@ -168,12 +172,17 @@ class _MsgpackReader:
         return _unchunk(out) if out.get(_CHUNKED) is True else out
 
 
-def _ndarray_from_msgpack(payload: memoryview) -> torch.Tensor:
-    shape, name, data = _MsgpackReader(payload).read()
+def _ndarray_from_msgpack(payload: memoryview, copy: bool = True) -> torch.Tensor:
+    shape, name, data = _MsgpackReader(payload, copy).read()
+    arr = np.frombuffer(data, np.uint16 if name == "bfloat16" else np.dtype(name))
+    if copy:
+        arr = arr.copy()
+    with warnings.catch_warnings():
+        # a view of a read-only buffer: the callers only read it
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        flat = torch.from_numpy(arr)
     if name == "bfloat16":
-        flat = torch.from_numpy(np.frombuffer(data, np.uint16).copy()).view(torch.bfloat16)
-    else:
-        flat = torch.from_numpy(np.frombuffer(data, np.dtype(name)).copy())
+        flat = flat.view(torch.bfloat16)
     return flat.reshape(tuple(shape))
 
 
@@ -183,14 +192,26 @@ def _unchunk(node: Dict[str, Any]) -> torch.Tensor:
     return torch.cat(chunks).reshape(shape)
 
 
-def msgpack_restore(data: bytes) -> Any:
-    """Decode flax `serialization.msgpack_serialize` output: nested dicts
-    with CPU tensors for its arrays and numpy scalars."""
-    reader = _MsgpackReader(data)
+def msgpack_restore(data, copy: bool = True) -> Any:
+    """Decode flax `serialization.msgpack_serialize` output (bytes, or any
+    buffer): nested dicts with CPU tensors for its arrays and numpy
+    scalars, each a copy, or with ``copy=False`` a read-only view of
+    `data` (which the tensors then keep alive)."""
+    reader = _MsgpackReader(data, copy)
     out = reader.read()
     if reader.pos != len(reader.buf):
         raise ValueError(f"{len(reader.buf) - reader.pos} trailing bytes after the msgpack object")
     return out
+
+
+def msgpack_restore_file(path: Path) -> Any:
+    """`msgpack_restore` of a file mapped into memory: every array is a
+    read-only view of the mapping, so decoding copies no array and the
+    pages are read when a leaf is used (the mapping lives as long as any
+    of its tensors)."""
+    with open(path, "rb") as f:
+        mapped = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    return msgpack_restore(mapped, copy=False)
 
 
 def load_jax_checkpoint(path: Path) -> Tuple[Dict[str, torch.Tensor], int]:

@@ -14,8 +14,10 @@ update (`optimizers.py:186-213`, which equals `optax.adam` / `optax.adamw`):
 
 The learning rate is read at the pre-increment count, so step 0 uses
 lr(0). Decoupled decay (`+ wd * p` before the lr scale) is what
-`torch.optim.AdamW` does too. The updates run as `torch._foreach_*` ops over
-each group's tensors.
+`torch.optim.AdamW` does too. With `fused_update` (the default, as in JAX)
+each group's update is one multi-tensor pass of `torch._foreach_*` ops;
+without it the same ops run tensor by tensor. Adam is elementwise, so both
+give the same update.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ class OptimizersConfig:
     # Weight decay on the per-image appearance codes only: it keeps them
     # near their mean, so eval's mean-code renders stay faithful.
     appearance_weight_decay: float = 0.1
+    # One multi-tensor pass per group (True) or a loop over its tensors.
+    fused_update: bool = True
 
 
 def make_schedule(cfg: OptimizerGroupConfig) -> Callable[[int], float]:
@@ -80,6 +84,22 @@ def group_of(name: str) -> str:
     if parts[0] == "camera_opt":
         return "camera_opt"
     return "fields"
+
+
+def _adam_update(ps, grads, m, v, lr: float, count: int, eps: float, wd: Optional[float]) -> None:
+    """One Adam(W) step over the tensors `ps` with their moments, as one
+    multi-tensor pass."""
+    torch._foreach_mul_(m, B1)
+    torch._foreach_add_(m, torch._foreach_mul(grads, 1.0 - B1))
+    torch._foreach_mul_(v, B2)
+    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(grads, 1.0 - B2), grads))
+    mhat = torch._foreach_div(m, 1.0 - B1**count)
+    denom = torch._foreach_sqrt(torch._foreach_div(v, 1.0 - B2**count))
+    torch._foreach_add_(denom, eps)
+    u = torch._foreach_div(mhat, denom)
+    if wd is not None:
+        torch._foreach_add_(u, torch._foreach_mul(ps, wd))
+    torch._foreach_add_(ps, torch._foreach_mul(u, -lr))
 
 
 class GroupedAdam:
@@ -119,18 +139,13 @@ class GroupedAdam:
             st["count"] += 1
             c = st["count"]
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
-            m, v = st["m"], st["v"]
-            torch._foreach_mul_(m, B1)
-            torch._foreach_add_(m, torch._foreach_mul(grads, 1.0 - B1))
-            torch._foreach_mul_(v, B2)
-            torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(grads, 1.0 - B2), grads))
-            mhat = torch._foreach_div(m, 1.0 - B1**c)
-            denom = torch._foreach_sqrt(torch._foreach_div(v, 1.0 - B2**c))
-            torch._foreach_add_(denom, gcfg.eps)
-            u = torch._foreach_div(mhat, denom)
-            if group == "appearance":
-                torch._foreach_add_(u, torch._foreach_mul(ps, self.cfg.appearance_weight_decay))
-            torch._foreach_add_(ps, torch._foreach_mul(u, -lr))
+            wd = self.cfg.appearance_weight_decay if group == "appearance" else None
+            if self.cfg.fused_update:
+                _adam_update(ps, grads, st["m"], st["v"], lr, c, gcfg.eps, wd)
+            else:
+                for i in range(len(ps)):
+                    _adam_update(ps[i : i + 1], grads[i : i + 1], st["m"][i : i + 1], st["v"][i : i + 1],
+                                 lr, c, gcfg.eps, wd)
 
     def state_dict(self) -> Dict:
         return {"names": self.names, "groups": self.state}

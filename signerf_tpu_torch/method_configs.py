@@ -28,6 +28,7 @@ def signerf_method() -> SIGNeRFTrainerConfig:
             datamanager=SIGNeRFDataManagerConfig(
                 dataparser=SIGNeRFDataParserConfig(),
                 train_num_rays_per_batch=16384,
+                eval_num_rays_per_batch=4096,
                 patch_size=32,
             ),
             model=SIGNeRFModelConfig(
@@ -57,6 +58,7 @@ def signerf_nerfacto_method() -> SIGNeRFTrainerConfig:
             datamanager=SIGNeRFDataManagerConfig(
                 dataparser=SIGNeRFDataParserConfig(),
                 train_num_rays_per_batch=4096,
+                eval_num_rays_per_batch=4096,
                 patch_size=1,
             ),
             model=SIGNeRFModelConfig(

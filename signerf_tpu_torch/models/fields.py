@@ -14,11 +14,13 @@ With the factor backend the density of both fields goes through
 backward) for a CUDA tensor, their plain twins for a CPU tensor. With
 gradient normals the base field's density and its spatial gradient come
 instead from `factor_density_geo_and_grad`: the encode (K3, K4) and the
-grad-dot contraction (K5, K6) on the card. With the hash backend the
-density is `ops/hashgrid.hashgrid_encode` (plain PyTorch, as the JAX
-function is plain `jnp`) then the bf16 `MLP`. The color, pred-normal and
-base MLPs outside the kernels stay plain PyTorch under the same bf16
-Dense contract.
+grad-dot contraction (K5, K6) on the card. A linear proposal field
+(`use_linear`) and ``use_fused_density=False`` take the features from the
+encoding module instead (`FactorGridEncoding.forward`: K3, K4 on the card).
+With the hash backend the density is `ops/hashgrid.hashgrid_encode` (plain
+PyTorch, as the JAX function is plain `jnp`) then the bf16 `MLP`. The
+color, pred-normal and base MLPs and the linear proposals' Dense outside
+the kernels stay plain PyTorch under the same bf16 Dense contract.
 """
 
 from __future__ import annotations
@@ -32,11 +34,14 @@ from torch import nn
 from signerf_tpu_torch.ops.contraction import contract_to_unit, contract_to_unit_jacobian
 from signerf_tpu_torch.ops.factor_grid import (
     FactorGridConfig,
+    cp_level_features,
     cp_level_features_and_grad,
     dense_bf16,
     encode_fused,
     fused_density_mlp,
     grad_encode_dot,
+    grad_encode_fused,
+    plane_features,
 )
 from signerf_tpu_torch.ops.hashgrid import hashgrid_encode, hashgrid_resolutions, init_hashgrid_table
 from signerf_tpu_torch.ops.sh import sh_encode
@@ -122,7 +127,17 @@ class MLP(nn.Module):
 
 
 class FactorGridEncoding(nn.Module):
-    """The learned line tables `line_{lvl}_{ax}`, each [R_lvl, F]."""
+    """The learned line tables `line_{lvl}_{ax}`, each [R_lvl, F], and with
+    `include_planes` the planes `plane_01`, `plane_02` and `plane_12`, each
+    [R_p, R_p, F_p] (flax's names and inits).
+
+    `forward` is the JAX module's `__call__`: the CP levels through
+    `encode_fused` (K3 forward, K4 backward on the card; their plain twins
+    on the CPU), the plane terms through the XLA expression
+    (`plane_features`), or everything through the XLA expression when the
+    caller asks for it with ``use_fused=False``."""
+
+    PLANE_AXES = ((0, 1), (0, 2), (1, 2))
 
     def __init__(self, config: FactorGridConfig):
         super().__init__()
@@ -132,11 +147,19 @@ class FactorGridEncoding(nn.Module):
                 self.register_parameter(
                     f"line_{lvl}_{ax}", nn.Parameter(torch.empty(res, config.features_per_level))
                 )
+        if config.include_planes:
+            shape = (config.plane_res, config.plane_res, config.plane_features)
+            for a, b in self.PLANE_AXES:
+                self.register_parameter(f"plane_{a}{b}", nn.Parameter(torch.empty(shape)))
+
+    @property
+    def out_dim(self) -> int:
+        return self.config.out_dim
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            for p in self.parameters():
-                p.normal_(0.0, 0.2, generator=generator)
+            for name, p in self.named_parameters():
+                p.normal_(0.0, 0.02 if name.startswith("plane_") else 0.2, generator=generator)
 
     def get_lines(self):
         """The [level][axis] line tables, as `fused_density_mlp` takes them."""
@@ -144,6 +167,40 @@ class FactorGridEncoding(nn.Module):
             [getattr(self, f"line_{lvl}_{ax}") for ax in range(3)]
             for lvl in range(len(self.config.resolutions))
         ]
+
+    def forward(self, positions01: torch.Tensor, use_fused: Optional[bool] = None) -> torch.Tensor:
+        """positions01 [..., 3] (clipped to [0, 1]) -> features [..., D] f32."""
+        cfg = self.config
+        dtype = getattr(torch, cfg.compute_dtype)
+        x = positions01.reshape(-1, 3).clamp(0.0, 1.0)
+        lines = self.get_lines()
+        if use_fused is False:
+            feats = [cp_level_features(x, lines[lvl], dtype) for lvl in range(len(lines))]
+        else:
+            feats = [encode_fused(cfg, lines, x)]
+        if cfg.include_planes:
+            feats += [
+                plane_features(x, getattr(self, f"plane_{a}{b}"), (a, b), dtype) for a, b in self.PLANE_AXES
+            ]
+        out = torch.cat([f.float() for f in feats], dim=-1)
+        return out.reshape(*positions01.shape[:-1], cfg.out_dim)
+
+    def encode_with_grad(self, positions01: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """positions01 [..., 3] (clipped to [0, 1]) -> (features [..., D],
+        d features / d positions01 [..., 3, D]), both f32 and
+        differentiable in the line tables: `encode_fused` (K3, K4) and
+        `grad_encode_fused` (K8, K9) on the card, their plain twins on the
+        CPU. CP levels only, as in JAX; its XLA expression is
+        `cp_level_features_and_grad`."""
+        cfg = self.config
+        if cfg.include_planes:
+            raise ValueError("encode_with_grad: analytic gradients exist for the CP levels only")
+        x = positions01.reshape(-1, 3).clamp(0.0, 1.0)
+        lines = self.get_lines()
+        feats = encode_fused(cfg, lines, x)
+        dfeats = grad_encode_fused(cfg, lines, x)
+        batch = positions01.shape[:-1]
+        return feats.reshape(*batch, cfg.out_dim), dfeats.reshape(*batch, 3, cfg.out_dim)
 
 
 class HashGridEncoding(nn.Module):
@@ -196,6 +253,9 @@ class NerfactoField(nn.Module):
     The encoding is `encoding`: a `FactorGridEncoding` (factor backend) or
     a `HashGridEncoding` (hash backend, `num_levels` x `features_per_level`
     features from a table of 2^`log2_hashmap_size` entries a level).
+    ``use_fused_density=False`` (the JAX debug switch) runs the factor
+    backend's density as the encoding module and then `mlp_base` instead
+    of the fused encode + MLP (K1, K2).
     `forward(positions [R, S, 3], directions [R, 3])` returns
     {"density": [R, S], "rgb": [R, S, 3]} and, with `predict_normals`,
     "pred_normals" [R, S, 3] from the `mlp_pred_normals` head.
@@ -221,10 +281,12 @@ class NerfactoField(nn.Module):
         factor_features_per_level: int = 16,
         factor_num_levels: int = 8,
         predict_normals: bool = False,
+        use_fused_density: bool = True,
     ):
         super().__init__()
         _check_backend(encoding_backend)
         self.encoding_backend = encoding_backend
+        self.use_fused_density = use_fused_density
         self.predict_normals = predict_normals
         self.geo_feat_dim = geo_feat_dim
         self.sh_levels = sh_levels
@@ -267,10 +329,10 @@ class NerfactoField(nn.Module):
 
     def density(self, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """positions [..., 3] world -> (density [...], geo_feat [..., G])."""
-        if self.encoding_backend == "hash":
-            h = self.mlp_base(self.encoding(contract_to_unit(positions)))
-        else:
+        if self.encoding_backend == "factor" and self.use_fused_density:
             h = _density_logits(self.encoding, self.mlp_base, positions)
+        else:
+            h = self.mlp_base(self.encoding(contract_to_unit(positions)))
         density = self.average_init_density * trunc_exp(h[..., 0] - 1.0)
         return density, h[..., 1:]
 
@@ -391,7 +453,12 @@ def factor_density_geo_and_grad(
 class HashMLPDensityField(nn.Module):
     """Small density-only field used as a proposal network: the factor grid
     `FactorGridEncoding_0` or the hash grid `HashGridEncoding_0`, then a
-    2-layer `MLP_0`."""
+    2-layer `MLP_0`, or with `use_linear` (nerfstudio's linear proposal
+    networks) a single bf16 `Dense_0` to one output, without an
+    activation. The factor backend's encode + MLP is the fused
+    `fused_density_mlp` (K1, K2) unless the field is linear or
+    ``use_fused_density`` is False; then the features come from
+    `FactorGridEncoding_0` (K3, K4 on the card)."""
 
     def __init__(
         self,
@@ -401,12 +468,16 @@ class HashMLPDensityField(nn.Module):
         base_res: int = 16,
         max_res: int = 128,
         hidden_dim: int = 16,
+        use_linear: bool = False,
         encoding_backend: str = "factor",
         factor_features_per_level: int = 8,
+        use_fused_density: bool = True,
     ):
         super().__init__()
         _check_backend(encoding_backend)
         self.encoding_backend = encoding_backend
+        self.use_linear = use_linear
+        self.use_fused_density = use_fused_density
         if encoding_backend == "factor":
             cfg = FactorGridConfig(
                 num_levels=num_levels,
@@ -415,24 +486,30 @@ class HashMLPDensityField(nn.Module):
                 features_per_level=factor_features_per_level,
             )
             self.FactorGridEncoding_0 = FactorGridEncoding(cfg)
-            enc_dim = cfg.out_dim
         else:
             self.HashGridEncoding_0 = HashGridEncoding(
                 num_levels, features_per_level, log2_hashmap_size, base_res, max_res
             )
-            enc_dim = self.HashGridEncoding_0.out_dim
-        self.MLP_0 = MLP(enc_dim, hidden_dim, 2, 1)
+        enc_dim = self.encoding.out_dim
+        if use_linear:
+            self.Dense_0 = Dense(enc_dim, 1)
+        else:
+            self.MLP_0 = MLP(enc_dim, hidden_dim, 2, 1)
+
+    @property
+    def encoding(self) -> nn.Module:
+        return self.HashGridEncoding_0 if self.encoding_backend == "hash" else self.FactorGridEncoding_0
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        hashed = self.encoding_backend == "hash"
-        (self.HashGridEncoding_0 if hashed else self.FactorGridEncoding_0).reset_parameters(generator)
-        for layer in self.MLP_0.layers():
+        self.encoding.reset_parameters(generator)
+        for layer in [self.Dense_0] if self.use_linear else self.MLP_0.layers():
             layer.reset_parameters(generator)
 
     def forward(self, positions: torch.Tensor) -> torch.Tensor:
         """positions [..., 3] world -> density [...]."""
-        if self.encoding_backend == "hash":
-            h = self.MLP_0(self.HashGridEncoding_0(contract_to_unit(positions)))
-        else:
+        if self.encoding_backend == "factor" and self.use_fused_density and not self.use_linear:
             h = _density_logits(self.FactorGridEncoding_0, self.MLP_0, positions)
+        else:
+            feats = self.encoding(contract_to_unit(positions))
+            h = self.Dense_0(feats) if self.use_linear else self.MLP_0(feats)
         return trunc_exp(h[..., 0] - 1.0)

@@ -62,6 +62,7 @@ class ProposalNetArgs:
     log2_hashmap_size: int = 17
     num_levels: int = 5
     max_res: int = 128
+    use_linear: bool = False  # nerfstudio's linear proposal networks: one Dense, no MLP
 
 
 @dataclasses.dataclass
@@ -86,6 +87,9 @@ class NerfactoModelConfig:
     use_appearance_embedding: bool = True
     average_init_density: float = 1.0
     encoding_backend: str = "factor"  # "factor" or "hash"
+    # The JAX debug switch: False runs the factor fields' density as the
+    # encoding module, then the MLP, instead of the fused K1 / K2 path.
+    use_fused_density: bool = True
     num_proposal_samples_per_ray: Tuple[int, ...] = (256, 96)
     num_nerf_samples_per_ray: int = 48
     num_proposal_iterations: int = 2
@@ -136,6 +140,7 @@ class NerfactoModel(nn.Module):
             average_init_density=config.average_init_density,
             encoding_backend=config.encoding_backend,
             predict_normals=config.predict_normals,
+            use_fused_density=config.use_fused_density,
         )
         n_fields = 1 if config.use_same_proposal_network else config.num_proposal_iterations
         for i in range(n_fields):
@@ -147,7 +152,9 @@ class NerfactoModel(nn.Module):
                     log2_hashmap_size=args.log2_hashmap_size,
                     max_res=args.max_res,
                     hidden_dim=args.hidden_dim,
+                    use_linear=args.use_linear,
                     encoding_backend=config.encoding_backend,
+                    use_fused_density=config.use_fused_density,
                 ),
             )
         if config.use_camera_opt:

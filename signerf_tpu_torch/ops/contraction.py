@@ -35,6 +35,12 @@ def contract_to_unit(positions: torch.Tensor, order: float = math.inf) -> torch.
     return (contract(positions, order) + 2.0) / 4.0
 
 
+def normalize_aabb(positions: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+    """Affine map of an AABB ([2, 3]) into [0, 1]^3 (for fields without
+    the contraction)."""
+    return (positions - aabb[0]) / (aabb[1] - aabb[0])
+
+
 def _tie_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """d max(a, b) / da as JAX's `max` takes it: 1, 0, or 0.5 on a tie."""
     return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))

@@ -1,12 +1,14 @@
 """Factorized multiresolution (CP) grid encoding, its spatial derivative
 and its density MLP.
 
-Port of `signerf_tpu/ops/factor_grid.py` (CP levels; no plane terms).
-For level l with resolution R_l and one line table [R_l, F] per axis, each
-axis is linearly interpolated at u * (R_l - 1), the three axes are
-multiplied, and the levels are concatenated into D = L * F features. A
-2-layer MLP under the flax `Dense(dtype=bfloat16)` contract turns them into
-the field's raw outputs.
+Port of `signerf_tpu/ops/factor_grid.py`. For level l with resolution R_l
+and one line table [R_l, F] per axis, each axis is linearly interpolated at
+u * (R_l - 1), the three axes are multiplied, and the levels are
+concatenated into D = L * F features; with `include_planes`, three
+bilinearly interpolated planes [R_p, R_p, F_p] (xy, xz, yz) add 3 F_p
+features (`plane_features`, plain PyTorch: no TPU kernel computes them).
+A 2-layer MLP under the flax `Dense(dtype=bfloat16)` contract turns the
+features into the field's raw outputs.
 
 Two numeric contracts live here, and the tests hold the port to both JAX
 versions:
@@ -27,7 +29,9 @@ versions:
   and 0 at an exact knot, as both JAX versions take it. `grad_encode_fused`
   (K8, K9) and `fused_factor_grad` (K8, with a zero VJP) return the
   uncontracted derivative [N, 3, D] under the same contract.
-- `dhat_matrix`, `dfeat01_reference` and `cp_level_features_and_grad` port
+- `cp_level_features` and `plane_features` are the XLA expression of one
+  CP level and one plane (the module's `use_fused=False` path);
+  `dhat_matrix`, `dfeat01_reference` and `cp_level_features_and_grad` port
   the XLA expression of the spatial derivative (bf16 hat and dhat
   matrices, bf16 products).
 
@@ -55,6 +59,10 @@ class FactorGridConfig:
     base_res: int = 16
     max_res: int = 1024
     features_per_level: int = 16
+    include_planes: bool = False
+    plane_res: int = 128
+    plane_features: int = 8
+    compute_dtype: str = "bfloat16"
 
     @property
     def resolutions(self) -> Tuple[int, ...]:
@@ -70,7 +78,10 @@ class FactorGridConfig:
 
     @property
     def out_dim(self) -> int:
-        return self.num_levels * self.features_per_level
+        d = self.num_levels * self.features_per_level
+        if self.include_planes:
+            d += 3 * self.plane_features
+        return d
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -113,17 +124,36 @@ def dhat_matrix(u: torch.Tensor, res: int, dtype: torch.dtype) -> torch.Tensor:
     return (-torch.sign(diff) * inside * (res - 1)).to(dtype)
 
 
-def _interp(mat: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
-    """bf16 [N, R] @ bf16 line, f32 accumulation, bf16 result."""
-    return (mat.float() @ _round_bf16(line)).to(_BF16)
+def _interp(mat: torch.Tensor, line: torch.Tensor, dtype: torch.dtype = _BF16) -> torch.Tensor:
+    """[N, R] @ line with both operands in `dtype` (the hat matrix already
+    is), f32 accumulation, the result in `dtype`."""
+    return (mat.float() @ line.to(dtype).float()).to(dtype)
 
 
-def _cp_level_features(x01: torch.Tensor, lines: Sequence[torch.Tensor]) -> torch.Tensor:
-    """One level under the XLA contract: bf16 hat @ bf16 line (f32
-    accumulation, bf16 result), then the bf16 product of the three axes."""
+def cp_level_features(
+    x01: torch.Tensor, lines: Sequence[torch.Tensor], dtype: torch.dtype = _BF16
+) -> torch.Tensor:
+    """One level under the XLA contract: [N, 3] in [0, 1] -> [N, F] in
+    `dtype`. Per axis the hat matrix @ line, both in `dtype` (f32
+    accumulation, result in `dtype`), then the product of the three axes
+    in `dtype`."""
     res = lines[0].shape[0]
-    f = [_interp(hat_matrix(x01[:, ax], res, _BF16), lines[ax]) for ax in range(3)]
+    f = [_interp(hat_matrix(x01[:, ax], res, dtype), lines[ax], dtype) for ax in range(3)]
     return f[0] * f[1] * f[2]
+
+
+def plane_features(
+    x01: torch.Tensor, plane: torch.Tensor, axes: Tuple[int, int], dtype: torch.dtype = _BF16
+) -> torch.Tensor:
+    """Bilinear interpolation of `plane` [R, R, F] spanning `axes` under the
+    XLA contract -> [N, F] in `dtype`: the plane contracted with the first
+    axis's hat matrix ([N, R] @ [R, R F], f32 accumulation, result in
+    `dtype`), then reduced row by row with the second's."""
+    r, _, f = plane.shape
+    ha = hat_matrix(x01[:, axes[0]], r, dtype)
+    hb = hat_matrix(x01[:, axes[1]], r, dtype)
+    t1 = _interp(ha, plane.reshape(r, r * f), dtype).reshape(-1, r, f)
+    return (hb.float()[:, None, :] @ t1.float()).squeeze(1).to(dtype)
 
 
 def cp_level_features_and_grad(
@@ -149,7 +179,7 @@ def dfeat01_reference(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) ->
 def _encode_reference(cfg: FactorGridConfig, lines: Lines, x01: torch.Tensor) -> torch.Tensor:
     """Hat-matrix CP encode over a [level][axis] line list -> [N, D] f32."""
     feats = [
-        _cp_level_features(x01, lines[lvl]) for lvl in range(len(cfg.resolutions))
+        cp_level_features(x01, lines[lvl]) for lvl in range(len(cfg.resolutions))
     ]
     return torch.cat(feats, dim=-1).float()
 

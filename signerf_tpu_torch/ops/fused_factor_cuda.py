@@ -78,10 +78,10 @@ from signerf_tpu_torch.ops.factor_grid import dense_bf16, mlp2_reference
 # (features_per_level, hidden, out, levels) K1 and K2 are instantiated for:
 # the proposal fields and the base field of `signerf_nerfacto`.
 SUPPORTED = {(8, 16, 1, 5), (16, 64, 16, 8)}
-# (features_per_level, levels) K3, K5, K6, K8 and K9 are instantiated for:
+# (features_per_level, levels) K5, K6, K8 and K9 are instantiated for:
 # the base field.
 ENCODE_SUPPORTED = {(16, 8)}
-# ... and K10 and K4 (K10's backward): the base and the proposal fields.
+# ... and K3, K4 and K10: the base and the proposal fields.
 DENSE_SUPPORTED = {(16, 8), (8, 5)}
 
 # Launches in this process; only the wrappers below add to them, once per
@@ -292,7 +292,7 @@ def encode_cuda(
 ) -> torch.Tensor:
     """Launch K3 on x01's stream: [N, 3] f32 in [0, 1] -> feat [N, L F] f32."""
     global encode_launches
-    n = _check_encode(resolutions, feat, tables, x01)
+    n = _check_encode(resolutions, feat, tables, x01, supported=DENSE_SUPPORTED)
     out = torch.empty((n, len(resolutions) * feat), dtype=torch.float32, device=x01.device)
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     _launch("fused_factor_encode", "fused_factor_encode_forward", x01.device,

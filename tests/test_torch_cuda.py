@@ -8,7 +8,9 @@ knots, K4's coords half equal to K5 bit for bit at the base field, K7 at every r
 of its tiles on strided views, one `signerf` micro-batch and eval chunk
 through K1 to K6, K8 and K9 against K5 and K6, the entry points of K8
 to K10, K7 at the edit pass's shapes, one small dataset-generator pass
-on the card, and the web viewer's `/render` through K1.
+on the card, the web viewer's `/render` through K1, a linear proposal
+field through K3 and K4, and `FactorGridEncoding`'s planes and
+`encode_with_grad` through K3, K4, K8 and K9.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -276,8 +278,8 @@ def f64_chunk_sum(twin, n, chunk=2048):
 @pytest.mark.parametrize("layout", ["ray-ordered", "one cell"])
 @pytest.mark.parametrize("name", ["proposal", "final"])
 def test_k1_k3_and_k10_at_ray_ordered_and_one_cell_coordinates(cuda, name, layout):
-    """K1, and the encode kernels on the same tile routine (K3 for the base
-    field, K10 for both), where a warp's lanes meet on the same rows."""
+    """K1, and the encode kernels on the same tile routine (K3 and K10 for
+    both fields), where a warp's lanes meet on the same rows."""
     res, feat, tables, w0, b0, w1, b1, _ = make_args(name, 4, cuda)
     x = ray_ordered_x01(1024, K2_PER_RAY[name], 6) if layout == "ray-ordered" else one_cell_x01(100_003, res, 6)
     x = x.to(cuda)
@@ -285,9 +287,7 @@ def test_k1_k3_and_k10_at_ray_ordered_and_one_cell_coordinates(cuda, name, layou
     got = ffc.density_mlp_cuda(*args)
     torch.cuda.synchronize()
     assert_k1_close(got, ffc.density_mlp_plain(*args))
-    encoders = [(ffc.dense_encode_cuda, ffc.dense_encode_plain)]
-    if name == "final":
-        encoders.append((ffc.encode_cuda, ffc.encode_plain))
+    encoders = [(ffc.dense_encode_cuda, ffc.dense_encode_plain), (ffc.encode_cuda, ffc.encode_plain)]
     for kernel, plain in encoders:
         feats = kernel(res, feat, tables, x)
         torch.cuda.synchronize()
@@ -1057,3 +1057,85 @@ def test_viewer_render_launches_k1_per_chunk(cuda, tmp_path):
     assert ffc.launches == 6 and all(getattr(ffc, name) == 0 for name in ffc.COUNTERS[1:])
     img = decode_png(body)
     assert img.shape == (128, 128, 3)
+
+
+def _zero_counts():
+    for name in ffc.COUNTERS:
+        setattr(ffc, name, 0)
+
+
+def _launched():
+    return {name: getattr(ffc, name) for name in ffc.COUNTERS if getattr(ffc, name)}
+
+
+@pytest.mark.parametrize("name", ["proposal", "prop256"])
+def test_linear_proposal_field_takes_k3_and_k4(cuda, name):
+    """A linear proposal field on the card: its features through K3 (and
+    K4's tables half backward), never K1; its density and line grads equal
+    the same field on the CPU's twins within K3's and K4's gates."""
+    from signerf_tpu_torch.models.fields import HashMLPDensityField
+
+    _, max_res, _, _, _ = SCHEDULES[name]
+    field = HashMLPDensityField(max_res=max_res, use_linear=True)
+    field.reset_parameters(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    pos = (torch.rand(2048, 3, generator=g) * 4.0 - 2.0).reshape(64, 32, 3)
+    cpu = field(pos)
+    cpu.sum().backward()
+    want = {k: p.grad.clone() for k, p in field.named_parameters()}
+    field = field.to(cuda)
+    field.zero_grad()
+    _zero_counts()
+    got = field(pos.to(cuda))
+    got.sum().backward()
+    torch.cuda.synchronize()
+    assert _launched() == {"encode_launches": 1, "encode_bwd_table_launches": 1}
+    torch.testing.assert_close(got.detach().cpu(), cpu.detach(), rtol=2e-2, atol=1e-5 * float(cpu.detach().abs().max()))
+    for k, p in field.named_parameters():
+        err = float((p.grad.cpu() - want[k]).norm() / want[k].norm().clamp_min(1e-12))
+        assert err < 1e-4 if k.startswith("FactorGridEncoding") else err < 2e-2, (k, err)
+
+
+def test_factor_encoding_planes_and_encode_with_grad_on_the_card(cuda):
+    """`FactorGridEncoding` with planes (K3, K4 for the CP levels) and
+    `encode_with_grad` (K3, K8; K4, K9 backward) against the same module
+    on the CPU's twins."""
+    from signerf_tpu_torch.models.fields import FactorGridEncoding
+
+    levels, max_res, feat, _, _ = SCHEDULES["final"]
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(4096, 3, generator=g)
+    for planes in (True, False):
+        cfg = fg.FactorGridConfig(num_levels=levels, base_res=16, max_res=max_res, features_per_level=feat,
+                                  include_planes=planes, plane_res=32)
+        enc = FactorGridEncoding(cfg)
+        enc.reset_parameters(torch.Generator().manual_seed(6))
+        ct = torch.randn(4096, cfg.out_dim, generator=g)
+        ct_d = torch.randn(4096, 3, cfg.out_dim, generator=g)
+
+        def run(e, dev):
+            e.zero_grad()
+            if planes:
+                out = e(x.to(dev))
+                (out * ct.to(dev)).sum().backward()
+                outs = (out,)
+            else:
+                f, d = e.encode_with_grad(x.to(dev))
+                ((f * ct.to(dev)).sum() + (d * ct_d.to(dev)).sum()).backward()
+                outs = (f, d)
+            return [o.detach().cpu() for o in outs], {k: p.grad.cpu().clone() for k, p in e.named_parameters()}
+
+        want, g_want = run(enc, torch.device("cpu"))
+        enc = enc.to(cuda)
+        _zero_counts()
+        got, g_got = run(enc, cuda)
+        torch.cuda.synchronize()
+        expected = ({"encode_launches": 1, "encode_bwd_table_launches": 1} if planes else
+                    {"encode_launches": 1, "encode_bwd_table_launches": 1, "grad_launches": 1,
+                     "grad_bwd_table_launches": 1})
+        assert _launched() == expected
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=2**-8 * float(want[0].abs().max()))
+        for a, b in zip(got[1:], want[1:]):
+            assert float((a - b).norm() / b.norm()) < 1e-4
+        for k in g_want:
+            assert float((g_got[k] - g_want[k]).norm() / g_want[k].norm().clamp_min(1e-12)) < 1e-4, k

@@ -240,9 +240,10 @@ def test_render_cli_missing_checkpoint(dataset, tmp_path):
 def test_port_imports_no_jax():
     """A fresh interpreter that imports the render, train, eval and export
     CLIs, the diffusion port, the factor-grid kernels' entry points, the hash
-    grid, the checkpoint reader (JAX `.ckpt` included) and the editing
-    geometry has neither JAX, flax, msgpack, nor any module of the JAX
-    package loaded."""
+    grid, the checkpoint reader (JAX `.ckpt` included), the editing
+    geometry, the camera arc, the image cache, the fields and the FLOP model
+    has neither JAX, flax, msgpack, nor any module of the JAX package
+    loaded."""
     code = (
         "import sys, signerf_tpu_torch.render, signerf_tpu_torch.convert, "
         "signerf_tpu_torch.train, signerf_tpu_torch.eval, signerf_tpu_torch.export, "
@@ -251,7 +252,8 @@ def test_port_imports_no_jax():
         "signerf_tpu_torch.diffusion.weight_conversion, signerf_tpu_torch.ops.fused_factor_cuda, "
         "signerf_tpu_torch.ops.factor_grid_kernel, signerf_tpu_torch.geometry, "
         "signerf_tpu_torch.geometry.primitives, signerf_tpu_torch.editing.conditions, "
-        "signerf_tpu_torch.editing.sheet; "
+        "signerf_tpu_torch.editing.sheet, signerf_tpu_torch.data.camera_arc, "
+        "signerf_tpu_torch.data.datamanager, signerf_tpu_torch.ops.flops, signerf_tpu_torch.models.fields; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'signerf_tpu', 'msgpack')); print(bad); sys.exit(1 if bad else 0)"
     )

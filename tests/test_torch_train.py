@@ -67,11 +67,13 @@ def rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
-def port_tiny_config(**kw) -> NerfactoModelConfig:
-    """tests/test_nerfacto_core.py's tiny_config in the port's knobs."""
-    j = tiny_config()
+def port_tiny_config(j=None, **kw) -> NerfactoModelConfig:
+    """tests/test_nerfacto_core.py's tiny_config (or the JAX config `j`
+    derived from it) in the port's knobs."""
+    j = j or tiny_config()
     args = tuple(
-        ProposalNetArgs(hidden_dim=a.hidden_dim, num_levels=a.num_levels, max_res=a.max_res)
+        ProposalNetArgs(hidden_dim=a.hidden_dim, num_levels=a.num_levels, max_res=a.max_res,
+                        use_linear=a.use_linear)
         for a in j.proposal_net_args_list
     )
     return NerfactoModelConfig(
@@ -130,15 +132,24 @@ def faint_proposals(params):
     the field's and the interlevel loss (the proposals' only gradient) is
     not 0 from the start, as it is at this scene's init."""
     for i in range(2):
-        bias = params[f"proposal_{i}"]["MLP_0"]["dense_1"]["bias"]
-        params[f"proposal_{i}"]["MLP_0"]["dense_1"]["bias"] = np.asarray(bias) - 4.0
+        net = params[f"proposal_{i}"]
+        last = net["MLP_0"]["dense_1"] if "MLP_0" in net else net["Dense_0"]  # use_linear: one Dense
+        last["bias"] = np.asarray(last["bias"]) - 4.0
 
 
-def run_both(monkeypatch, micro=1, camera_opt=False, steps=4):
-    """Four steps of both train steps from the same params and indices.
-    Returns (jax metrics, port metrics, jax params, port params, jax first
-    grads, port first grads), params as the port's flat names."""
-    jcfg = dataclasses.replace(tiny_config(), use_camera_opt=camera_opt, **GATE)
+def linear_proposals(cfg):
+    """`cfg` with nerfstudio's linear proposal networks (`use_linear`)."""
+    return dataclasses.replace(cfg, proposal_net_args_list=tuple(
+        dataclasses.replace(a, use_linear=True) for a in cfg.proposal_net_args_list))
+
+
+def run_both(monkeypatch, micro=1, camera_opt=False, steps=4, linear=False):
+    """Four steps of both train steps from the same params and indices
+    (with `linear`, linear proposal networks on both sides). Returns (jax
+    metrics, port metrics, jax params, port params, jax first grads, port
+    first grads), params as the port's flat names."""
+    base = linear_proposals(tiny_config()) if linear else tiny_config()
+    jcfg = dataclasses.replace(base, use_camera_opt=camera_opt, **GATE)
     jmodel = JModel(jcfg, num_train_images=NUM_CAMS)
     params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
     faint_proposals(params)
@@ -170,7 +181,7 @@ def run_both(monkeypatch, micro=1, camera_opt=False, steps=4):
     # under autograd) for like-for-like bf16 rounding with JAX on the CPU.
     monkeypatch.setattr(tfields, "fused_density_mlp", tfg.density_mlp_reference)
     monkeypatch.setattr(tts, "_sample_indices", lambda *a, **k: torch.from_numpy(idx))
-    model = NerfactoModel(port_tiny_config(use_camera_opt=camera_opt, **GATE), NUM_CAMS)
+    model = NerfactoModel(port_tiny_config(base, use_camera_opt=camera_opt, **GATE), NUM_CAMS)
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     to = topt.make_optimizer(topt.OptimizersConfig(), model)
     tfn = tts.make_train_step(model, to, tcams, tts.SamplerSettings(**settings))
@@ -188,7 +199,12 @@ def run_both(monkeypatch, micro=1, camera_opt=False, steps=4):
     "micro,camera_opt", [(1, False), (2, False), (1, True)], ids=["plain", "micro2", "camera_opt"]
 )
 def test_train_step_matches_jax(monkeypatch, micro, camera_opt):
-    jm, tm, jp, tp, jg, tg, p0 = run_both(monkeypatch, micro, camera_opt)
+    assert_runs_agree(*run_both(monkeypatch, micro, camera_opt))
+
+
+def assert_runs_agree(jm, tm, jp, tp, jg, tg, p0):
+    """`run_both`'s two runs agree step by step, in their first-step
+    gradients and in their parameters after the last step."""
     for a, b in zip(jm, tm):
         assert sorted(a) == sorted(b)
         for k in a:
@@ -388,7 +404,8 @@ def _tree(seed=11):
 def test_optimizer_matches_jax(fused):
     """Four updates against `make_optimizer` with the fused flat-group
     update on and off (optax multi_transform), as tests/test_engine.py
-    compares those two."""
+    compares those two; the port's `fused_update` follows JAX's (one
+    multi-tensor pass a group, or tensor by tensor)."""
     params = _tree()
     cfg = jopt.OptimizersConfig(
         fused_update=fused,
@@ -402,6 +419,7 @@ def test_optimizer_matches_jax(fused):
     tparams = {k: torch.nn.Parameter(v.clone()) for k, v in sd.items()}
     to = topt.GroupedAdam(
         topt.OptimizersConfig(
+            fused_update=fused,
             fields=topt.OptimizerGroupConfig(lr=1e-2, lr_final=1e-4, max_steps=3),
             proposal_networks=topt.OptimizerGroupConfig(lr=5e-3, lr_final=1e-3, max_steps=2, warmup_steps=2),
         ),
