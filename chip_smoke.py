@@ -180,14 +180,25 @@ the result line):
      writer of flax's format), read by `SDXLInpaintPipeline.create`, every
      tensor checked, one 1536 px sheet sampler step on it (K7); exact
      launches in each;
+ 22. the repository's example scripts and the probe (run after 21):
+     examples/fit_synthetic_torch.py's `main` (5 dispatches of 50 steps at
+     4096 rays on its 16-view analytic scene: eval PSNR, rays/s, exact K1
+     and K2 launches); scripts/probe_edit_mask_torch.py's pretrain of the
+     pass's NeRF on its 100-view ring at 1024 px, 1000 `signerf` steps and
+     500 more at a time while a reference mask is empty (at most 2000); examples/north_star_pass_torch.py's
+     `main` at 8 views of 1024 px from that checkpoint (its 3x3 sheet of
+     512 px cells, full-width SDXL at random init, 20 steps, 100
+     refinement steps): the result's keys against the JAX script's schema,
+     every number finite, a non-empty edit mask, exact K1 to K6 launches
+     and K7 from the pipeline's schedule, the walls of each phase;
  20. a JSON line per kernel, then {"ok": true, "device": {...}} last. A
      kernel's launches are summed over the main path's phases that run it
-     (K1: 6, 7, 11, 14, 14d, 14e, 14f and 21; K2's tables half: 7, 11,
-     14d, 14e, 14f and 21; K3: 11, 14 and 21; K4's tables half: 11 and
-     21; K5: 11 and 14; K7: 16, 14d, 14f and 21; K8 and K9's tables half: 14b and
-     21), and its times and bound are per call, each kind of call weighted
-     by its launches, so that launches x (ms - bound_ms) is the time the
-     path loses to it.
+     (K1: 6, 7, 11, 14, 14d, 14e, 14f, 21 and 22; K2's tables half: 7, 11,
+     14d, 14e, 14f, 21 and 22; K3: 11, 14, 21 and 22; K4's tables half:
+     11, 21 and 22; K5: 11, 14 and 22; K6's tables half: 11 and 22; K7: 16, 14d,
+     14f, 21 and 22; K8 and K9's tables half: 14b and 21), and its times
+     and bound are per call, each kind of call weighted by its launches,
+     so that launches x (ms - bound_ms) is the time the path loses to it.
 
 The script imports torch and the port only.
 """
@@ -205,6 +216,8 @@ import tempfile
 import time
 import zlib
 from pathlib import Path
+
+from signerf_tpu_torch.utils.microbench import TRAIN_KERNEL_GROUPS, cuda_ms, kernel_breakdown
 
 ROOT = Path(__file__).resolve().parent
 # K1 vs plain twin, max abs error over max|ref|: the same bf16 features bit
@@ -344,21 +357,6 @@ def run(cmd) -> str:
     if proc.returncode != 0:
         fail(f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr.strip()}")
     return proc.stdout.strip()
-
-
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def read_png(path: Path):
@@ -1628,25 +1626,10 @@ def phase_signerf_step(torch, data: Path, ckpt_dir: Path) -> None:
         fail("the orientation loss does not reach the line tables")
 
 
-# Device kernels by name, for the step profile.
-PROFILE_GROUPS = [
-    ("K1", ("density_kernel",)),
-    ("K2", ("density_bwd_tables_kernel", "density_bwd_coords_kernel")),
-    ("K3", ("encode_kernel",)),
-    ("K4", ("encode_bwd_tables_kernel", "encode_bwd_dot_kernel")),
-    ("K5", ("grad_dot_kernel",)),
-    ("K6", ("grad_dot_bwd_tables_kernel", "grad_dot_bwd_coords_kernel")),
-    ("LPIPS convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd", "fft")),
-]
-
-
 def phase_profile(torch, card: str, data: Path, ckpt_dir: Path) -> None:
     """Warm signerf train steps under torch.profiler: device time per step by
     kernel, the device's busy share of the steps' span, and LPIPS (forward
     and backward over one step's 16 patches) timed alone."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from signerf_tpu_torch.engine.optimizers import make_optimizer
     from signerf_tpu_torch.engine.train_step import make_train_step
     from signerf_tpu_torch.method_configs import signerf_method
@@ -1657,33 +1640,12 @@ def phase_profile(torch, card: str, data: Path, ckpt_dir: Path) -> None:
     step = make_train_step(model, make_optimizer(signerf_method().optimizers, model), dm.cameras,
                            dm.sampler_settings())
     gen = torch.Generator(device=dev).manual_seed(3)
-    for i in range(2):
-        step(i, dm.images, dm.mask_indices, gen)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for i in range(PROFILE_STEPS):
-            step(2 + i, dm.images, dm.mask_indices, gen)
-        end.record()
-        torch.cuda.synchronize()
-    span_ms = start.elapsed_time(end) / PROFILE_STEPS
-    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
-    other = 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
-        name = e.name.lower()
-        for group, keys in PROFILE_GROUPS:
-            if any(k in name for k in keys):
-                groups[group] += ms
-                break
-        else:
-            other += ms
-    busy = sum(groups.values()) + other
-    if not busy > 0:
-        fail("the profiler saw no device time in the signerf steps")
+    index = itertools.count()
+    bd = kernel_breakdown(lambda: step(next(index), dm.images, dm.mask_indices, gen), TRAIN_KERNEL_GROUPS,
+                          iters=PROFILE_STEPS, warmup=2)
+    groups = bd["groups_ms"]
+    other = groups.pop("other")
+    span_ms, busy = bd["span_ms"], bd["busy_ms"]
     x = (torch.rand(16, 32, 32, 3, generator=torch.Generator().manual_seed(4)) * 2 - 1).to(dev)
     y = (torch.rand(16, 32, 32, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1).to(dev)
 
@@ -1695,8 +1657,8 @@ def phase_profile(torch, card: str, data: Path, ckpt_dir: Path) -> None:
     parts = "; ".join(f"{k} {v:.3f} ms ({v / busy:.1%})" for k, v in groups.items())
     print(
         f"phase 13 profile, {PROFILE_STEPS} warm signerf steps of {SIGNERF_RAYS} rays: span "
-        f"{span_ms:.3f} ms a step, device busy {busy:.3f} ms ({busy / span_ms:.1%}, idle "
-        f"{1 - busy / span_ms:.1%}); {parts}; other kernels {other:.3f} ms ({other / busy:.1%}); K4 "
+        f"{span_ms:.3f} ms a step, device busy {busy:.3f} ms ({bd['busy_share']:.1%}, idle "
+        f"{bd['idle_share']:.1%}); {parts}; other kernels {other:.3f} ms ({other / busy:.1%}); K4 "
         f"{groups['K4'] / SIGNERF_MICRO:.3f} and K6 {groups['K6'] / SIGNERF_MICRO:.3f} ms a call ({SIGNERF_MICRO} "
         f"a step); LPIPS forward + backward over 16 patches alone {lpips_ms:.3f} ms; on {card}",
         flush=True,
@@ -3302,28 +3264,12 @@ def phase_cfg_branch(torch, card: str, sh: dict) -> None:
 def phase_diffusion_profile(torch, card: str, sh: dict) -> None:
     """One sampler step's model work (both CFG branches) under torch.profiler:
     device busy share, K7's share of device time and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     eps = cfg_branch(torch, sh["diffuser"].pipeline, sh)
     with torch.no_grad():
         plain_span = cuda_ms(lambda: (eps(0), eps(1)), 2)  # the same work, not profiled
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start.record()
-            eps(0), eps(1)
-            end.record()
-            torch.cuda.synchronize()
-    span = start.elapsed_time(end)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
-    if not busy > 0:
-        fail("the profiler saw no device time in the sampler step")
-    k7 = sum(v for k, v in by_name.items() if "flash_attention_kernel" in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        bd = kernel_breakdown(lambda: (eps(0), eps(1)), [("K7", ("flash_attention_kernel",))], warmup=0)
+    span, busy, k7 = bd["span_ms"], bd["busy_ms"], bd["groups_ms"]["K7"]
+    top = sorted(bd["kernels_ms"].items(), key=lambda kv: -kv[1])[:6]
     print(f"phase 19 profile of one sampler step's UNet + ControlNet work (2 CFG branches, sheet shape): span "
           f"{plain_span:.2f} ms unprofiled ({span:.2f} ms under the profiler), device busy {busy:.2f} ms "
           f"({busy / plain_span:.1%} of the unprofiled span, idle {1 - busy / plain_span:.1%}); K7 "
@@ -3934,6 +3880,159 @@ def phase_last_sdxl(torch, card: str, sh: dict) -> dict:
     return {"k7_launches": launches, "steps": 1}
 
 
+# Phase 22, the repository's example scripts: the verification drive
+# and the reference-scale edit pass through their own functions, at a cut scale.
+FIT_DISPATCHES = 5  # 50 steps each, after the first
+FIT_MIN_PSNR = 20.0  # dB on the analytic sphere after 300 steps of 4096 rays
+NS_VIEWS, NS_SIZE = 8, 1024
+NS_REFINE_STEPS = 100
+# The NeRF that the pass edits: on 8 views its depth stays behind the edit
+# box after 1200 steps, so every mask is empty; on the pass's 100-view ring
+# the masks fill after 500 to 1000 steps, but not in every run
+# (scripts/probe_edit_mask_torch.py, PERF.md section 6), so the smoke
+# pretrains until every reference mask is non-empty, at most
+# NS_PRETRAIN_STEPS[-1] steps. The pass loads it from `load_dir`, as the
+# reference edits an existing NeRF; the scene space is the same on both
+# rings.
+NS_PRETRAIN_VIEWS, NS_PRETRAIN_STEPS = 100, (1000, 1500, 2000)
+NS_RESULT_KEYS = ("script", "commit", "date", "hardware", "n_views", "refine_steps", "pretrain_steps",
+                  "loaded_checkpoint", "phases_s", "edit_pass_s", "edit_pass_min", "sheet_s", "sheet_warm_s",
+                  "refine_rays_per_s", "warm_per_view_marginal_s", "view_s_first", "eval_psnr_db",
+                  "edit_mask_coverage", "edit_landing_masked_delta", "edit_landing_unmasked_delta",
+                  "edit_landing_ratio", "generation_batch_size", "reduced", "notes", "image_px", "sheet",
+                  "warm_single_chip_edit_pass_min")
+
+
+def finite_numbers(tree) -> bool:
+    """Every int and float in a JSON-like tree is finite."""
+    import math
+
+    if isinstance(tree, dict):
+        return all(finite_numbers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(finite_numbers(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def phase_scripts(torch, card: str) -> dict:
+    """`examples/fit_synthetic_torch.py` (FIT_DISPATCHES dispatches), then
+    `scripts/probe_edit_mask_torch.py`'s pretrain of the pass's NeRF
+    (NS_PRETRAIN_STEPS on its NS_PRETRAIN_VIEWS-view ring; every reference
+    mask non-empty) and `examples/north_star_pass_torch.py` at NS_VIEWS
+    views of NS_SIZE px on that checkpoint (3x3 sheet, full-width SDXL at
+    random init, 20 steps; NS_REFINE_STEPS refinement steps), each through
+    its own functions, with exact launches, the result's schema and finite
+    numbers."""
+    import gc
+
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser
+    from signerf_tpu_torch.engine.checkpoints import save_checkpoint
+    from signerf_tpu_torch.ops import flash_attention as fa
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    sys.path[:0] = [str(ROOT / "examples"), str(ROOT / "scripts")]
+    import fit_synthetic_torch
+    import north_star_pass_torch as ns
+    import probe_edit_mask_torch as probe
+
+    dev = torch.device("cuda")
+    zero_counts(ffc)
+    t0 = time.perf_counter()
+    fit = fit_synthetic_torch.main(FIT_DISPATCHES, TRAIN_RAYS, "cuda")
+    fit_s = time.perf_counter() - t0
+    got = counts(ffc)
+    want = NERFACTO_COUNTS(fit["steps"])
+    want["K1"] += 3 * fit["eval_chunks"]
+    losses = [loss for _, loss, _ in fit["trajectory"]]
+    if got != want or not finite_numbers(fit) or not losses or not fit["eval_psnr_db"] >= FIT_MIN_PSNR:
+        fail(f"fit_synthetic_torch: launched {got}, expected {want}; result {fit} (eval PSNR at least "
+             f"{FIT_MIN_PSNR} dB)")
+    print(f"phase 22 examples/fit_synthetic_torch.py {FIT_DISPATCHES} {TRAIN_RAYS}: {fit['params']} parameters, "
+          f"{fit['steps']} steps, loss and PSNR at steps {fit['trajectory']}, first dispatch (kernel build, warm-up) "
+          f"{fit['first_dispatch_s']:.2f} s, train {fit['train_rays_per_s']:.0f} rays/s (CUDA events), eval PSNR "
+          f"{fit['eval_psnr_db']:.2f} dB; launches K1 {got['K1']}, K2 tables {got['K2 tables']}; wall {fit_s:.1f} s; "
+          f"on {card}", flush=True)
+
+    chunks = -(-NS_SIZE * NS_SIZE // CHUNK)
+
+    def signerf_counts(micro: int, renders: int) -> dict:
+        # a micro-batch's forward and backward, then the eval render's chunks (normals on)
+        want = expect_counts(K1=2, K2_tables=2, K3=1, K4_tables=1, K5=1, K6_tables=1)(micro)
+        for name, per_chunk in (("K1", 2), ("K3", 1), ("K5", 1)):
+            want[name] += per_chunk * chunks * renders
+        return want
+
+
+    calls = []
+    tmp = Path(tempfile.mkdtemp(prefix="north_star_"))
+    try:
+        zero_counts(ffc)
+        t0 = time.perf_counter()
+        trainer, rows = probe.probe(tmp / "pretrain", NS_PRETRAIN_VIEWS, NS_SIZE, NS_PRETRAIN_STEPS, dev,
+                                    until_filled=True)
+        pre_steps = trainer.step
+        pre_micro = pre_steps * trainer.pipeline.datamanager.sampler_settings().micro_batches
+        ckpt = save_checkpoint(tmp / "checkpoint", trainer.step, trainer.pipeline.model.state_dict(),
+                               trainer.optimizer)
+        pre_s = time.perf_counter() - t0
+        del trainer
+        probe_renders = 2 * ns.REFERENCE_VIEWS * len(rows)
+        got, want = counts(ffc), signerf_counts(pre_micro, probe_renders)
+        coverage = rows[-1]["coverage"]
+        print(f"phase 22 scripts/probe_edit_mask_torch.py: {pre_steps} signerf steps on the pass's "
+              f"{NS_PRETRAIN_VIEWS}-view ring at {NS_SIZE} px (until every reference mask filled; coverage "
+              + ", ".join(f"{min(r['coverage']):.4f} at {r['steps']}" for r in rows) + f"), the last "
+              f"{rows[-1]['train_s']:.1f} s; the {len(coverage)} "
+              f"reference masks cover " + " ".join(f"{c:.4f}" for c in coverage) + "; of the rays crossing the box, "
+              "depth in front " + " ".join(f"{c:.2f}" for c in rows[-1]["in_front"]) + ", behind "
+              + " ".join(f"{c:.2f}" for c in rows[-1]["behind"]) + f"; launches K1 {got['K1']}, K3 {got['K3']}; "
+              f"wall {pre_s:.1f} s; on {card}", flush=True)
+        if got != want or not min(coverage) > 0:
+            fail(f"the pass's pretrain: launched {got}, expected {want}; reference mask coverage {coverage}")
+        zero_counts(ffc)
+        fa.launches = 0
+        t0 = time.perf_counter()
+        result = ns.main([str(NS_VIEWS), str(NS_REFINE_STEPS), str(pre_steps), str(ckpt.parent),
+                          "--device", "cuda", "--size", str(NS_SIZE), "--out", str(tmp / "pass")],
+                         make_diffuser=lambda c: recording_diffuser(Diffuser(c, device=dev), calls))
+        ns_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = counts(ffc)
+    micro = SIGNERF_MICRO * (NS_REFINE_STEPS + 1 + ns.PROFILE_STEPS)  # the profile's warm-up and window
+    renders = NS_VIEWS + 2 * ns.REFERENCE_VIEWS + 1 + min(ns.EVAL_VIEWS, NS_VIEWS + ns.REFERENCE_VIEWS)
+    want = signerf_counts(micro, renders)
+    sheet = SHEET_CELL * SHEET_GRID
+    k7_shapes = k7_launches(calls, sheet, sheet)
+    if got != want or fa.launches != sum(k7_shapes.values()) or set(k7_shapes) - set(K7_SHEET_CALLS):
+        fail(f"north_star_pass_torch: launched {got}, expected {want} ({micro} signerf micro-batches, {renders} renders of "
+             f"{chunks} chunks); K7 {fa.launches}, expected {sum(k7_shapes.values())} from the pipeline's schedule "
+             f"{k7_shapes} (phase 15 times {tuple(K7_SHEET_CALLS)})")
+    if set(result) != set(NS_RESULT_KEYS) or not finite_numbers(result) or not result["edit_mask_coverage"] > 0:
+        fail(f"north_star_pass_torch: result keys {tuple(result)}, expected {NS_RESULT_KEYS}; finite "
+             f"{finite_numbers(result)}; edit mask coverage {result.get('edit_mask_coverage')}")
+    ph = result["phases_s"]
+    print(f"phase 22 examples/north_star_pass_torch.py {NS_VIEWS} {NS_REFINE_STEPS} {pre_steps} CHECKPOINT "
+          f"--size {NS_SIZE}: walls setup {ph['setup']:.3f} s, generation "
+          f"{ph['generation']:.3f} s (sheet {result['sheet_s']:.3f} s, first chunk {result['view_s_first']:.3f} s, "
+          f"warm per-view marginal {result['warm_per_view_marginal_s']} s, batch {result['generation_batch_size']}), "
+          f"sheet again {result['sheet_warm_s']:.3f} s, exchange {ph['exchange']:.3f} s, refine {ph['refine']:.3f} s "
+          f"({result['refine_rays_per_s']} rays/s), eval {ph['eval']:.3f} s; edit pass {result['edit_pass_s']:.3f} "
+          f"s; eval PSNR {result['eval_psnr_db']} dB, mask coverage {result['edit_mask_coverage']}, edit landing "
+          f"ratio {result['edit_landing_ratio']}; {len(calls)} diffuse calls, serial views "
+          f"{[r['serial_views'] for _, r in calls]}; launches K1 {got['K1']}, K2 tables {got['K2 tables']}, K3 "
+          f"{got['K3']}, K4 tables {got['K4 tables']}, K5 {got['K5']}, K6 tables {got['K6 tables']}, K7 "
+          f"{fa.launches}; wall {ns_s:.1f} s; on {card}", flush=True)
+    for note in result["notes"]:
+        print(f"phase 22 north star: {note}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 22 wall {fit_s + pre_s + ns_s:.1f} s; on {card}", flush=True)
+    return {"fit_steps": fit["steps"], "fit_chunks": fit["eval_chunks"], "micro": micro + pre_micro,
+            "eval_chunks": chunks * (renders + probe_renders), "k7_shapes": k7_shapes,
+            "k7_launches": fa.launches}
+
+
 def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms", bound_key="",
                  replaces="signerf_tpu/ops/fused_factor_pallas.py"):
     return {
@@ -4005,15 +4104,20 @@ def main() -> int:
     phase_cfg_branch(torch, card, sheet)
     phase_diffusion_profile(torch, card, sheet)
     last_sdxl = phase_last_sdxl(torch, card, sheet)
+    sheet["diffuser"]._sdxl = None  # phase 22 creates its own
+    p22 = phase_scripts(torch, card)
     launched = signerf["launches"]
+    ns_train = p22["micro"]  # K3, K4's and K6's tables halves and K5 once a micro-batch
     # Calls of each field at a render chunk's and a train step's N in phases
-    # 6, 7, 11, 14, the edit pass (14d, 14e) and the viewer (14f; the eval
-    # render and a `signerf` step call only the proposal fields, the latter
-    # in each of its micro-batches), and the base field's at the mesh
-    # export's N.
-    chunks = render_launches // 3 + edit["chunks"] + viewer["chunks"] + last["arc_chunks"]
-    steps = train["launches"]["K1"] // 3 + edit["train_steps"] + viewer["train_steps"] + last["repeat_steps"]
-    eval_chunks, micro = evaluation["K1"] // 2, launched["K1"] // 2
+    # 6, 7, 11, 14, the edit pass (14d, 14e), the viewer (14f) and the
+    # example scripts (22; the eval render and a `signerf` step call only the
+    # proposal fields, the latter in each of its micro-batches), and the base
+    # field's at the mesh export's N.
+    chunks = render_launches // 3 + edit["chunks"] + viewer["chunks"] + last["arc_chunks"] + p22["fit_chunks"]
+    steps = (train["launches"]["K1"] // 3 + edit["train_steps"] + viewer["train_steps"] + last["repeat_steps"]
+             + p22["fit_steps"])
+    eval_chunks = evaluation["K1"] // 2 + p22["eval_chunks"]
+    micro = launched["K1"] // 2 + p22["micro"]
     fields = [(name, name != "final") for name, _, _ in TRAIN_SCHEDULES]
     k1_calls = [(chunks + eval_chunks * proposal, k1["per_call"][(name, "chunk")]) for name, proposal in fields]
     k1_calls += [(steps + micro * proposal, k1["per_call"][(name, "train")]) for name, proposal in fields]
@@ -4027,18 +4131,21 @@ def main() -> int:
     k1_calls += [(lin_steps, k1["per_call"][("final", "train")]), (lin_chunks, k1["per_call"][("final", "chunk")])]
     k2_tables = [(steps + micro * proposal, k2["per_call"][name]["tables"]) for name, proposal in fields]
     k2_tables += [(lin_steps, k2["per_call"]["final"]["tables"])]
-    k3_calls = [(launched["K3"], k36["K3"]), (evaluation["K3"], k36["K3"]["eval"]), (last["K3"], k36["K3"])]
-    k4_calls = [(launched["K4 tables"], k36["K4 tables"]), (last["K4 tables"], k36["K4 tables"])]
+    k3_calls = [(launched["K3"] + ns_train, k36["K3"]), (evaluation["K3"] + p22["eval_chunks"], k36["K3"]["eval"]),
+                (last["K3"], k36["K3"])]
+    k4_calls = [(launched["K4 tables"] + ns_train, k36["K4 tables"]), (last["K4 tables"], k36["K4 tables"])]
     for name, _, _ in PROPOSAL_FIELDS:
         k3_calls += [(lin_steps, p21[("K3", name, "train")]), (lin_chunks, p21[("K3", name, "chunk")])]
         k4_calls += [(lin_steps, p21[("K4 tables", name, "train")])]
-    # K7 per call over the sheet inpaint's shapes (phase 16), the edit pass's
-    # and the viewer's (14d, 14f).
+    # K7 per call over the sheet inpaint's shapes (phase 16), the edit pass's,
+    # the viewer's and phase 22's (14d, 14f, 22).
     k7_calls = {shape: 2 * n * (sheet["steps"] + last_sdxl["steps"]) for shape, n in K7_SHEET_CALLS.items()}
-    for shape, n in itertools.chain(edit["k7_shapes"].items(), viewer["k7_shapes"].items()):
+    for shape, n in itertools.chain(edit["k7_shapes"].items(), viewer["k7_shapes"].items(),
+                                    p22["k7_shapes"].items()):
         k7_calls[shape] = k7_calls.get(shape, 0) + n
     k7_stats = per_call("K7", [(n, k7["per_shape"][shape]) for shape, n in k7_calls.items()], k7["max_abs_err"])
-    k7_counted = sheet["launches"] + edit["k7_launches"] + viewer["k7_launches"] + last_sdxl["k7_launches"]
+    k7_counted = (sheet["launches"] + edit["k7_launches"] + viewer["k7_launches"] + last_sdxl["k7_launches"]
+                  + p22["k7_launches"])
     if k7_stats["launches"] != k7_counted:
         fail(f"K7: {k7_stats['launches']} launches weighted, {k7_counted} counted")
     k2_coords = [(camopt["K2 coords"] // 3, k2["per_call"][name]["coords"]) for name, _ in fields]
@@ -4057,10 +4164,11 @@ def main() -> int:
         kernel_entry("fused_factor_encode_bwd (coords half)", "fused_factor_encode.cu", 640,
                      signerf_camopt["K4 coords"], k36["K4 coords"]),
         kernel_entry("fused_factor_grad_dot", "fused_factor_grad_dot.cu", 1037, None,
-                     per_call("K5", [(launched["K5"], k36["K5"]), (evaluation["K5"], k36["K5"]["eval"])],
+                     per_call("K5", [(launched["K5"] + ns_train, k36["K5"]),
+                                     (evaluation["K5"] + p22["eval_chunks"], k36["K5"]["eval"])],
                               k36["K5"]["max_abs_err"])),
         kernel_entry("fused_factor_grad_dot_bwd (tables half and grad_g)", "fused_factor_grad_dot.cu", 1315,
-                     launched["K6 tables"], k36["K6 tables"]),
+                     launched["K6 tables"] + ns_train, k36["K6 tables"]),
         kernel_entry("fused_factor_grad_dot_bwd (coords half)", "fused_factor_grad_dot.cu", 1329,
                      signerf_camopt["K6 coords"], k36["K6 coords"]),
         kernel_entry("flash_attention (per call)", "flash_attention.cu", 216, None, k7_stats,

@@ -105,6 +105,14 @@ class Cameras:
     def __len__(self) -> int:
         return self.camera_to_worlds.shape[0]
 
+    @property
+    def image_width(self) -> int:
+        return self.width
+
+    @property
+    def image_height(self) -> int:
+        return self.height
+
     def slice(self, idx) -> "Cameras":
         """A subset of the cameras (an index, a slice or an index tensor),
         with the same size and camera type."""

@@ -33,6 +33,17 @@ def look_at_poses(positions: torch.Tensor, target: Sequence[float]) -> torch.Ten
     return poses
 
 
+def linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
+    """`jnp.linspace`'s float32 rule, both ends included: start * (1 - i / n)
+    + stop * (i / n) for i < n = num - 1, then stop. `torch.linspace` steps
+    from the nearer end instead, which moves interior points by an ulp."""
+    if num <= 1:
+        return torch.full((num,), start, dtype=torch.float32)
+    step = torch.arange(num - 1, dtype=torch.float32) / (num - 1)
+    lo, hi = torch.tensor(start, dtype=torch.float32), torch.tensor(stop, dtype=torch.float32)
+    return torch.cat([lo * (1 - step) + hi * step, hi[None]])
+
+
 def circle_poses(
     size: int,
     radius: float,
@@ -44,7 +55,7 @@ def circle_poses(
     """`size` look-at poses on a circle: theta is the polar angle from +z in
     degrees; phi = (start, end) azimuths in degrees, both included."""
     th = math.radians(theta)
-    phis = torch.linspace(math.radians(phi[0]), math.radians(phi[1]), size)
+    phis = linspace_f32(math.radians(phi[0]), math.radians(phi[1]), size)
     positions = torch.stack(
         [
             radius * math.sin(th) * torch.cos(phis) + position[0],

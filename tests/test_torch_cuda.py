@@ -1139,3 +1139,26 @@ def test_factor_encoding_planes_and_encode_with_grad_on_the_card(cuda):
             assert float((a - b).norm() / b.norm()) < 1e-4
         for k in g_want:
             assert float((g_got[k] - g_want[k]).norm() / g_want[k].norm().clamp_min(1e-12)) < 1e-4, k
+
+
+def test_microbench_times_a_known_sleep(cuda):
+    """`utils/microbench`'s CUDA-event timer and profiler breakdown against a
+    kernel of known length: `torch.cuda._sleep` spins for a number of clock
+    cycles, whose length one host clock around a synchronised launch
+    measures (its ~10 us launch is noise at ~30 ms)."""
+    import time
+
+    from signerf_tpu_torch.utils import microbench as mb
+
+    cycles = 50_000_000
+    torch.cuda._sleep(cycles)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    length_ms = (time.perf_counter() - t0) * 1e3
+    timing = mb.cuda_time_stats(lambda: torch.cuda._sleep(cycles), iters=3, repeats=3)
+    assert timing.resolved and abs(timing.median_ms - length_ms) <= 0.2 * length_ms, (timing, length_ms)
+    assert abs(mb.cuda_ms(lambda: torch.cuda._sleep(cycles), 3) - length_ms) <= 0.2 * length_ms
+    bd = mb.kernel_breakdown(lambda: torch.cuda._sleep(cycles), [("sleep", ("sleep", "spin"))], iters=2)
+    assert abs(bd["busy_ms"] - length_ms) <= 0.2 * length_ms and bd["idle_share"] < 0.2, bd

@@ -343,3 +343,93 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                  lambda: ffc.grad_bwd_cuda(*args, torch.from_numpy(ct))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# The slope at an exact interior knot of the Pallas kernels' large levels
+# ---------------------------------------------------------------------------
+
+
+def knot_coords(res: int, ks, seed: int = 3):
+    """Rows whose axis `a` sits exactly on interior knot k of a level of
+    resolution `res` (u * (res - 1) == k in f32, as every path computes it),
+    for each k in `ks` and each axis; the other two axes uniform. Returns
+    (x [N, 3] f32, axis of each row)."""
+    rng = np.random.default_rng(seed)
+    rows, axes = [], []
+    for k in ks:
+        u = np.float32(k) / np.float32(res - 1)
+        assert np.float32(u) * np.float32(res - 1) == np.float32(k), k
+        for a in range(3):
+            x = rng.random(3).astype(np.float32)
+            x[a] = u
+            rows.append(x)
+            axes.append(a)
+    return np.stack(rows), np.array(axes)
+
+
+def fma_residual(u: np.float32, res: int) -> float:
+    """What is left of the knot k = u * (res - 1) in a large level's
+    block-local offset x_loc = u * (res - 1) - a * TAP_BLOCK when the
+    multiply and the subtract are contracted into one fused multiply-add (as
+    XLA's CPU backend compiles the interpret-mode kernel): u's own rounding
+    error, unless the block is the first or the product is exact."""
+    k = np.float32(u) * np.float32(res - 1)
+    a = min(np.floor(k / ffp.TAP_BLOCK), ffp._num_blocks(res) - 1)
+    return float(np.float32(np.float64(u) * (res - 1) - a * ffp.TAP_BLOCK) - (k - a * ffp.TAP_BLOCK))
+
+
+def test_interior_knot_slope_of_large_levels():
+    """At an exact interior knot of a large level (past SMALL_MAX_RES, where
+    the Pallas kernels take their taps from a block of TAP_BLOCK knots) the
+    XLA expression (`dhat_matrix`: sign(0) = 0) and the port's twins of K8
+    and K5 give that level's slope on that axis exactly 0. Interpret-mode
+    Pallas K8 and K5 give 0 only where the block-local offset stays exact:
+    elsewhere their fused multiply-add leaves x_loc a few ulps right of the
+    knot, and they take the slope of the cell to its right, as XLA does a
+    hair right of the knot. The reference's Pallas path is the odd one out;
+    the port keeps XLA's rule."""
+    jcfg, tcfg, lines, _, _ = make_case("base")
+    res = jcfg.resolutions[-1]
+    level = len(jcfg.resolutions) - 1
+    assert res > ffp.SMALL_MAX_RES and ffp.TAP_BLOCK == 8
+    ks = [k for k in (1, 5, 7, 8, 9, 16, 100, 128, 200, 247, 248, 253)
+          if np.float32(np.float32(k) / np.float32(res - 1)) * np.float32(res - 1) == np.float32(k)]
+    assert len(ks) >= 8
+    x, axis = knot_coords(res, ks)
+    rows = np.arange(len(x))
+    moved = np.array([fma_residual(x[r, axis[r]], res) != 0.0 for r in rows])
+    assert 0 < moved.sum() < len(rows)  # both cases occur
+    feat, d = jcfg.features_per_level, tcfg.out_dim
+    g = np.random.default_rng(4).standard_normal((len(x), d)).astype(np.float32)
+    jpacked = ffp.pack_tables(jcfg.resolutions, jlines(lines))
+    xla = np.asarray(jfg.dfeat01_reference(jcfg, jlines(lines), jnp.asarray(x)))
+    pallas = np.asarray(ffp._fused_factor_grad_impl(jcfg.resolutions, feat, jpacked, jnp.asarray(x), True))
+    twin = ffc.grad_plain(*packed(tcfg, lines), torch.from_numpy(x)).numpy()
+    block = slice(level * feat, (level + 1) * feat)
+    for out in (xla, twin):
+        assert np.all(out[rows, axis, block] == 0.0)
+    assert np.all(pallas[rows[~moved], axis[~moved], block] == 0.0)
+    assert np.all(np.abs(pallas[rows[moved], axis[moved], block]).max(-1) > 0)
+    # Pallas's slope there is the right-hand cell's: XLA's one f32 step right.
+    x_right = x.copy()
+    x_right[rows, axis] = np.nextafter(x[rows, axis], np.float32(2))
+    xla_right = np.asarray(jfg.dfeat01_reference(jcfg, jlines(lines), jnp.asarray(x_right)))
+    assert rel(pallas[rows[moved], axis[moved], block], xla_right[rows[moved], axis[moved], block]) < 0.02
+    # Away from those slopes all three agree as elsewhere.
+    keep = np.ones_like(xla, dtype=bool)
+    keep[rows[moved], axis[moved], block] = False
+    assert rel(pallas[keep], xla[keep]) < 0.02 and rel(twin, xla) < 0.02 and rel(twin[keep], pallas[keep]) < 0.005
+
+    # K5 = K8 . g: the twin's knots contribute nothing to s[n, axis] (the
+    # same contraction without the large level); interpret-mode Pallas K5
+    # carries the same right-hand slopes as its K8.
+    s_pallas = np.asarray(ffp.fused_factor_grad_dot_tpu(jcfg.resolutions, feat, jpacked, jnp.asarray(x),
+                                                        jnp.asarray(g), True))
+    s_twin = ffc.grad_dot_plain(*packed(tcfg, lines), torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    g_off = g.copy()
+    g_off[:, block] = 0.0
+    s_twin_off = ffc.grad_dot_plain(*packed(tcfg, lines), torch.from_numpy(x), torch.from_numpy(g_off)).numpy()
+    np.testing.assert_array_equal(s_twin[rows, axis], s_twin_off[rows, axis])
+    assert rel(s_twin, np.einsum("nad,nd->na", xla, g)) < 0.02
+    assert rel(s_pallas, np.einsum("nad,nd->na", pallas, g)) < 0.02

@@ -241,11 +241,15 @@ def test_port_imports_no_jax():
     """A fresh interpreter that imports the render, train, eval and export
     CLIs, the diffusion port, the factor-grid kernels' entry points, the hash
     grid, the checkpoint reader (JAX `.ckpt` included), the editing
-    geometry, the camera arc, the image cache, the fields and the FLOP model
-    has neither JAX, flax, msgpack, nor any module of the JAX package
-    loaded."""
+    geometry, the camera arc, the image cache, the fields, the FLOP model,
+    the card's timers, the two example scripts, the probe, the three
+    profilers and chip_smoke.py has neither JAX, flax, msgpack, nor any
+    module of the JAX package loaded."""
     code = (
-        "import sys, signerf_tpu_torch.render, signerf_tpu_torch.convert, "
+        "import sys; sys.path[:0] = ['examples', 'scripts']; "
+        "import fit_synthetic_torch, north_star_pass_torch, probe_edit_mask_torch, profile_render_torch, "
+        "profile_train_torch, profile_diffusion_torch, chip_smoke, signerf_tpu_torch.utils.microbench; "
+        "import signerf_tpu_torch.render, signerf_tpu_torch.convert, "
         "signerf_tpu_torch.train, signerf_tpu_torch.eval, signerf_tpu_torch.export, "
         "signerf_tpu_torch.ops.hashgrid, signerf_tpu_torch.engine.checkpoints, "
         "signerf_tpu_torch.diffusion.diffuser, signerf_tpu_torch.diffusion.sdxl_pipeline, "
