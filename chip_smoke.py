@@ -185,20 +185,40 @@ the result line):
      4096 rays on its 16-view analytic scene: eval PSNR, rays/s, exact K1
      and K2 launches); scripts/probe_edit_mask_torch.py's pretrain of the
      pass's NeRF on its 100-view ring at 1024 px, 1000 `signerf` steps and
-     500 more at a time while a reference mask is empty (at most 2000); examples/north_star_pass_torch.py's
-     `main` at 8 views of 1024 px from that checkpoint (its 3x3 sheet of
+     500 more at a time while a reference mask is empty (at most 2500);
+     examples/north_star_pass_torch.py's
+     `main` at 4 views of 1024 px from that checkpoint (its 3x3 sheet of
      512 px cells, full-width SDXL at random init, 20 steps, 100
      refinement steps): the result's keys against the JAX script's schema,
      every number finite, a non-empty edit mask, exact K1 to K6 launches
      and K7 from the pipeline's schedule, the walls of each phase;
+ 23. data parallelism over the visible cards (run after 22), one process a
+     card on torch.distributed: (a) the `signerf` train CLI with `--mesh
+     data` over NCCL on all W cards (on one card a process group of 1,
+     which still runs the all-reduce), 100 steps of 16,384 global rays on
+     14c's scene: each rank's exact launches (its micro-batches of 4096
+     rays), step median, wall and peak memory, and every rank's final
+     parameters equal to rank 0's; (b) at max(W, 2) ranks (NCCL with a card
+     a rank on W >= 2 cards, else gloo with both ranks on cuda:0; the
+     backend printed): 4 DP `signerf_nerfacto` steps from fed indices
+     against one rank on the concatenated indices (loss and parameters
+     within DP_LOSS_RTOL and DP_PARAM_TOL), a 512 px frame against one
+     rank's bit for bit, and the per-view generation of 4 views of 512 px
+     through SDXL at published widths (random init, 5 steps, batch 2) on
+     the ranks against one rank's dataset by tests/test_torch_edit_flow.py's
+     `assert_same_dataset` rule;
  20. a JSON line per kernel, then {"ok": true, "device": {...}} last. A
      kernel's launches are summed over the main path's phases that run it
-     (K1: 6, 7, 11, 14, 14d, 14e, 14f, 21 and 22; K2's tables half: 7, 11,
-     14d, 14e, 14f, 21 and 22; K3: 11, 14, 21 and 22; K4's tables half:
-     11, 21 and 22; K5: 11, 14 and 22; K6's tables half: 11 and 22; K7: 16, 14d,
+     (K1: 6, 7, 11, 14, 14d, 14e, 14f, 21, 22 and 23; K2's tables half: 7,
+     11, 14d, 14e, 14f, 21, 22 and 23; K3: 11, 14, 21, 22 and 23; K4's
+     tables half: 11, 21, 22 and 23; K5: 11, 14, 22 and 23; K6's tables
+     half: 11, 22 and 23 (phase 23: rank 0's); K7: 16, 14d,
      14f, 21 and 22; K8 and K9's tables half: 14b and 21), and its times
      and bound are per call, each kind of call weighted by its launches,
      so that launches x (ms - bound_ms) is the time the path loses to it.
+
+Phases 1 to 22 run on one card (their CLIs with `--mesh none`) whatever
+the host holds; the last line's count is every visible card.
 
 The script imports torch and the port only.
 """
@@ -1055,7 +1075,7 @@ def phase_render(torch, card: str, data: Path, tmp: Path) -> int:
     rays = arc * w * h
     chunks = arc * -(-(w * h) // CHUNK)
     out = tmp / "renders"
-    argv = ["--data", str(data), "--output", str(out), "--arc", str(arc), "--device", "cuda"]
+    argv = ["--data", str(data), "--output", str(out), "--arc", str(arc), "--device", "cuda", "--mesh", "none"]
     torch.cuda.synchronize()
     zero_counts(ffc)
     t0 = time.perf_counter()
@@ -1329,9 +1349,9 @@ def phase_k2(torch) -> dict:
     return {"max_abs_err": worst_abs, "per_call": per_call}
 
 
-def train_argv(method: str, data: Path, out: Path, steps: int, *extra: str):
+def train_argv(method: str, data: Path, out: Path, steps: int, *extra: str, mesh: str = "none"):
     return [
-        method, "--data", str(data), "--train-only", "True", "--device", "cuda",
+        method, "--data", str(data), "--train-only", "True", "--device", "cuda", "--mesh", mesh,
         "--max-num-iterations", str(steps), "--steps-per-save", str(steps),
         "--output-dir", str(out), *extra,
     ]
@@ -1523,14 +1543,15 @@ def phase_eval(torch, data: Path, tmp: Path, ckpt_dir: Path) -> float:
 
     render_out = tmp / "trained_render"
     if render_cli.main(["--data", str(data), "--output", str(render_out), "--load-dir", str(ckpt_dir),
-                        "--arc", "1", "--device", "cuda", "--depth", "false"]) != 0:
+                        "--arc", "1", "--device", "cuda", "--mesh", "none", "--depth", "false"]) != 0:
         fail("render CLI could not render the trained checkpoint")
     if not (render_out / "rgb_00000.png").exists():
         fail("render CLI wrote no PNG for the trained checkpoint")
     psnr = {}
     for name, load in [("trained", ["--load-dir", str(ckpt_dir)]), ("init", [])]:
         path = tmp / f"eval_{name}.json"
-        if eval_cli.main(["--data", str(data), "--output", str(path), "--device", "cuda", *load]) != 0:
+        if eval_cli.main(["--data", str(data), "--output", str(path), "--device", "cuda", "--mesh", "none",
+                          *load]) != 0:
             fail(f"eval CLI failed ({name})")
         psnr[name] = _json.loads(path.read_text())["psnr"]
     print(f"phase 10 trained checkpoint: train-view PSNR (camera 0) {train_view:.3f} dB; render CLI "
@@ -2233,7 +2254,8 @@ def phase_edit_clis(torch, card: str, tmp: Path, data: Path, generated: Path, ck
     out = tmp / "edit_cli"
     zero_counts(ffc)
     t0 = time.perf_counter()
-    rc = train_cli.main(["signerf_nerfacto", "--data", str(data), "--skip-interface", "True", "--skip-generation",
+    rc = train_cli.main(["signerf_nerfacto", "--data", str(data), "--mesh", "none", "--skip-interface", "True",
+                         "--skip-generation",
                          "True", "--generated-dataset-dir", str(generated), "--load-dir", str(ckpt_dir), "--device",
                          "cuda", "--max-num-iterations", str(EDIT_CLI_STEPS), "--steps-per-save", str(EDIT_CLI_STEPS),
                          "--output-dir", str(out), *model_flag])
@@ -2328,7 +2350,8 @@ def phase_viewer_cli(tmp: Path, data: Path, ckpt_dir: Path) -> dict:
 
     log = tmp / "viewer_cli.log"
     cmd = [sys.executable, "-m", "signerf_tpu_torch.train", "signerf_nerfacto", "--data", str(data), "--load-dir",
-           str(ckpt_dir), "--device", "cuda", "--output-dir", str(tmp / "viewer_cli"), *REFERENCE_FLAGS]
+           str(ckpt_dir), "--device", "cuda", "--mesh", "none", "--output-dir", str(tmp / "viewer_cli"),
+           *REFERENCE_FLAGS]
     base = f"http://127.0.0.1:{VIEWER_PORT}"
     t0 = time.perf_counter()
     with open(log, "w") as fh:
@@ -2468,14 +2491,24 @@ def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
         # VIEWER_CLIENT_FPS asking 512 px, each reply at the throttled size
         # (128 px until the first rays/s sample of this run, which lands at
         # the tracker's second tick, 8 calls in), with a pause and a resume.
+        # The rates the trainer publishes (every 4 steps): a request may be
+        # sized from any that was current while it was in flight.
+        published = []
+
+        class RecordingTracker(writer.RaysPerSecTracker):
+            def tick(self, num_rays):
+                value = super().tick(num_rays)
+                published.append(writer.GLOBAL_BUFFER.get("train_rays_per_sec", 0.0))
+                return value
+
         runs = {}
         for client in (False, True):
             trainer.config.max_num_iterations = trainer.step + VIEWER_STEPS
-            trainer.rays_tracker = writer.RaysPerSecTracker()
+            trainer.rays_tracker = RecordingTracker()
             writer.GLOBAL_BUFFER.pop("train_rays_per_sec", None)
             events.clear()
             zero_counts(ffc)
-            replies, pause = [], None
+            replies, pause, mid_request = [], None, 0
             t0 = time.perf_counter()
             thread = threading.Thread(target=trainer.train, daemon=True)
             thread.start()
@@ -2484,12 +2517,15 @@ def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
                     time.sleep(0.05)
                     continue
                 t_req = time.perf_counter()
-                allowed = {server.render_size(512)}
+                seen = len(published)
+                ends = {server.render_size(512)}
                 headers, body = http_get(f"{base}/render?{VIEWER_VIEW}&size=512")
-                allowed.add(server.render_size(512))
+                ends.add(server.render_size(512))
+                allowed = ends | {server.throttled_size(512, v) for v in published[seen:]}
                 size = decode_png(body).shape[0]
                 if size not in allowed:
                     fail(f"phase 14f: a /render during training came at {size} px, the throttle allowed {allowed}")
+                mid_request += size not in ends
                 replies.append((size, (time.perf_counter() - t_req) * 1e3, server_timing(headers)))
                 if len(replies) == 2 and pause is None:
                     # paused: the call in flight ends, then the step holds for 1.5 s
@@ -2516,6 +2552,7 @@ def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
             if client and (pause is None or not replies):
                 fail(f"phase 14f: {len(replies)} replies during training, pause {pause}")
             runs[client] = {"wall": wall, "steps": step_ms(events), "replies": replies, "pause": pause,
+                            "mid_request": mid_request,
                             "rays_per_sec": writer.GLOBAL_BUFFER.get("train_rays_per_sec", 0.0)}
 
         # Exports: the mesh at EDIT_MESH_RESOLUTION (K1 one launch a chunk of
@@ -2633,7 +2670,7 @@ def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
           f"{VIEWER_CLIENT_FPS:g} fps: step median {ms_line(busy['steps'])} ms, wall {busy['wall']:.3f} s (a pause of "
           f"{busy['pause'][2]:.3f} s in it, step {busy['pause'][0]} held), {len(sizes)} replies at " + ", ".join(
               f"{s} px x {sizes.count(s)}" for s in sorted(set(sizes)))
-          + f", request {ms_line([r[1] for r in busy['replies']])} ms, lock wait "
+          + f" ({busy['mid_request']} sized from a rate published while in flight), request {ms_line([r[1] for r in busy['replies']])} ms, lock wait "
           f"{ms_line([r[2]['lock'] for r in busy['replies']])} ms, render {ms_line([r[2]['render'] for r in busy['replies']])}"
           f" ms; /export mesh (resolution {EDIT_MESH_RESOLUTION}, iso {EDIT_MESH_ISO}) {mesh['vertices']} vertices, "
           f"{mesh['faces']} faces in {mesh_s:.3f} s, K1 {mesh_calls}; /export pointcloud (downscale 4) "
@@ -2779,6 +2816,7 @@ def phase_hash_render(torch, card: str, data: Path, tmp: Path) -> None:
 
     w, h, arc = SCENE["width"], SCENE["height"], SCENE["arc"]
     argv = ["--data", str(data), "--output", str(tmp / "hash_renders"), "--arc", str(arc), "--device", "cuda",
+            "--mesh", "none",
             "--model.encoding-backend", "hash"]
     torch.cuda.synchronize()
     zero_counts(ffc)
@@ -3394,7 +3432,7 @@ def phase_linear_proposals(torch, card: str, tmp: Path, ref: dict, phase7: dict)
     zero_counts(ffc)
     t0 = time.perf_counter()
     rc = render_cli.main(["--data", str(data), "--output", str(out), "--load-dir", str(train["ckpt_dir"]), "--arc",
-                          "1", "--device", "cuda", "--depth", "false", "--model.background-color",
+                          "1", "--device", "cuda", "--mesh", "none", "--depth", "false", "--model.background-color",
                           REFERENCE_FLAGS[1], "--model.proposal-net-args-list", LINEAR_ARGS])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
@@ -3884,18 +3922,23 @@ def phase_last_sdxl(torch, card: str, sh: dict) -> dict:
 # and the reference-scale edit pass through their own functions, at a cut scale.
 FIT_DISPATCHES = 5  # 50 steps each, after the first
 FIT_MIN_PSNR = 20.0  # dB on the analytic sphere after 300 steps of 4096 rays
-NS_VIEWS, NS_SIZE = 8, 1024
+# 4 views, one chunk of the generator's batch: phase 23 needs the ~40 s that
+# a second chunk took (at 8 views the warm per-view marginal was 7.8 to 9.2
+# s a view; with one chunk the pass reports none).
+NS_VIEWS, NS_SIZE = 4, 1024
 NS_REFINE_STEPS = 100
 # The NeRF that the pass edits: on 8 views its depth stays behind the edit
 # box after 1200 steps, so every mask is empty; on the pass's 100-view ring
-# the masks fill after 500 to 1000 steps, but not in every run
-# (scripts/probe_edit_mask_torch.py, PERF.md section 6), so the smoke
-# pretrains until every reference mask is non-empty, at most
-# NS_PRETRAIN_STEPS[-1] steps. The pass loads it from `load_dir`, as the
-# reference edits an existing NeRF; the scene space is the same on both
-# rings.
-NS_PRETRAIN_VIEWS, NS_PRETRAIN_STEPS = 100, (1000, 1500, 2000)
-NS_RESULT_KEYS = ("script", "commit", "date", "hardware", "n_views", "refine_steps", "pretrain_steps",
+# the masks fill after 1000 to 2000 steps, but not in every run (one of
+# three runs of one tree still had them empty at 2000: the runs part at f32
+# rounding; PERF.md section 6), so the smoke pretrains until every
+# reference mask is non-empty, checking every 500 steps from 1000 on (a
+# check renders the 8 references twice at 1024 px), at most
+# NS_PRETRAIN_STEPS[-1] steps. The pass loads it from `load_dir`, as
+# the reference edits an existing NeRF; the scene space is the same on
+# both rings.
+NS_PRETRAIN_VIEWS, NS_PRETRAIN_STEPS = 100, (1000, 1500, 2000, 2500)
+NS_RESULT_KEYS = ("script", "commit", "date", "hardware", "cards", "n_views", "refine_steps", "pretrain_steps",
                   "loaded_checkpoint", "phases_s", "edit_pass_s", "edit_pass_min", "sheet_s", "sheet_warm_s",
                   "refine_rays_per_s", "warm_per_view_marginal_s", "view_s_first", "eval_psnr_db",
                   "edit_mask_coverage", "edit_landing_masked_delta", "edit_landing_unmasked_delta",
@@ -3993,7 +4036,7 @@ def phase_scripts(torch, card: str) -> dict:
         fa.launches = 0
         t0 = time.perf_counter()
         result = ns.main([str(NS_VIEWS), str(NS_REFINE_STEPS), str(pre_steps), str(ckpt.parent),
-                          "--device", "cuda", "--size", str(NS_SIZE), "--out", str(tmp / "pass")],
+                          "--device", "cuda", "--mesh", "none", "--size", str(NS_SIZE), "--out", str(tmp / "pass")],
                          make_diffuser=lambda c: recording_diffuser(Diffuser(c, device=dev), calls))
         ns_s = time.perf_counter() - t0
     finally:
@@ -4031,6 +4074,328 @@ def phase_scripts(torch, card: str) -> dict:
     return {"fit_steps": fit["steps"], "fit_chunks": fit["eval_chunks"], "micro": micro + pre_micro,
             "eval_chunks": chunks * (renders + probe_renders), "k7_shapes": k7_shapes,
             "k7_launches": fa.launches}
+
+
+# Phase 23, data parallelism over the visible cards: one process a card on
+# torch.distributed (signerf_tpu_torch/parallel/mesh.py).
+DP_STEPS = 100  # (a): the `signerf` train CLI with --mesh data
+DP_CHECK_STEPS = 4  # (b): DP steps from fed indices against one rank
+DP_CHECK_RAYS = TRAIN_RAYS  # (b): `signerf_nerfacto` at 4096 global rays
+# (b) DP against one rank on the same card: the same per-rank batches, but
+# K2's tables half adds with atomics in no fixed order, and after Adam with
+# eps = 1e-15 an element whose gradient is rounding noise can move by up to
+# lr; so the loss within 1e-3 relative and each parameter leaf within 0.05
+# norm-relative (STEP_TOL), over the DP_CHECK_STEPS steps.
+DP_LOSS_RTOL = 1e-3
+DP_PARAM_TOL = STEP_TOL
+# (b) per-view generation: 4 views of 512 px, a 2x2 sheet of 256 px cells,
+# SDXL at published widths (random init), 5 sampler steps, batches of 2.
+DP_GEN = dict(views=4, rows=2, cols=2, steps=5, batch=2)
+DP_BOX = ((-0.35, -0.35, 0.25), (0.35, 0.35, 0.75))  # the edit box over the sphere's top, world space
+DP_JOIN_S = 600.0  # a rank that hangs fails the phase
+
+
+def dp_rank_counts(mesh, micro_batches: int, steps: int) -> dict:
+    """A `signerf` rank's expected launches: each of its max(1, micro / W)
+    micro-batches a step runs the proposal fields' K1 and K2 twice, the base
+    field's K3 to K6 once."""
+    micro = max(1, micro_batches // mesh.world_size)
+    return expect_counts(K1=2, K2_tables=2, K3=1, K4_tables=1, K5=1, K6_tables=1)(micro * steps)
+
+
+def max_rank_diff(torch, mesh, tensors) -> float:
+    """max |t - rank 0's t| over `tensors`, on every rank."""
+    worst = 0.0
+    for t in tensors:
+        ref = t.detach().clone()
+        mesh.broadcast_([ref])
+        worst = max(worst, float((t.detach() - ref).abs().max()))
+    return max(mesh.gather_objects(worst))
+
+
+def dp_train_rank(mesh, argv, out: str) -> int:
+    """Phase 23(a) on one rank: the train CLI's own work (`train.parse`,
+    `train._run`) with this rank's launches, CUDA events at each step's
+    last micro-batch loss, wall, peak memory and the largest difference of
+    its final parameters from rank 0's; rank 0 writes every rank's record."""
+    import torch
+
+    from signerf_tpu_torch import train as cli
+    from signerf_tpu_torch.engine import train_step as tts
+    from signerf_tpu_torch.engine import trainer as ttrainer
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    events, trainers = [], []
+    real_loss, real_setup = tts.default_loss_fn, ttrainer.SIGNeRFTrainer.setup
+
+    def recording_loss(model, outputs, batch):
+        total, ld = real_loss(model, outputs, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return total, ld
+
+    def setup(self, *a, **k):
+        trainers.append(self)
+        return real_setup(self, *a, **k)
+
+    _, _, config, train_only = cli.parse(argv)
+    tts.default_loss_fn, ttrainer.SIGNeRFTrainer.setup = recording_loss, setup
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    zero_counts(ffc)
+    try:
+        t0 = time.perf_counter()
+        rc = cli._run(mesh, config, mesh.device, train_only)
+        torch.cuda.synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+    finally:
+        tts.default_loss_fn, ttrainer.SIGNeRFTrainer.setup = real_loss, real_setup
+    (trainer,) = trainers
+    micro = max(1, trainer.pipeline.datamanager.sampler_settings().micro_batches // mesh.world_size)
+    ends = events[micro - 1 :: micro]
+    step_ms = sorted(ends[i - 1].elapsed_time(ends[i]) for i in range(11, len(ends)))
+    record = {"rank": mesh.rank, "device": str(mesh.device), "launches": counts(ffc), "steps": trainer.step,
+              "micro": micro, "median_ms": step_ms[len(step_ms) // 2], "range_ms": (step_ms[0], step_ms[-1]),
+              "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2**30,
+              "expected": dp_rank_counts(mesh, trainer.pipeline.datamanager.sampler_settings().micro_batches,
+                                         trainer.step)}
+    record["param_diff"] = max_rank_diff(torch, mesh, trainer.pipeline.model.state_dict().values())
+    records = mesh.gather_objects(record)
+    if mesh.is_main:
+        Path(out).write_text(json.dumps({"backend": mesh.backend, "world": mesh.world_size, "ranks": records}))
+    return rc
+
+
+def dp_render_fn(torch):
+    """The analytic scene (phase 6's sphere on a grey backdrop) as the
+    generator's render function: rgb [H, W, 3] and along-ray depth [H, W, 1]
+    of camera `index`, on the cameras' device."""
+
+    def render(cameras, index):
+        rb = cameras.generate_rays(camera_index=index)
+        o, d = rb.origins, rb.directions
+        b = (o * d).sum(-1)
+        disc = b * b - ((o * o).sum(-1) - SPHERE_RADIUS**2)
+        hit = disc > 0
+        t = torch.where(hit, -b - torch.sqrt(disc.clamp_min(0.0)), torch.full_like(b, 10.0))
+        p = o + d * t[..., None]
+        rgb = torch.where(hit[..., None], p.abs() / SPHERE_RADIUS, torch.full_like(p, REFERENCE_BACKDROP))
+        return {"rgb": rgb.clamp(0.0, 1.0), "depth": t[..., None]}
+
+    return render
+
+
+def same_dataset(a: Path, b: Path) -> dict:
+    """tests/test_torch_edit_flow.py's `assert_same_dataset` rule: the same
+    PNGs, each within one 8-bit level with at most 5% of its values one level
+    apart; transforms.json equal but for poses within 1e-6. Returns the
+    worst level and share (fails otherwise)."""
+    import numpy as np
+
+    pa = sorted(p.relative_to(a).as_posix() for p in a.rglob("*.png"))
+    pb = sorted(p.relative_to(b).as_posix() for p in b.rglob("*.png"))
+    if pa != pb:
+        fail(f"phase 23(b) datasets hold other PNGs: {sorted(set(pa) ^ set(pb))[:5]}")
+    worst, share = 0, 0.0
+    for name in pa:
+        diff = np.abs(read_png(a / name).astype(np.int32) - read_png(b / name).astype(np.int32))
+        worst, share = max(worst, int(diff.max())), max(share, float((diff > 0).mean()))
+    ta, tb = (json.loads((x / "transforms.json").read_text()) for x in (a, b))
+    frames_a, frames_b = ta.pop("frames"), tb.pop("frames")
+    poses_ok = len(frames_a) == len(frames_b) and all(
+        {k: v for k, v in fa.items() if not k.endswith("transform_matrix")}
+        == {k: v for k, v in fb.items() if not k.endswith("transform_matrix")}
+        and all(np.allclose(fa[k], fb[k], rtol=0, atol=1e-6) for k in fa if k.endswith("transform_matrix"))
+        for fa, fb in zip(frames_a, frames_b))
+    if worst > 1 or share > 0.05 or ta != tb or not poses_ok:
+        fail(f"phase 23(b): the dataset of the ranks differs from one rank's: worst level {worst}, share {share:.4f}, "
+             f"transforms equal {ta == tb}, frames equal {poses_ok}")
+    return {"pngs": len(pa), "worst_level": worst, "share": share}
+
+
+def dp_checks_rank(mesh, data: str, out: str) -> int:
+    """Phase 23(b) on one rank: DP_CHECK_STEPS DP steps from fed indices, a
+    512 px frame and the per-view generation on the ranks; on rank 0 the
+    same work on one rank, compared. Rank 0 writes the record."""
+    import numpy as np
+    import torch
+
+    from signerf_tpu_torch.cameras.poses import circle_poses
+    from signerf_tpu_torch.data.datamanager import SIGNeRFDataManager, SIGNeRFDataManagerConfig
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser, DiffuserConfig
+    from signerf_tpu_torch.engine import train_step as tts
+    from signerf_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizer
+    from signerf_tpu_torch.generator.datasetgenerator import DatasetGenerator, DatasetGeneratorConfig
+    from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+    from signerf_tpu_torch.ops import flash_attention as fa
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev, ranks = mesh.device, mesh.world_size
+    dm = SIGNeRFDataManager(SIGNeRFDataManagerConfig(dataparser=SIGNeRFDataParserConfig(data=Path(data))), dev)
+    h, w = dm.cameras.height, dm.cameras.width
+    rng = np.random.default_rng(23)
+    table = np.stack([rng.integers(0, dm.num_images, DP_CHECK_RAYS), rng.integers(0, h, DP_CHECK_RAYS),
+                      rng.integers(0, w, DP_CHECK_RAYS)], -1).reshape(ranks, -1, 3)
+    settings = tts.SamplerSettings(num_rays=DP_CHECK_RAYS, micro_batches=ranks)
+
+    def train(run_mesh, idx):
+        model = NerfactoModel(NerfactoModelConfig(), dm.num_images)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        if run_mesh is not None:
+            run_mesh.broadcast_module_(model)
+        real = tts._sample_indices
+        tts._sample_indices = lambda *a, **k: idx
+        try:
+            fn = tts.make_train_step(model, make_optimizer(OptimizersConfig(), model), dm.cameras, settings,
+                                     mesh=run_mesh)
+            losses = [float(fn(step, dm.images, None, None)["total_loss"]) for step in range(DP_CHECK_STEPS)]
+        finally:
+            tts._sample_indices = real
+        return model, losses
+
+    # DP steps against one rank on the concatenated indices
+    zero_counts(ffc)
+    model, losses = train(mesh, torch.as_tensor(table[mesh.rank], device=dev))
+    record = {"rank_launches": counts(ffc), "param_diff": max_rank_diff(torch, mesh, model.state_dict().values())}
+    if mesh.is_main:
+        one, one_losses = train(None, torch.as_tensor(table.reshape(-1, 3), device=dev))
+        ref = one.state_dict()
+        record.update(losses=losses, one_losses=one_losses, leaf_rel=max(rel_err(v, ref[k]) for k, v in
+                                                                         model.state_dict().items()))
+
+    # a 512 px frame: the ranks' chunks against one rank's
+    model.eval()
+    aabb = torch.as_tensor(dm.outputs.scene_box_aabb, device=dev)
+    rays = dm.cameras.generate_rays(camera_index=0, aabb=aabb).reshape((h * w,))
+    frame = tts.make_eval_render(model, chunk_size=CHUNK, mesh=mesh)(rays)
+    if mesh.is_main:
+        single = tts.make_eval_render(model, chunk_size=CHUNK)(rays)
+        record["frame_equal"] = {k: bool(torch.equal(frame[k], single[k])) for k in single}
+
+    # the per-view generation: the ranks' dealt chunks against one rank
+    f = 0.8 * w
+    refs = circle_poses(DP_GEN["rows"] * DP_GEN["cols"] - 1, radius=2.0, theta=70.0, phi=(0.0, 240.0)).numpy()
+    views = circle_poses(DP_GEN["views"], radius=2.0, theta=60.0, phi=(20.0, 290.0)).numpy()
+    diffuser = Diffuser(DiffuserConfig(num_inference_steps=DP_GEN["steps"]), device=dev)
+
+    def generate(run_mesh, name):
+        cfg = DatasetGeneratorConfig(path=Path(out).parent / name, dataset_name="dp", fx=f, fy=f, cx=w / 2,
+                                     cy=h / 2, width=w, height=h, rows=DP_GEN["rows"], cols=DP_GEN["cols"],
+                                     aabb_min=DP_BOX[0], aabb_max=DP_BOX[1],
+                                     generation_batch_size=DP_GEN["batch"])
+        gen = DatasetGenerator(cfg, np.eye(4)[:3], 1.0, lambda p: p, dp_render_fn(torch), diffuser=diffuser,
+                               device=dev, mesh=run_mesh)
+        fa.launches = 0
+        t0 = time.perf_counter()
+        path = gen.generate_dataset(reference_camera_to_worlds=refs[:, :3], synthetic_camera_to_worlds=views[:, :3])
+        torch.cuda.synchronize(dev)
+        return path, {"wall_s": time.perf_counter() - t0, "k7": fa.launches, "chunks_s": gen.last_timings["view_s"]}
+
+    dp_path, dp_gen = generate(mesh, "ranks")
+    record.update(gen=dp_gen, sdxl_init_s=diffuser.pipeline.init_seconds)
+    if mesh.is_main:
+        one_path, one_gen = generate(None, "one")
+        record.update(one_gen=one_gen, same=same_dataset(Path(one_path), Path(dp_path)))
+    records = mesh.gather_objects(record)
+    if mesh.is_main:
+        Path(out).write_text(json.dumps({"backend": mesh.backend, "world": ranks, "devices": mesh.gather_objects(
+            str(dev)), "ranks": records}))
+    else:
+        mesh.gather_objects(str(dev))
+    return 0
+
+
+def phase_data_parallel(torch, card: str) -> dict:
+    """Phase 23: (a) the `signerf` train CLI with --mesh data on every
+    visible card (NCCL; on one card a process group of 1), DP_STEPS steps of
+    16,384 global rays on 14c's scene: each rank's launches, step median
+    and peak memory, equal parameters on every rank; (b) at max(W, 2) ranks
+    (NCCL a card each on W >= 2 cards, else gloo with both ranks on cuda:0):
+    DP_CHECK_STEPS DP steps against one rank on the concatenated indices,
+    a 512 px frame against one rank's bit for bit, and the per-view
+    generation through SDXL against one rank's dataset."""
+    from signerf_tpu_torch.parallel import mesh as mesh_lib
+
+    cards = torch.cuda.device_count()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        data = write_scene(tmp / "scene", backdrop=REFERENCE_BACKDROP)
+        out = tmp / "a.json"
+        argv = train_argv("signerf", data, tmp / "a", DP_STEPS, mesh="data")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            rc = mesh_lib.run("data", torch.device("cuda"), tmp, dp_train_rank, (argv, str(out)))
+        except Exception as exc:  # a rank failed: its error is above
+            fail(f"phase 23(a): the data-parallel train CLI failed: {exc!r}")
+        wall_a = time.perf_counter() - t0
+        a = json.loads(out.read_text())
+        if rc != 0 or a["world"] != cards or a["backend"] != "nccl":
+            fail(f"phase 23(a): rc {rc}, {a['world']} ranks over {a['backend']} on {cards} cards")
+        for r in a["ranks"]:
+            if r["launches"] != r["expected"] or r["param_diff"] != 0.0 or r["steps"] != DP_STEPS:
+                fail(f"phase 23(a) rank {r['rank']}: launches {r['launches']}, expected {r['expected']}; "
+                     f"{r['steps']} steps; max |param - rank 0's| {r['param_diff']}")
+            launched = ", ".join(f"{k} {v}" for k, v in r["launches"].items() if v)
+            print(f"phase 23(a) train CLI signerf --mesh data, rank {r['rank']} of {a['world']} ({a['backend']}) on "
+                  f"{r['device']}: {r['steps']} steps of {SIGNERF_RAYS} global rays, {SIGNERF_RAYS // a['world']} "
+                  f"on this card in {r['micro']} micro-batches; launches {launched}, all others 0; warm step median "
+                  f"{r['median_ms']:.3f} ms (range {r['range_ms'][0]:.3f} to {r['range_ms'][1]:.3f}) = "
+                  f"{SIGNERF_RAYS / r['median_ms'] * 1e3:.0f} global rays/s; rank wall {r['wall_s']:.3f} s; peak "
+                  f"memory {r['peak_gib']:.3f} GiB; max |param - rank 0's| {r['param_diff']}; on {card}", flush=True)
+        torch.cuda.empty_cache()
+
+        ranks = max(cards, 2)
+        backend = "nccl" if cards >= 2 else "gloo"
+        out_b = tmp / "b" / "b.json"
+        out_b.parent.mkdir()
+        t0 = time.perf_counter()
+        try:
+            mesh_lib.spawn(dp_checks_rank, (str(data), str(out_b)), ranks, tmp, device_type="cuda", backend=backend,
+                           cards=min(cards, ranks), join_timeout_s=DP_JOIN_S)
+        except Exception as exc:
+            fail(f"phase 23(b): a rank failed: {exc!r}")
+        wall_b = time.perf_counter() - t0
+        b = json.loads(out_b.read_text())
+        main_rank = b["ranks"][0]
+        losses, one_losses = main_rank["losses"], main_rank["one_losses"]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(losses, one_losses))
+        nerf_counts = expect_counts(K1=3, K2_tables=3)(DP_CHECK_STEPS)
+        bad = [r["rank_launches"] for r in b["ranks"] if r["rank_launches"] != nerf_counts]
+        # K7 runs on rank 0 (the sheet) and on every rank dealt a chunk of views
+        chunks = -(-DP_GEN["views"] // DP_GEN["batch"])
+        k7_ok = [(r["gen"]["k7"] > 0) == (rank == 0 or rank < chunks) for rank, r in enumerate(b["ranks"])]
+        if (b["backend"] != backend or b["world"] != ranks or bad or loss_rel > DP_LOSS_RTOL
+                or main_rank["leaf_rel"] > DP_PARAM_TOL or any(r["param_diff"] != 0.0 for r in b["ranks"])
+                or not all(main_rank["frame_equal"].values()) or not all(k7_ok)):
+            fail(f"phase 23(b): {b['world']} ranks over {b['backend']}; launches {bad or 'as expected'} (expected "
+                 f"{nerf_counts}); losses {losses} against one rank's {one_losses} (max rel {loss_rel:.3g}, at most "
+                 f"{DP_LOSS_RTOL}); worst leaf {main_rank['leaf_rel']:.3g} (at most {DP_PARAM_TOL}); rank param "
+                 f"diffs {[r['param_diff'] for r in b['ranks']]}; frame equal {main_rank['frame_equal']}; K7 "
+                 f"{[r['gen']['k7'] for r in b['ranks']]} (nonzero on rank 0 and the ranks of the {chunks} chunks)")
+        same = main_rank["same"]
+        print(f"phase 23(b) equality checks at {ranks} ranks over {b['backend']} on {b['devices']}: "
+              f"{DP_CHECK_STEPS} DP signerf_nerfacto steps of {DP_CHECK_RAYS} global rays from fed indices, each "
+              f"rank K1 {b['ranks'][0]['rank_launches']['K1']} and K2 tables "
+              f"{b['ranks'][0]['rank_launches']['K2 tables']}: losses {[round(x, 6) for x in losses]} against one "
+              f"rank on the concatenated indices {[round(x, 6) for x in one_losses]} (max rel {loss_rel:.3g}), "
+              f"worst parameter leaf {main_rank['leaf_rel']:.3g} norm-relative, ranks' parameters equal; a "
+              f"{SCENE['width']} px frame equal to one rank's bit for bit; per-view generation of "
+              f"{DP_GEN['views']} views of {SCENE['width']} px ({DP_GEN['rows']}x{DP_GEN['cols']} sheet, SDXL at "
+              f"published widths, random init, {DP_GEN['steps']} steps, batch {DP_GEN['batch']}): ranks' walls "
+              + ", ".join(f"{r['gen']['wall_s']:.3f}" for r in b["ranks"]) + f" s (K7 "
+              + ", ".join(str(r["gen"]["k7"]) for r in b["ranks"]) + f"), one rank's {main_rank['one_gen']['wall_s']:.3f} "
+              f"s (K7 {main_rank['one_gen']['k7']}); {same['pngs']} PNGs, worst {same['worst_level']} level(s) apart "
+              f"on {same['share']:.4f} of a file's values; SDXL created in "
+              + ", ".join(f"{r['sdxl_init_s']:.2f}" for r in b["ranks"]) + " s on the ranks; wall of the spawned "
+              f"ranks {wall_b:.1f} s; on {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 23 wall {wall_a + wall_b:.1f} s; on {card}", flush=True)
+    rank0 = a["ranks"][0]
+    return {"micro": rank0["micro"] * rank0["steps"], "world": a["world"]}
 
 
 def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms", bound_key="",
@@ -4106,8 +4471,11 @@ def main() -> int:
     last_sdxl = phase_last_sdxl(torch, card, sheet)
     sheet["diffuser"]._sdxl = None  # phase 22 creates its own
     p22 = phase_scripts(torch, card)
+    p23 = phase_data_parallel(torch, card)
     launched = signerf["launches"]
-    ns_train = p22["micro"]  # K3, K4's and K6's tables halves and K5 once a micro-batch
+    # K3, K4's and K6's tables halves and K5 once a micro-batch (phase 23:
+    # rank 0's micro-batches, the launches this process counted)
+    ns_train = p22["micro"] + p23["micro"]
     # Calls of each field at a render chunk's and a train step's N in phases
     # 6, 7, 11, 14, the edit pass (14d, 14e), the viewer (14f) and the
     # example scripts (22; the eval render and a `signerf` step call only the
@@ -4117,7 +4485,7 @@ def main() -> int:
     steps = (train["launches"]["K1"] // 3 + edit["train_steps"] + viewer["train_steps"] + last["repeat_steps"]
              + p22["fit_steps"])
     eval_chunks = evaluation["K1"] // 2 + p22["eval_chunks"]
-    micro = launched["K1"] // 2 + p22["micro"]
+    micro = launched["K1"] // 2 + p22["micro"] + p23["micro"]
     fields = [(name, name != "final") for name, _, _ in TRAIN_SCHEDULES]
     k1_calls = [(chunks + eval_chunks * proposal, k1["per_call"][(name, "chunk")]) for name, proposal in fields]
     k1_calls += [(steps + micro * proposal, k1["per_call"][(name, "train")]) for name, proposal in fields]

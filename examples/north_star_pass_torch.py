@@ -15,7 +15,14 @@ landed in the NeRF (mean |change| of view 0's render inside the edit mask
 against outside it). Usage, from the repository root:
 
     python examples/north_star_pass_torch.py [n_views] [refine_steps] [pretrain_steps] [load_dir]
-        [--device cuda|cpu] [--size 1024] [--out DIR] [--result FILE]
+        [--device cuda|cpu] [--size 1024] [--out DIR] [--result FILE] [--mesh auto|none|data|data=K]
+
+On more than one card (`--mesh`, as the train CLI's: auto takes every
+visible card) the pass runs data-parallel, one process a card: the views'
+chunks and the refinement's rays split over the cards, rank 0 builds the
+sheet, prints and writes the result (with "cards": W); under a launcher
+(`torchrun --nproc-per-node 4 examples/north_star_pass_torch.py ...`) each
+process joins its group.
 
 `load_dir` holds a checkpoint of this scene (the pretrain of an earlier run,
 `OUT/out/signerf/checkpoints`), so the pretrain is skipped, as the
@@ -52,6 +59,7 @@ from signerf_tpu_torch.engine.checkpoints import latest_checkpoint  # noqa: E402
 from signerf_tpu_torch.engine.train_step import make_train_step  # noqa: E402
 from signerf_tpu_torch.engine.trainer import SIGNeRFTrainer, SIGNeRFTrainerConfig  # noqa: E402
 from signerf_tpu_torch.method_configs import signerf_method  # noqa: E402
+from signerf_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from signerf_tpu_torch.render import resolve_device  # noqa: E402
 from signerf_tpu_torch.utils.images import load_gray, save_array_png  # noqa: E402
 from signerf_tpu_torch.utils.microbench import TRAIN_KERNEL_GROUPS, card_name, kernel_breakdown  # noqa: E402
@@ -193,6 +201,7 @@ def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
     ap.add_argument("--size", type=int, default=REFERENCE["size"], help="image side in pixels")
     ap.add_argument("--out", type=Path, default=None, help="output tree (default outputs/north_star_torch[_Nv])")
     ap.add_argument("--result", type=Path, default=None, help="also write the result JSON here")
+    ap.add_argument("--mesh", default="auto", help="auto | none | data | data=K (cards; see the train CLI)")
     return ap.parse_args(argv)
 
 
@@ -201,6 +210,7 @@ def main(
     configure: Optional[Callable[[SIGNeRFTrainerConfig], None]] = None,
     make_diffuser: Optional[Callable[[DiffuserConfig], Diffuser]] = None,
     reduced: Sequence[str] = (),
+    mesh: Optional[mesh_lib.DataMesh] = None,
 ) -> Dict:
     """Run the pass; returns the result written to the output tree.
 
@@ -208,11 +218,37 @@ def main(
     builds the generator's diffuser from its config (default: the
     configured backend), and `reduced` names the caller's own cuts from the
     reference scale (a narrowed model, say); the tests and the smoke test
-    use them."""
+    use them. `mesh`: run as this rank of a data-parallel group (else
+    `--mesh` decides; spawned ranks get `argv` only)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    if mesh is not None:
+        return _pass(mesh, argv, configure, make_diffuser, reduced)
+    world = mesh_lib.mesh_from_spec(args.mesh, mesh_lib.visible_devices(dev))
+    if not mesh_lib.launched() and world is None:
+        return _pass(None, argv, configure, make_diffuser, reduced)
+    if not mesh_lib.launched() and world > 1 and (configure or make_diffuser or reduced):
+        raise ValueError("spawned ranks get argv only: pass mesh= for configure, make_diffuser or reduced")
+    root = _root(args)
+    out = mesh_lib.run(args.mesh, dev, root, _pass, (argv, configure, make_diffuser, reduced))
+    return out if isinstance(out, dict) else json.loads((root / "north_star_result_torch.json").read_text())
+
+
+def _root(args: argparse.Namespace) -> Path:
+    return args.out or Path("outputs/north_star_torch" if args.n_views == REFERENCE["n_views"]
+                            else f"outputs/north_star_torch_{args.n_views}v")
+
+
+def _pass(mesh, argv, configure, make_diffuser, reduced) -> Dict:
+    """The pass on this rank (`mesh` None: one device); the result on rank 0, {} elsewhere."""
+    args = parse_args(argv)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     cuda = dev.type == "cuda"
-    hardware = f"1x {card_name()}" if cuda else "CPU"
+    cards = 1 if mesh is None else mesh.world_size
+    main_rank = mesh is None or mesh.is_main
+    log = print if mesh is None else mesh.print
+    hardware = f"{cards}x {card_name()}" if cuda else "CPU" if cards == 1 else f"CPU, {cards} ranks"
     loaded_step = None
     if args.load_dir is not None:
         ckpt = latest_checkpoint(args.load_dir)
@@ -220,11 +256,12 @@ def main(
             raise FileNotFoundError(f"{args.load_dir} holds no step-*.pt or step-*.ckpt checkpoint to edit")
         loaded_step = int(re.search(r"step-(\d+)", ckpt.name).group(1))
     n_views = args.n_views
-    root = args.out or Path("outputs/north_star_torch" if n_views == REFERENCE["n_views"]
-                            else f"outputs/north_star_torch_{n_views}v")
+    root = _root(args)
     data = root / "data"
-    if not (data / "transforms.json").exists():
+    if main_rank and not (data / "transforms.json").exists():
         build_dataset(data, n_views, args.size, dev)
+    if mesh is not None:
+        mesh.barrier()
 
     cfg = trainer_config(root, data, args.pretrain_steps, args.load_dir)
     if configure is not None:
@@ -235,29 +272,32 @@ def main(
         torch.cuda.reset_peak_memory_stats()
 
     def synced() -> float:
+        """The host clock once the device, and with a mesh every rank, is done."""
         if cuda:
             torch.cuda.synchronize()
+        if mesh is not None:
+            mesh.barrier()
         return time.perf_counter()
 
     phases: Dict[str, float] = {}
     t0 = synced()
-    trainer = SIGNeRFTrainer(cfg, dev)
+    trainer = SIGNeRFTrainer(cfg, dev, mesh=mesh)
     trainer.setup(diffuser=diffuser)
     phases["setup"] = synced() - t0
-    print(f"setup: {phases['setup']:.1f}s", flush=True)
+    log(f"setup: {phases['setup']:.1f}s", flush=True)
 
     if args.load_dir is None:
         t0 = synced()
         trainer.train()
         phases["pretrain"] = synced() - t0
-        print(f"pretrain {args.pretrain_steps} steps: {phases['pretrain']:.1f}s", flush=True)
+        log(f"pretrain {args.pretrain_steps} steps: {phases['pretrain']:.1f}s", flush=True)
     else:
         phases["pretrain"] = 0.0
-        print(f"pretrain skipped (loaded checkpoint from {args.load_dir})", flush=True)
+        log(f"pretrain skipped (loaded checkpoint from {args.load_dir})", flush=True)
 
     dpo = trainer.pipeline.datamanager.outputs
     gen_cfg.aabb_min, gen_cfg.aabb_max = scene_aabb(dpo.dataparser_transform, dpo.dataparser_scale)
-    print(f"scene-space edit AABB: {gen_cfg.aabb_min} .. {gen_cfg.aabb_max}", flush=True)
+    log(f"scene-space edit AABB: {gen_cfg.aabb_min} .. {gen_cfg.aabb_max}", flush=True)
     ref = reference_poses(dpo.dataparser_transform, dpo.dataparser_scale)
 
     # --- timed edit pass: generation ---
@@ -270,28 +310,30 @@ def main(
     batch = max(1, int(gen_cfg.generation_batch_size))
     chunk_s = timings.get("view_s", [])
     # The first chunk warms the per-view programs; the rest are the steady
-    # state. A chunk holds `batch` views (the last may hold fewer).
-    full = [s for i, s in enumerate(chunk_s) if i > 0 and (i + 1) * batch <= n_views]
+    # state. A chunk holds `batch` views (the last may hold fewer). With a
+    # mesh these are rank 0's chunks, dealt every `cards`-th.
+    full = [s for i, s in enumerate(chunk_s) if i > 0 and ((i * cards) + 1) * batch <= n_views]
     warm_marginal = float(np.median(full)) / batch if full else None
-    print(f"dataset generation ({n_views} views + {REFERENCE_VIEWS} references, "
-          f"{gen_cfg.rows}x{gen_cfg.cols} sheet, {SDXL_STEPS} SDXL steps, batch {batch}): "
-          f"{phases['generation']:.1f}s (sheet {timings.get('sheet_s', 0):.1f}s, warm per-view marginal "
-          f"{float('nan') if warm_marginal is None else warm_marginal:.2f}s)", flush=True)
+    log(f"dataset generation ({n_views} views + {REFERENCE_VIEWS} references, "
+        f"{gen_cfg.rows}x{gen_cfg.cols} sheet, {SDXL_STEPS} SDXL steps, batch {batch}): "
+        f"{phases['generation']:.1f}s (sheet {timings.get('sheet_s', 0):.1f}s, warm per-view marginal "
+        f"{float('nan') if warm_marginal is None else warm_marginal:.2f}s)", flush=True)
 
     # --- the sheet again: the first paid one-time costs (SDXL's creation,
     # cuDNN's algorithm search); this one is the steady state ---
     t0 = synced()
-    gen.generate_reference_sheet(gen._cameras_from_poses(ref))
+    if main_rank:
+        gen.generate_reference_sheet(gen._cameras_from_poses(ref))
     sheet_warm_s = synced() - t0
-    print(f"warm sheet re-measure: {sheet_warm_s:.1f}s", flush=True)
+    log(f"warm sheet re-measure: {sheet_warm_s:.1f}s", flush=True)
 
     # --- timed edit pass: exchange + refinement ---
     t0 = synced()
     trainer.exchange_training_dataset(generated)
     phases["exchange"] = synced() - t0
-    print(f"exchange: {phases['exchange']:.1f}s", flush=True)
+    log(f"exchange: {phases['exchange']:.1f}s", flush=True)
 
-    pre_render0 = render_view(trainer, 0)  # untimed: the edit-landing check's "before"
+    pre_render0 = render_view(trainer, 0) if main_rank else None  # untimed: the edit landing's "before"
 
     cfg.max_num_iterations = args.refine_steps
     call_events: List = []
@@ -314,17 +356,17 @@ def main(
     step_ms = sorted(s.elapsed_time(e) / cfg.steps_per_call for s, e in call_events[1:] or call_events)
     step_median = step_ms[len(step_ms) // 2] if step_ms else float("nan")
     refine_rays_per_s = rays / step_median * 1e3 if cuda else rays * args.refine_steps / max(phases["refine"], 1e-9)
-    print(f"refine {args.refine_steps} steps: {phases['refine']:.1f}s; step median {step_median:.3f} ms "
-          f"(CUDA events over {len(step_ms)} calls of {cfg.steps_per_call} steps, the first left out), "
-          f"{refine_rays_per_s:.0f} rays/s", flush=True)
+    log(f"refine {args.refine_steps} steps: {phases['refine']:.1f}s; step median {step_median:.3f} ms "
+        f"(CUDA events over {len(step_ms)} calls of {cfg.steps_per_call} steps, the first left out), "
+        f"{refine_rays_per_s:.0f} rays/s", flush=True)
 
-    # --- eval PSNR on the edited dataset, and did the edit land ---
+    # --- eval PSNR on the edited dataset, and did the edit land (rank 0) ---
     t0 = synced()
     dm = trainer.pipeline.datamanager
     n_eval = min(EVAL_VIEWS, len(dm.cameras))
     psnrs = []
     post_render0 = None
-    for i in range(n_eval):
+    for i in range(n_eval if main_rank else 0):
         pred = render_view(trainer, i)
         target = dm.images[i].float().cpu().numpy() / 255.0
         psnrs.append(-10 * math.log10(max(float(np.mean((pred - target) ** 2)), 1e-12)))
@@ -332,39 +374,53 @@ def main(
             post_render0 = pred
             save_array_png(pred, root / "refined_render_0.png")
     mask_path = sorted((generated / "masks").glob("mask_*.png"))[0]
-    landing = edit_landing(pre_render0, post_render0, mask_path)
+    landing = edit_landing(pre_render0, post_render0, mask_path) if main_rank else None
     phases["eval"] = synced() - t0
-    print(f"edit-landing check (view 0): masked-region mean |delta| {landing['masked']:.4f} vs unmasked "
-          f"{landing['unmasked']:.4f} (ratio {landing['ratio']:.1f}x), mask coverage {landing['coverage']:.4f}",
-          flush=True)
-    print(f"eval PSNR on the edited dataset ({n_eval} views): {np.mean(psnrs):.2f} dB "
-          f"(per view {['%.1f' % p for p in psnrs]})", flush=True)
-
     notes = []
     if cuda:
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        step = make_train_step(trainer.pipeline.model, trainer.optimizer, dm.cameras, dm.sampler_settings())
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        step = make_train_step(trainer.pipeline.model, trainer.optimizer, dm.cameras, dm.sampler_settings(),
+                               mesh=mesh)
         index = itertools.count(trainer.step)
+        groups = TRAIN_KERNEL_GROUPS if mesh is None else [*TRAIN_KERNEL_GROUPS, ("all-reduce (NCCL)", ("nccl",))]
         bd = kernel_breakdown(lambda: step(next(index), dm.images, dm.mask_indices, trainer._generator),
-                              TRAIN_KERNEL_GROUPS, iters=PROFILE_STEPS, warmup=1)
-        groups = "; ".join(f"{k} {v:.3f}" for k, v in bd["groups_ms"].items())
+                              groups, iters=PROFILE_STEPS, warmup=1)
+        ranks = [(step_median, peak, bd)] if mesh is None else mesh.gather_objects((step_median, peak, bd))
+    if not main_rank:
+        return {}
+    log(f"edit-landing check (view 0): masked-region mean |delta| {landing['masked']:.4f} vs unmasked "
+          f"{landing['unmasked']:.4f} (ratio {landing['ratio']:.1f}x), mask coverage {landing['coverage']:.4f}",
+          flush=True)
+    log(f"eval PSNR on the edited dataset ({n_eval} views): {np.mean(psnrs):.2f} dB "
+        f"(per view {['%.1f' % p for p in psnrs]})", flush=True)
+
+    if cuda:
         notes.append(f"refinement step median {step_median:.3f} ms from CUDA events around the train calls "
-                     f"({len(step_ms)} calls of {cfg.steps_per_call} steps, the first left out), {rays} rays a step")
-        notes.append(f"peak device memory {peak:.2f} GiB (max_memory_allocated over the whole run)")
-        notes.append(f"refinement profile after the timed pass, {PROFILE_STEPS} steps under torch.profiler: span "
-                     f"{bd['span_ms']:.3f} ms a step, device busy {bd['busy_ms']:.3f} ms, idle share "
-                     f"{bd['idle_share']:.4f}; device ms a step: {groups}")
-        print("\n".join(notes), flush=True)
+                     f"({len(step_ms)} calls of {cfg.steps_per_call} steps, the first left out), {rays} rays a step"
+                     + ("" if mesh is None else f" over {cards} cards, {rays // cards} a card"))
+        if mesh is not None:
+            notes.append(f"generation {phases['generation'] / n_views:.3f} s a view over {cards} cards (the "
+                         f"generation wall over {n_views} views; chunks of {batch} views dealt round-robin)")
+        for rank, (rank_median, rank_peak, rank_bd) in enumerate(ranks):
+            who = "" if mesh is None else f"rank {rank}: "
+            groups_ms = "; ".join(f"{k} {v:.3f}" for k, v in rank_bd["groups_ms"].items())
+            if mesh is not None:
+                notes.append(f"{who}refinement step median {rank_median:.3f} ms (CUDA events)")
+            notes.append(f"{who}peak device memory {rank_peak:.2f} GiB (max_memory_allocated over the whole run)")
+            notes.append(f"{who}refinement profile after the timed pass, {PROFILE_STEPS} steps under torch.profiler: "
+                         f"span {rank_bd['span_ms']:.3f} ms a step, device busy {rank_bd['busy_ms']:.3f} ms, idle "
+                         f"share {rank_bd['idle_share']:.4f}; device ms a step: {groups_ms}")
+        log("\n".join(notes), flush=True)
     sdxl = gen_cfg.diffuser
     if sdxl.mode != "custom" and not sdxl.sdxl_weights_path:
         notes.append("SDXL + ControlNet-depth at the published widths with seeded random weights: the work's "
                      "shapes are real, the edit's content is not")
 
     edit_pass = phases["generation"] + phases["exchange"] + phases["refine"]
-    print(f"\n==== NORTH STAR SUMMARY ({hardware}) ====", flush=True)
+    log(f"\n==== NORTH STAR SUMMARY ({hardware}) ====", flush=True)
     for k, v in phases.items():
-        print(f"  {k:14s} {v:9.1f}s", flush=True)
-    print(f"  EDIT PASS      {edit_pass:9.1f}s  ({edit_pass / 60:.1f} min)", flush=True)
+        log(f"  {k:14s} {v:9.1f}s", flush=True)
+    log(f"  EDIT PASS      {edit_pass:9.1f}s  ({edit_pass / 60:.1f} min)", flush=True)
 
     cuts = [f"{name} {getattr(args, name)} (reference {want})" for name, want in
             (("n_views", REFERENCE["n_views"]), ("refine_steps", REFERENCE["refine_steps"]), ("size", REFERENCE["size"]))
@@ -381,6 +437,7 @@ def main(
         "commit": _commit(),
         "date": time.strftime("%Y-%m-%d"),
         "hardware": hardware,
+        "cards": cards,
         "n_views": n_views,
         "refine_steps": args.refine_steps,
         "pretrain_steps": 0 if args.load_dir is not None else args.pretrain_steps,
@@ -409,7 +466,7 @@ def main(
         "warm_single_chip_edit_pass_min": None if warm_marginal is None else round(
             (sum(warm_terms) + warm_marginal * n_views) / 60, 2),
     }
-    print(json.dumps(result), flush=True)
+    log(json.dumps(result), flush=True)
     (root / "north_star_result_torch.json").write_text(json.dumps(result, indent=2))
     if args.result is not None:
         args.result.parent.mkdir(parents=True, exist_ok=True)

@@ -55,7 +55,10 @@ class DiffuserConfig:
     sdxl_weights_path: Optional[str] = None
     mask_blur: int = 4
     inpainting_fill: int = 1  # A1111 fill mode: 0 fill, 1 original, 2 noise, 3 zeros
-    sharding_axis: Optional[str] = None  # accepted for config parity; the port has no mesh
+    # Accepted for config parity. Under the port's data mesh each rank holds
+    # the whole pipeline and takes whole chunks of views; the "tensor" axis
+    # this names in the JAX package (SDXL tensor parallelism) is not ported.
+    sharding_axis: Optional[str] = None
 
 
 class Diffuser:

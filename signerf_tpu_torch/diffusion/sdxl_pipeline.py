@@ -218,6 +218,14 @@ class SDXLInpaintPipeline:
         pipe.init_seconds = time.perf_counter() - t0
         return pipe
 
+    def tensors(self):
+        """Every parameter and buffer of the five modules (for the ranks'
+        weight check, `DataMesh.assert_replicas_equal`)."""
+        for name in COMPONENTS:
+            module = getattr(self, name)
+            yield from module.parameters()
+            yield from module.buffers()
+
     def load_state_dicts(self, state: Dict[str, Dict[str, torch.Tensor]]) -> None:
         """Load `{component: state_dict}` (e.g. `convert.sdxl_from_jax`)."""
         for name in COMPONENTS:

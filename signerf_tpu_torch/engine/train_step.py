@@ -6,12 +6,18 @@ planes), runs the forward and the losses, backpropagates (through K2 on the
 card), gates the proposal gradients, and takes the optimizer step. The JAX
 package's `lax.scan`s become plain loops: over micro-batches (gradient
 accumulation) and over `steps_per_call` steps.
+
+With a `DataMesh` (`signerf_tpu_torch/parallel/mesh.py`) training is
+data-parallel over rays, as the JAX package's `shard_map` step: each rank
+samples its share of the global batch with its own generator, and one
+all-reduce a step averages the gradients and the metrics; the eval render
+splits a frame's chunks over the ranks and assembles the frame on each.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Optional
 
 import torch
 
@@ -22,6 +28,9 @@ from signerf_tpu_torch.data.pixel_samplers import (
     sample_pixels,
     sample_pixels_masked,
 )
+
+if TYPE_CHECKING:
+    from signerf_tpu_torch.parallel.mesh import DataMesh
 
 EVAL_OUTPUTS = ("rgb", "depth", "expected_depth", "accumulation")
 
@@ -66,6 +75,7 @@ def make_train_step(
     settings: SamplerSettings,
     loss_fn: Optional[Callable] = None,
     steps_per_call: int = 1,
+    mesh: Optional["DataMesh"] = None,
 ):
     """Returns ``fn(step, images_u8, mask_indices, generator) -> metrics``.
 
@@ -74,10 +84,24 @@ def make_train_step(
     the deterministic sampling, for tests that supply the indices). Runs
     `steps_per_call` optimizer steps from `step` on and returns the last
     one's metrics as device scalars (reading them syncs the device).
+
+    With `mesh`, `settings.num_rays` is the global batch: each rank samples
+    num_rays / W rays in max(1, micro_batches / W) micro-batches, and the
+    gradients (after the micro-batch average and the proposal gate), the
+    total loss, the loss terms and the MSE are averaged over the ranks in
+    one all-reduce before the optimizer step and the PSNR. Every rank
+    passes its own `generator`.
     """
     num_images = len(cameras)
     height, width = cameras.height, cameras.width
     loss_fn = loss_fn or default_loss_fn
+    if mesh is not None:
+        w = mesh.world_size
+        if settings.num_rays % w:
+            raise ValueError(f"the global num_rays={settings.num_rays} does not split over {w} ranks")
+        settings = dataclasses.replace(
+            settings, num_rays=settings.num_rays // w, micro_batches=max(1, settings.micro_batches // w)
+        )
     micro = max(1, int(settings.micro_batches))
     if settings.num_rays % micro:
         raise ValueError(f"num_rays={settings.num_rays} does not split into {micro} micro-batches")
@@ -129,6 +153,8 @@ def make_train_step(
                 for p in proposal_params:
                     if p.grad is not None:
                         p.grad.mul_(0.0)
+        if mesh is not None:
+            total, mse, ld_sum = _all_mean_step(mesh, model, total, mse, ld_sum)
         optimizer.step()
         metrics = dict(ld_sum)
         metrics["total_loss"] = total
@@ -143,8 +169,27 @@ def make_train_step(
     return train_fn
 
 
+def _all_mean_step(mesh: "DataMesh", model: torch.nn.Module, total, mse, ld_sum):
+    """Average every gradient and the step's metrics over the ranks with one
+    all-reduce of one flat buffer; the gradients are copied back in place."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    names = sorted(ld_sum)
+    scalars = [total, mse, *(ld_sum[k] for k in names)]
+    with torch.no_grad():
+        flat = torch.cat([*(g.reshape(-1).float() for g in grads),
+                          torch.stack([torch.as_tensor(v, dtype=torch.float32, device=grads[0].device)
+                                       for v in scalars])])
+        mesh.all_mean_(flat)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset : offset + g.numel()].view_as(g))
+            offset += g.numel()
+        out = flat[offset:]
+    return out[0], out[1], {k: out[2 + i] for i, k in enumerate(names)}
+
+
 def make_eval_render(
-    model: torch.nn.Module, chunk_size: int = 1 << 15
+    model: torch.nn.Module, chunk_size: int = 1 << 15, mesh: Optional["DataMesh"] = None
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns ``render(ray_bundle_flat, appearance_mode=None) -> outputs``.
 
@@ -152,22 +197,34 @@ def make_eval_render(
     (the reference's static-shape rule, so every chunk has the same shape)
     and rendered chunk by chunk under `torch.inference_mode()`, with the
     deterministic eval sampling. Outputs stay on the bundle's device.
+
+    With `mesh`, every rank calls `render` on the same bundle: the frame is
+    padded to a multiple of chunk_size x W (JAX's quantum), rank r renders a
+    contiguous block of chunks, and the frame is assembled on every rank.
+    The chunks are the one-rank render's, so the frame is its bit for bit.
     """
+    quantum = chunk_size * (1 if mesh is None else mesh.world_size)
 
     def render(bundle_flat: RayBundle, appearance_mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
         n = bundle_flat.origins.shape[0]
-        num_chunks = -(-n // chunk_size)
+        num_chunks = -(-n // quantum) * quantum // chunk_size
         pad = num_chunks * chunk_size - n
         bundle = bundle_flat.map(
             lambda x: torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
         )
+        mine = range(num_chunks) if mesh is None else range(num_chunks)[mesh.share(num_chunks)]
         parts = {k: [] for k in EVAL_OUTPUTS}
         with torch.inference_mode():
-            for c in range(num_chunks):
+            for c in mine:
                 chunk = bundle.map(lambda x: x[c * chunk_size : (c + 1) * chunk_size])
                 out = model(chunk, appearance_mode=appearance_mode)
                 for k in EVAL_OUTPUTS:
                     parts[k].append(out[k])
-        return {k: torch.cat(v)[:n] for k, v in parts.items()}
+            if mesh is None:
+                return {k: torch.cat(v)[:n] for k, v in parts.items()}
+            local = torch.cat([torch.cat(parts[k]).float() for k in EVAL_OUTPUTS], dim=-1)
+            frame = mesh.assemble(local, num_chunks * chunk_size, mine.start * chunk_size)[:n]
+        widths = [parts[k][0].shape[-1] for k in EVAL_OUTPUTS]
+        return {k: v.to(parts[k][0].dtype) for k, v in zip(EVAL_OUTPUTS, frame.split(widths, dim=-1))}
 
     return render

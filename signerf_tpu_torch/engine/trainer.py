@@ -17,6 +17,14 @@ model in place, so without it a render in another thread could read one
 chunk's weights before a step and the next chunk's after it. It is granted
 in the order it is asked for: the loop takes it again right after letting
 it go, and would starve a waiting viewer under a plain `threading.Lock`.
+
+With a `DataMesh` (one process per card, `parallel/mesh.py`) every rank
+runs this loop: rank 0's parameters are broadcast after every build and
+reload, each rank samples rays with its own generator (seeded from (seed,
+rank)), the train step averages gradients over the ranks, and only rank 0
+prints, writes events and config, and writes and prunes checkpoints; a
+barrier follows each save, so no rank reads a checkpoint before it is on
+disk.
 """
 
 from __future__ import annotations
@@ -25,19 +33,23 @@ import dataclasses
 import threading
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
 
 import torch
 
 from signerf_tpu_torch import config as cfglib
 from signerf_tpu_torch.data.dataparser import load_previous_experiment_cameras
 from signerf_tpu_torch.diffusion.diffuser import Diffuser
-from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, save_checkpoint
+from signerf_tpu_torch.engine.checkpoints import checkpoint_path, latest_checkpoint, save_checkpoint
 from signerf_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizer
 from signerf_tpu_torch.engine.train_step import make_train_step
 from signerf_tpu_torch.engine.writer import EventWriter, RaysPerSecTracker
 from signerf_tpu_torch.generator.datasetgenerator import DatasetGeneratorConfig
+from signerf_tpu_torch.parallel.mesh import rank_seed
 from signerf_tpu_torch.pipeline import SIGNeRFPipeline, SIGNeRFPipelineConfig
+
+if TYPE_CHECKING:
+    from signerf_tpu_torch.parallel.mesh import DataMesh
 
 
 class FairLock:
@@ -100,10 +112,27 @@ class SIGNeRFTrainerConfig:
     seed: int = 42
 
 
+class _NullWriter:
+    """The event writer of ranks other than 0: writes nothing."""
+
+    def write_scalars(self, step, scalars) -> None:
+        pass
+
+    def write_config(self, config_text) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class SIGNeRFTrainer:
-    def __init__(self, config: SIGNeRFTrainerConfig, device: torch.device):
+    def __init__(self, config: SIGNeRFTrainerConfig, device: torch.device, mesh: Optional["DataMesh"] = None):
+        """`mesh`: this process's rank of a data-parallel group (None: one
+        device, no collective)."""
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.training_state = "paused"  # paused | training | completed
         self.train_lock = FairLock()
         self.pipeline: Optional[SIGNeRFPipeline] = None
@@ -125,12 +154,16 @@ class SIGNeRFTrainer:
         or the configured one), the writer, the initial checkpoint and the
         train function."""
         c = self.config
-        self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed)
+        self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed, mesh=self.mesh)
         log_dir = Path(c.output_dir) / c.experiment_name / c.method_name
-        self.writer = EventWriter(log_dir, use_wandb=c.use_wandb, run_name=c.experiment_name)
+        if self.is_main:
+            self.writer = EventWriter(log_dir, use_wandb=c.use_wandb, run_name=c.experiment_name)
+        else:
+            self.writer = _NullWriter()
         self.writer.write_config(cfglib.to_yaml(c))
         self.rays_tracker = RaysPerSecTracker()
         self._load_initial_checkpoint()
+        self._replicate()
         self._build_train_fn()
         if c.previous_experiment_dir is not None:
             tp = Path(c.previous_experiment_dir) / "transforms.json"
@@ -147,8 +180,17 @@ class SIGNeRFTrainer:
         if ckpt is not None and ckpt.exists():
             # the step always restarts at 0, as in the reference
             self.pipeline.load_state_dict(ckpt)
-            print(f"[trainer] loaded checkpoint {ckpt} (step reset to 0)")
+            self._print(f"[trainer] loaded checkpoint {ckpt} (step reset to 0)")
         self.step = 0
+
+    def _print(self, *args, **kwargs) -> None:
+        if self.is_main:
+            print(*args, **kwargs)
+
+    def _replicate(self) -> None:
+        """Rank 0's parameters and buffers on every rank."""
+        if self.mesh is not None:
+            self.mesh.broadcast_module_(self.pipeline.model)
 
     def _build_train_fn(self) -> None:
         c = self.config
@@ -156,10 +198,12 @@ class SIGNeRFTrainer:
         self.optimizer = make_optimizer(c.optimizers, self.pipeline.model)
         settings = dm.sampler_settings()
         self._train_fn = make_train_step(
-            self.pipeline.model, self.optimizer, dm.cameras, settings, steps_per_call=c.steps_per_call
+            self.pipeline.model, self.optimizer, dm.cameras, settings, steps_per_call=c.steps_per_call,
+            mesh=self.mesh,
         )
-        self._generator = torch.Generator(device=self.device).manual_seed(c.seed)
-        self._num_rays_per_call = settings.num_rays * c.steps_per_call
+        rank = 0 if self.mesh is None else self.mesh.rank
+        self._generator = torch.Generator(device=self.device).manual_seed(rank_seed(c.seed, rank))
+        self._num_rays_per_call = settings.num_rays * c.steps_per_call  # the global batch
 
     # ------------------------------------------------------------------
     # dataset generation and hot swap
@@ -198,11 +242,12 @@ class SIGNeRFTrainer:
             ckpt = self.save_checkpoint()
             c.pipeline.datamanager.dataparser.data = Path(generated_dir)
             diffuser = self.pipeline.dataset_generator.diffuser
-            self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed)
+            self.pipeline = SIGNeRFPipeline(c.pipeline, self.device, diffuser=diffuser, seed=c.seed, mesh=self.mesh)
             self.pipeline.reload_model_state_dict_without_proposal_weights(ckpt)
+            self._replicate()
             self.step = 0
             self._build_train_fn()
-        print(f"[trainer] exchanged training dataset -> {generated_dir}")
+        self._print(f"[trainer] exchanged training dataset -> {generated_dir}")
 
     def run_headless(self, **generate_kwargs) -> None:
         """The `skip_interface` path: generate (unless `skip_generation` with
@@ -239,7 +284,7 @@ class SIGNeRFTrainer:
                 scalars = {k: float(v) for k, v in metrics.items()}
                 scalars["rays_per_sec"] = self.rays_tracker.tick(self._num_rays_per_call * 4)
                 self.writer.write_scalars(self.step, scalars)
-                print(
+                self._print(
                     f"[train] step {self.step}: loss={scalars['total_loss']:.4f} "
                     f"psnr={scalars['psnr']:.2f} ({scalars['rays_per_sec'] / 1e3:.0f}k rays/s)"
                 )
@@ -249,13 +294,17 @@ class SIGNeRFTrainer:
         with self.train_lock:
             self.save_checkpoint()
         self.training_state = "completed"
-        print(f"[trainer] finished {self.step} steps in {(time.time() - t_start) / 60:.1f} min")
+        self._print(f"[trainer] finished {self.step} steps in {(time.time() - t_start) / 60:.1f} min")
 
     def save_checkpoint(self) -> Path:
-        path = save_checkpoint(
-            self.checkpoint_dir, self.step, self.pipeline.model.state_dict(), self.optimizer
-        )
-        if self.config.save_only_latest_checkpoint:
-            for old in sorted(self.checkpoint_dir.glob("step-*.pt"))[:-1]:
-                old.unlink()
+        """Rank 0 writes (and prunes); every rank returns the path once the
+        file is on disk."""
+        path = checkpoint_path(self.checkpoint_dir, self.step)
+        if self.is_main:
+            save_checkpoint(self.checkpoint_dir, self.step, self.pipeline.model.state_dict(), self.optimizer)
+            if self.config.save_only_latest_checkpoint:
+                for old in sorted(self.checkpoint_dir.glob("step-*.pt"))[:-1]:
+                    old.unlink()
+        if self.mesh is not None:
+            self.mesh.barrier()
         return path

@@ -21,6 +21,19 @@ Renders, masks, conditions, resizes and the sheet stay on the generator's
 device (the card unless the caller names another); PNGs are moved to the
 host and encoded by a thread pool, and original photos are decoded one
 chunk ahead by another.
+
+With a `DataMesh` (`parallel/mesh.py`), rank 0 builds and inpaints the
+reference sheet, saves it and the reference views, and broadcasts the
+edited and condition sheets; every rank then builds its own sheet cache,
+checks that its SDXL weights equal rank 0's, and runs the chunks of
+`generation_batch_size` views dealt to it round-robin, each chunk called
+exactly as one rank calls it (the same views, batch and draws), so the
+dataset does not depend on the number of ranks. Each rank writes its
+views' PNGs under their global indices; rank 0 gathers the frame entries,
+writes `transforms.json` in view order and runs the merge with the
+original dataset; a barrier ends the call. (The JAX package splits the
+views of one chunk over its devices instead; the port's draws belong to
+the chunk.)
 """
 
 from __future__ import annotations
@@ -30,7 +43,7 @@ import json
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +65,9 @@ from signerf_tpu_torch.editing.sheet import (
     split_cells,
 )
 from signerf_tpu_torch.utils.images import load_rgb, save_array_png
+
+if TYPE_CHECKING:
+    from signerf_tpu_torch.parallel.mesh import DataMesh
 
 # render_fn(cameras, camera_index) -> {"rgb": [H, W, 3], "depth": [H, W, 1]}
 RenderFn = Callable[[Cameras, int], Dict[str, torch.Tensor]]
@@ -125,10 +141,14 @@ class DatasetGenerator:
         render_fn: RenderFn,
         diffuser: Optional[Diffuser] = None,
         device=None,
+        mesh: Optional["DataMesh"] = None,
     ):
-        """`device`: where cameras, masks and sheets live (None: the card)."""
+        """`device`: where cameras, masks and sheets live (None: the card).
+        `mesh`: the data-parallel group the per-view chunks are dealt over."""
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.original_transform_matrix = np.asarray(original_transform_matrix)
         self.original_scale_factor = float(original_scale_factor)
         self.transform_poses_to_original_space = transform_poses_to_original_space
@@ -227,7 +247,8 @@ class DatasetGenerator:
             (self.dataset_path / name).mkdir(parents=True, exist_ok=True)
             (self.dataset_path / f"{name}_{c.downscale_factor}").mkdir(parents=True, exist_ok=True)
         (self.dataset_path / "references").mkdir(parents=True, exist_ok=True)
-        cfglib.save_yaml(c, self.dataset_path / "config.yml")
+        if self.is_main:
+            cfglib.save_yaml(c, self.dataset_path / "config.yml")
 
     def _base_transforms(self, merged: bool) -> Dict[str, Any]:
         return {
@@ -323,6 +344,10 @@ class DatasetGenerator:
     # ------------------------------------------------------------------
     # reference sheet
     # ------------------------------------------------------------------
+
+    def _print(self, *args, **kwargs) -> None:
+        if self.is_main:
+            print(*args, **kwargs)
 
     def _layout(self) -> SheetLayout:
         c = self.config
@@ -564,27 +589,37 @@ class DatasetGenerator:
             gen_filenames = list(original_filenames or [None] * len(gen_cams))
 
         transforms = self._base_transforms(merge_with_original_dataset)
-        image_sheet, mask_sheet, cond_sheet, edited_sheet, references = self.generate_reference_sheet(ref_cams)
-        refs_dir = self.dataset_path / "references"
-        for name, sheet in (("image", image_sheet), ("mask", mask_sheet), ("condition", cond_sheet),
-                            ("edited", edited_sheet)):
-            _save_png(sheet, refs_dir / f"{name}_reference_sheet.png")
+        n_ref = len(ref_cams)
+        edited_sheet = cond_sheet = None
+        if self.is_main:
+            image_sheet, mask_sheet, cond_sheet, edited_sheet, references = self.generate_reference_sheet(ref_cams)
+            refs_dir = self.dataset_path / "references"
+            for name, sheet in (("image", image_sheet), ("mask", mask_sheet), ("condition", cond_sheet),
+                                ("edited", edited_sheet)):
+                _save_png(sheet, refs_dir / f"{name}_reference_sheet.png")
 
-        idx = 0
-        transforms["reference_indices"] = []
-        for i in range(len(ref_cams)):
-            transforms = self.save_generated_images(idx, references[i], ref_cams, i, transforms)
-            transforms["reference_indices"].append(idx)
-            idx += 1
-        self._write_transforms(transforms)
+            transforms["reference_indices"] = []
+            for i in range(n_ref):
+                transforms = self.save_generated_images(i, references[i], ref_cams, i, transforms)
+                transforms["reference_indices"].append(i)
+            self._write_transforms(transforms)
+        if self.mesh is not None:
+            edited_sheet, cond_sheet = self.mesh.broadcast_tensors(None if edited_sheet is None
+                                                                   else [edited_sheet, cond_sheet])
+            if self.diffuser.config.mode in IN_PROCESS:
+                self.mesh.assert_replicas_equal(self.diffuser.pipeline.tensors(), "the SDXL weights")
         self.last_timings = {"sheet_s": time.time() - t_start, "view_s": []}
-        print(
-            f"[generator] reference sheet + {len(ref_cams)} reference views done ({time.time() - t_start:.0f}s)",
+        self._print(
+            f"[generator] reference sheet + {n_ref} reference views done ({time.time() - t_start:.0f}s)",
             flush=True,
         )
 
         transforms["generated_indices"] = []
+        own_frames = len(transforms["frames"])
         bsz = max(1, int(c.generation_batch_size))
+        chunks = [list(range(start, min(start + bsz, len(gen_cams)))) for start in range(0, len(gen_cams), bsz)]
+        if self.mesh is not None:
+            chunks = chunks[self.mesh.rank :: self.mesh.world_size]
         # Every view is spliced into the same edited sheet, so its encoder
         # features are computed once here (see lastcell_vae_window).
         sheet_cache = None
@@ -593,13 +628,10 @@ class DatasetGenerator:
             sheet_cache = self.diffuser.prepare_sheet_cache(edited_sheet, (lo.cell_height, lo.cell_width))
         t_prev = time.time()
         prefetched: Dict[int, Any] = {}
-        self._prefetch_originals(gen_filenames, range(min(bsz, len(gen_cams))), prefetched)
-        for start in range(0, len(gen_cams), bsz):
-            chunk = list(range(start, min(start + bsz, len(gen_cams))))
+        self._prefetch_originals(gen_filenames, chunks[0] if chunks else [], prefetched)
+        for pos, chunk in enumerate(chunks):
             # The next chunk's decodes run while this chunk's device work does.
-            self._prefetch_originals(
-                gen_filenames, range(chunk[-1] + 1, min(chunk[-1] + 1 + bsz, len(gen_cams))), prefetched
-            )
+            self._prefetch_originals(gen_filenames, chunks[pos + 1] if pos + 1 < len(chunks) else [], prefetched)
             decoded = [prefetched.pop(i).result() if i in prefetched else None for i in chunk]
             if bsz == 1:
                 images_list = [
@@ -615,17 +647,28 @@ class DatasetGenerator:
                 )
             for i, images in zip(chunk, images_list):
                 transforms = self.save_generated_images(
-                    idx, images, gen_cams, i, transforms, is_original=gen_filenames[i] is not None
+                    n_ref + i, images, gen_cams, i, transforms, is_original=gen_filenames[i] is not None
                 )
-                transforms["generated_indices"].append(idx)
-                idx += 1
-            self._write_transforms(transforms)
+                transforms["generated_indices"].append(n_ref + i)
+            if self.mesh is None:
+                self._write_transforms(transforms)
             now = time.time()
             self.last_timings["view_s"].append(now - t_prev)
             t_prev = now
-            print(f"[generator] views {chunk[-1] + 1}/{len(gen_cams)} ({now - t_start:.0f}s)", flush=True)
+            self._print(f"[generator] views {chunk[-1] + 1}/{len(gen_cams)} ({now - t_start:.0f}s)", flush=True)
 
-        if merge_with_original_dataset:
+        if self.mesh is not None:
+            # every rank's views on disk, then their frames in view order
+            self.flush_saves()
+            mine = list(zip(transforms["generated_indices"], transforms["frames"][own_frames:]))
+            gathered = sorted(f for part in self.mesh.gather_objects(mine) for f in part)
+            if self.is_main:
+                transforms["frames"][own_frames:] = [frame for _, frame in gathered]
+                transforms["generated_indices"] = [i for i, _ in gathered]
+                self._write_transforms(transforms)
+        idx = n_ref + len(gen_cams)
+
+        if merge_with_original_dataset and self.is_main:
             transforms["original_indices"] = []
             lo = self._layout()
             sh, sw = lo.cell_height, lo.cell_width
@@ -649,5 +692,7 @@ class DatasetGenerator:
             self._write_transforms(transforms)
 
         self.flush_saves()
-        print(f"[generator] dataset generated in {(time.time() - t_start) / 60:.2f} minutes -> {self.dataset_path}")
+        if self.mesh is not None:
+            self.mesh.barrier()
+        self._print(f"[generator] dataset generated in {(time.time() - t_start) / 60:.2f} minutes -> {self.dataset_path}")
         return self.dataset_path

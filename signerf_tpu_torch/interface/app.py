@@ -203,7 +203,11 @@ class ViewerServer:
         """The throttled size of a render asked at `size` px."""
         if self.interface.trainer.training_state != "training":
             return size
-        tput = GLOBAL_BUFFER.get("train_rays_per_sec", 0.0)
+        return self.throttled_size(size, GLOBAL_BUFFER.get("train_rays_per_sec", 0.0))
+
+    def throttled_size(self, size: int, tput: float) -> int:
+        """The size of a render asked at `size` px while training runs at
+        `tput` train rays/s (0: not measured yet)."""
         if tput > 0:
             allowed = tput * self.VIS_BUDGET_FRAC / self.VIS_TARGET_FPS
             return int(min(size, max(64, np.sqrt(allowed))))
@@ -467,9 +471,19 @@ class ViewerServer:
         return httpd
 
 
+def require_one_rank(mesh) -> None:
+    """The viewer serves one process's trainer: raise under more than one rank."""
+    if mesh is not None and mesh.world_size > 1:
+        raise ValueError(
+            f"the interactive viewer runs on one rank, not {mesh.world_size}: pass --skip-interface True "
+            "(the headless edit flow) or --train-only True, or --mesh none"
+        )
+
+
 def run_interface(trainer, port: int = 7007):
     """Interactive mode: serve the viewer, training paused until the user
     clicks "Generate Dataset & Train"."""
+    require_one_rank(getattr(trainer, "mesh", None))
     interface = GenerationInterface(trainer)
     server = ViewerServer(interface, port=port)
     trainer.training_state = "paused"

@@ -7,6 +7,9 @@ whenever the source, the headers it includes or the flags change (the
 library's name carries their hash). The libraries have a plain C interface
 (no PyTorch headers, so a build takes seconds) and are loaded with ctypes;
 every exported function returns the launch's `cudaGetLastError()`.
+Processes that start together (the ranks of a data-parallel run) take a
+file lock in `build/kernels/` around the build, so one of them runs nvcc
+and the others load what it built.
 
 The wrappers (`fused_factor_cuda.py` for K1 to K6 and K8 to K10,
 `flash_attention.py` for K7) call `library(name)` and read nothing else of this module.
@@ -15,6 +18,7 @@ The wrappers (`fused_factor_cuda.py` for K1 to K6 and K8 to K10,
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -125,6 +129,8 @@ ARGTYPES = {
 
 # The last build's compiler output (registers, shared memory, spills).
 build_log = ""
+# nvcc processes this process has started.
+nvcc_runs = 0
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -144,35 +150,44 @@ def _target(lib_name: str) -> Path:
     return BUILD_DIR / f"{lib_name}_{hashlib.sha256(blob).hexdigest()[:16]}.so"
 
 
+def _build(targets: Dict[str, Path]) -> None:
+    """Compile the libraries in `targets` that do not exist yet, all nvcc
+    processes at once."""
+    global build_log, nvcc_runs
+    procs = {}
+    for lib_name, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[lib_name][0])]
+        procs[lib_name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+        )
+    nvcc_runs += len(procs)
+    logs, failed = [], []
+    for lib_name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[lib_name][0].name}:\n{out}")
+        else:
+            os.replace(tmp, targets[lib_name])
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed to build " + "\n".join(failed))
+
+
 def library(name: str) -> ctypes.CDLL:
     """Build (the sources that changed, all compilers at once) and load
     every kernel library; returns the one called `name`."""
-    global build_log
     with _lock:
         if not _libs:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             targets = {lib_name: _target(lib_name) for lib_name in SOURCES}
-            procs = {}
-            for lib_name, so in targets.items():
-                if so.exists():
-                    continue
-                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-                cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[lib_name][0])]
-                procs[lib_name] = (
-                    subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                    tmp,
-                )
-            logs, failed = [], []
-            for lib_name, (proc, tmp) in procs.items():
-                out, _ = proc.communicate()
-                logs.append(out)
-                if proc.returncode != 0:
-                    failed.append(f"{SOURCES[lib_name][0].name}:\n{out}")
-                else:
-                    os.replace(tmp, targets[lib_name])
-            build_log = "".join(logs)
-            if failed:
-                raise RuntimeError("nvcc failed to build " + "\n".join(failed))
+            with open(BUILD_DIR / ".build.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # one process builds, the others wait and load
+                _build(targets)
             for lib_name, so in targets.items():
                 lib = ctypes.CDLL(str(so))
                 for fn_name, argtypes in ARGTYPES.items():

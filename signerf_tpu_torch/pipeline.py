@@ -5,13 +5,18 @@ Port of `signerf_tpu/pipeline.py`: the generator gets the dataparser's
 transform and scale and its inverse-pose callback, its intrinsics come from
 the first train camera, and its render hook is `render_camera_fn`, the
 chunked full-frame eval render (K1 on the card).
+
+With a `DataMesh`, the generator deals its per-view work over the ranks
+(each rank renders its own views), so `render_camera_fn` stays the
+one-rank render; the render and eval CLIs split a frame over the ranks
+with `make_eval_render(..., mesh=...)`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import torch
 
@@ -22,6 +27,9 @@ from signerf_tpu_torch.engine.checkpoints import surgical_restore
 from signerf_tpu_torch.engine.train_step import make_eval_render
 from signerf_tpu_torch.generator.datasetgenerator import DatasetGenerator, DatasetGeneratorConfig
 from signerf_tpu_torch.models.signerf import SIGNeRFModel, SIGNeRFModelConfig
+
+if TYPE_CHECKING:
+    from signerf_tpu_torch.parallel.mesh import DataMesh
 
 # Seed of the fresh init that surgery fills dropped entries from (the JAX
 # package's PRNGKey(0)); render.py and eval.py build their models with it.
@@ -49,9 +57,11 @@ class SIGNeRFPipeline:
         device: torch.device,
         diffuser: Optional[Diffuser] = None,
         seed: int = 42,
+        mesh: Optional["DataMesh"] = None,
     ):
         """`diffuser`: the generator's inpainter (None: the configured one,
-        built on `device`)."""
+        built on `device`). `mesh`: the data-parallel group the generator
+        deals its views over (None: one device)."""
         self.config = config
         self.device = torch.device(device)
         self.datamanager = SIGNeRFDataManager(config.datamanager, self.device)
@@ -68,6 +78,7 @@ class SIGNeRFPipeline:
             render_fn=self.render_camera_fn,
             diffuser=diffuser,
             device=self.device,
+            mesh=mesh,
         )
         self.dataset_generator.backfill_intrinsics(self.datamanager.cameras)
 

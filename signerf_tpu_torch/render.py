@@ -15,6 +15,10 @@ Flags:
   --downscale K        render at 1/K resolution
   --depth true         also write inverted-depth visualizations
   --device DEV         torch device (default cuda); `cuda` without a card raises
+  --mesh SPEC          auto (default) | none | data | data=K, as the train
+                       CLI's: more than one card splits each frame's chunks
+                       over the cards (one process a card, self-spawned or
+                       under torchrun); rank 0 writes the PNGs
   --model.KEY VALUE    NerfactoModelConfig overrides, e.g.
                        --model.encoding-backend hash (must match the checkpoint)
 
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import sys
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import TYPE_CHECKING, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -40,7 +44,11 @@ from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_tra
 from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, surgical_restore
 from signerf_tpu_torch.engine.train_step import make_eval_render
 from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+from signerf_tpu_torch.parallel import mesh as mesh_lib
 from signerf_tpu_torch.utils.images import save_array_png
+
+if TYPE_CHECKING:
+    from signerf_tpu_torch.parallel.mesh import DataMesh
 
 CHUNK_SIZE = 8192
 INIT_SEED = 0
@@ -84,10 +92,13 @@ def arc_cameras(cams: Cameras, n: int, radius: float, theta: float) -> Cameras:
 
 
 def render_cameras(
-    model: NerfactoModel, cams: Cameras, aabb: torch.Tensor, chunk_size: int = CHUNK_SIZE
+    model: NerfactoModel, cams: Cameras, aabb: torch.Tensor, chunk_size: int = CHUNK_SIZE,
+    mesh: Optional["DataMesh"] = None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Each camera's eval outputs, reshaped to [H, W, C], on the model's device."""
-    render = make_eval_render(model, chunk_size=chunk_size)
+    """Each camera's eval outputs, reshaped to [H, W, C], on the model's
+    device (with `mesh`, every rank's chunks of each frame, the whole
+    frame on every rank)."""
+    render = make_eval_render(model, chunk_size=chunk_size, mesh=mesh)
     h, w = cams.height, cams.width
     for i in range(len(cams)):
         out = render(cams.generate_rays(camera_index=i, aabb=aabb).reshape((h * w,)))
@@ -112,13 +123,23 @@ def main(argv=None) -> int:
     downscale = int(opts.pop("downscale", 1))
     want_depth = str(opts.pop("depth", "true")).lower() in ("1", "true", "yes")
     device = resolve_device(opts.pop("device", "cuda"))
+    mesh_spec = opts.pop("mesh", "auto")
     unknown = [k for k in opts if not k.startswith("model.")]
     if unknown:
         raise ValueError(f"unknown flags: {unknown}")
     model_cfg = cfglib.apply_overrides(
         NerfactoModelConfig(), {k.removeprefix("model."): v for k, v in opts.items()}
     )
+    args = (data, load_dir, out_dir, arc, arc_radius, arc_theta, downscale, want_depth, device, model_cfg)
+    return mesh_lib.run(mesh_spec, device, out_dir, _render_all, args)
 
+
+def _render_all(mesh, data, load_dir, out_dir, arc, arc_radius, arc_theta, downscale, want_depth, device,
+                model_cfg) -> int:
+    """One rank's part of the render CLI (`mesh` None: the one-device run)."""
+    if mesh is not None:
+        device = mesh.device
+    log = print if mesh is None else mesh.print
     parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
     model = build_model(model_cfg, len(parsed.image_filenames), device)
     if load_dir is not None:
@@ -127,7 +148,9 @@ def main(argv=None) -> int:
             print(f"no checkpoint under {load_dir}")
             return 1
         restore(model, ckpt)
-        print(f"loaded {ckpt}")
+        log(f"loaded {ckpt}")
+    if mesh is not None:
+        mesh.broadcast_module_(model)
 
     cams = parsed.cameras.to(device)
     if downscale > 1:
@@ -137,13 +160,14 @@ def main(argv=None) -> int:
     aabb = torch.as_tensor(parsed.scene_box_aabb, device=device)
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    for i, out in enumerate(render_cameras(model, cams, aabb)):
-        save_array_png(out["rgb"].cpu().numpy(), out_dir / f"rgb_{i:05d}.png")
-        if want_depth:
-            depth = depth_image(out["depth"][..., 0].cpu().numpy())
-            save_array_png(depth[..., None], out_dir / f"depth_{i:05d}.png")
-        print(f"rendered {i + 1}/{len(cams)}")
-    print(f"wrote {out_dir}")
+    for i, out in enumerate(render_cameras(model, cams, aabb, mesh=mesh)):
+        if mesh is None or mesh.is_main:
+            save_array_png(out["rgb"].cpu().numpy(), out_dir / f"rgb_{i:05d}.png")
+            if want_depth:
+                depth = depth_image(out["depth"][..., 0].cpu().numpy())
+                save_array_png(depth[..., None], out_dir / f"depth_{i:05d}.png")
+        log(f"rendered {i + 1}/{len(cams)}")
+    log(f"wrote {out_dir}")
     return 0
 
 

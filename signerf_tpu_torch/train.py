@@ -24,7 +24,21 @@ Flags, as in the JAX CLI:
                        config and poses
   --pipeline.dataset-generator.KEY VALUE   generator and diffuser knobs,
                        e.g. --pipeline.dataset-generator.diffuser.prompt "..."
-  --mesh auto|none     accepted; the port trains on one device
+  --mesh SPEC          auto (default) | none | data | data=K: auto is one
+                       card when one is visible, else every visible card;
+                       data is every visible card, even one (a process
+                       group of 1); data=K is K cards. More than one card
+                       runs data-parallel, one process a card over NCCL:
+                       the rays of a step, the per-view generation and
+                       the eval renders split over the cards. Without a
+                       launcher this CLI spawns its own ranks (a file://
+                       rendezvous under --output-dir); under one, e.g.
+                         torchrun --nproc-per-node 4 -m signerf_tpu_torch.train
+                           signerf --data D --train-only True
+                       each process joins the launcher's group. More than
+                       one rank needs --train-only True or
+                       --skip-interface True (the viewer runs on one).
+                       production and tensor axes are not ported (ROADMAP).
   --device DEV         torch device (default cuda); `cuda` without a card raises
   --a.b.c VALUE        any SIGNeRFTrainerConfig field, e.g.
                        --max-num-iterations 300 --pipeline.model.use-camera-opt True
@@ -42,6 +56,7 @@ from signerf_tpu_torch import config as cfglib
 from signerf_tpu_torch.engine.trainer import SIGNeRFTrainer
 from signerf_tpu_torch.method_configs import METHODS
 from signerf_tpu_torch.ops.lpips import full_f32_convolutions
+from signerf_tpu_torch.parallel import mesh as mesh_lib
 from signerf_tpu_torch.render import resolve_device
 
 
@@ -55,23 +70,37 @@ def main(argv=None) -> int:
         print(__doc__)
         print("methods:", ", ".join(METHODS))
         return 0
-    method = argv.pop(0)
-    if method not in METHODS:
-        print(f"unknown method {method!r}; available: {', '.join(METHODS)}")
+    if argv[0] not in METHODS:
+        print(f"unknown method {argv[0]!r}; available: {', '.join(METHODS)}")
         return 1
-    config = METHODS[method]()
+    mesh_spec, device, config, train_only = parse(argv)
+    return mesh_lib.run(mesh_spec, device, config.output_dir, _run, (config, device, train_only))
+
+
+def parse(argv):
+    """`<method> [--flag value ...]` -> (mesh spec, device, config, train_only)."""
+    argv = list(argv)
+    config = METHODS[argv.pop(0)]()
     overrides = cfglib.parse_cli_overrides(argv)
     train_only = _flag(overrides, "train-only", "false").lower() in ("1", "true", "yes")
-    mesh = _flag(overrides, "mesh", "auto")
-    if mesh not in ("auto", "none"):
-        raise ValueError(f"--mesh {mesh}: the port trains on one device (auto or none)")
+    mesh_spec = _flag(overrides, "mesh", "auto")
     device = resolve_device(_flag(overrides, "device", "cuda"))
     if "data" in overrides:
         overrides["pipeline.datamanager.dataparser.data"] = overrides.pop("data")
-    config = cfglib.apply_overrides(config, overrides)
+    return mesh_spec, device, cfglib.apply_overrides(config, overrides), train_only
 
+
+def _run(mesh, config, device, train_only: bool) -> int:
+    """One rank's work (`mesh` None: the one-device run)."""
+    if mesh is not None:
+        device = mesh.device
+        mesh.print(f"[train] data mesh: {mesh.world_size} ranks over {mesh.backend}", flush=True)
+    from signerf_tpu_torch.interface import app
+
+    if not (train_only or config.skip_interface):
+        app.require_one_rank(mesh)
     full_f32_convolutions()
-    trainer = SIGNeRFTrainer(config, device)
+    trainer = SIGNeRFTrainer(config, device, mesh=mesh)
     trainer.setup()
     if train_only:
         trainer.train()
@@ -79,8 +108,6 @@ def main(argv=None) -> int:
     if config.skip_interface:
         trainer.run_headless()
         return 0
-    from signerf_tpu_torch.interface import app
-
     app.run_interface(trainer)
     return 0
 

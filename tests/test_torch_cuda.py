@@ -9,8 +9,10 @@ of its tiles on strided views, one `signerf` micro-batch and eval chunk
 through K1 to K6, K8 and K9 against K5 and K6, the entry points of K8
 to K10, K7 at the edit pass's shapes, one small dataset-generator pass
 on the card, the web viewer's `/render` through K1, a linear proposal
-field through K3 and K4, and `FactorGridEncoding`'s planes and
-`encode_with_grad` through K3, K4, K8 and K9.
+field through K3 and K4, `FactorGridEncoding`'s planes and
+`encode_with_grad` through K3, K4, K8 and K9, one data-parallel step at
+two or more ranks (K1 and K2 on every rank) and the kernels built once by
+ranks that start together.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -1162,3 +1164,59 @@ def test_microbench_times_a_known_sleep(cuda):
     assert abs(mb.cuda_ms(lambda: torch.cuda._sleep(cycles), 3) - length_ms) <= 0.2 * length_ms
     bd = mb.kernel_breakdown(lambda: torch.cuda._sleep(cycles), [("sleep", ("sleep", "spin"))], iters=2)
     assert abs(bd["busy_ms"] - length_ms) <= 0.2 * length_ms and bd["idle_share"] < 0.2, bd
+
+
+def parallel_helpers():
+    """tests/torch_parallel_helpers.py, imported by its own name from this
+    directory (another installed package may be called `tests`); spawned
+    ranks find it on the path they inherit."""
+    import sys
+    from pathlib import Path
+
+    here = str(Path(__file__).resolve().parent)
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import torch_parallel_helpers
+
+    return torch_parallel_helpers
+
+
+def dp_ranks():
+    """(ranks, backend, cards) of the card's DP tests: a card a rank over
+    NCCL on two or more cards, else two gloo ranks sharing cuda:0 (NCCL
+    refuses two ranks on one card)."""
+    cards = torch.cuda.device_count()
+    return max(cards, 2), "nccl" if cards >= 2 else "gloo", min(cards, max(cards, 2))
+
+
+def test_dp_step_launches_k1_and_k2_on_every_rank(cuda, tmp_path):
+    """One DP `signerf_nerfacto` step at full width: each rank launches K1
+    and K2's tables half three times (its one micro-batch of 4096 / W rays),
+    and ends with rank 0's parameters exactly."""
+    from signerf_tpu_torch.parallel import mesh as mesh_lib
+
+    hp = parallel_helpers()
+    ranks, backend, cards = dp_ranks()
+    mesh_lib.spawn(hp.card_step, (str(tmp_path),), ranks, tmp_path, device_type="cuda", backend=backend,
+                   cards=cards, join_timeout_s=300)
+    for r in range(ranks):
+        rec = torch.load(tmp_path / f"card_rank{r}.pt", weights_only=False)
+        assert rec["backend"] == backend and rec["device"] == f"cuda:{r % cards}"
+        launched = {k: v for k, v in rec["launches"].items() if v}
+        assert launched == {"launches": 3, "bwd_table_launches": 3}, (r, launched)
+        assert rec["param_diff"] == 0.0 and rec["loss"] == rec["loss"], rec
+
+
+def test_ranks_build_the_kernels_once(cuda, tmp_path):
+    """Two ranks that start together on an empty build directory: the file
+    lock lets one run nvcc on the six sources, and the other loads them."""
+    from signerf_tpu_torch.ops import cuda_build
+    from signerf_tpu_torch.parallel import mesh as mesh_lib
+
+    hp = parallel_helpers()
+    ranks, backend, cards = dp_ranks()
+    mesh_lib.spawn(hp.build_once, (str(tmp_path / "kernels"), str(tmp_path)), ranks, tmp_path, device_type="cuda",
+                   backend=backend, cards=cards, join_timeout_s=600)
+    recs = [torch.load(tmp_path / f"build_rank{r}.pt", weights_only=False) for r in range(ranks)]
+    assert sum(r["nvcc_runs"] for r in recs) == len(cuda_build.SOURCES), recs
+    assert all(r["libraries"] == sorted(cuda_build.SOURCES) for r in recs)

@@ -202,7 +202,8 @@ def test_north_star_main_end_to_end_on_the_cpu(tmp_path):
     """The whole pass at 2 views of 32 px, a narrowed model, 2 pretrain and
     2 refinement steps, and the `custom` fake diffuser: the result carries
     the JAX run's keys (examples/north_star_result.json) but its TPU
-    projection, plus `reduced` and the generator's batch size."""
+    projection, plus `reduced`, the generator's batch size and the cards
+    the pass ran on."""
     out = tmp_path / "ns"
     result = ns.main(["2", "2", "2", "--device", "cpu", "--size", "32", "--out", str(out), "--result",
                       str(tmp_path / "result.json")], configure=narrow,
@@ -210,12 +211,13 @@ def test_north_star_main_end_to_end_on_the_cpu(tmp_path):
                                                       device="cpu"),
                      reduced=["model narrowed to the CPU's size"])
     jax_keys = set(json.loads((ROOT / "examples" / "north_star_result.json").read_text()))
-    assert set(result) == {k for k in jax_keys if not k.startswith("v5e8_")} | {"reduced", "generation_batch_size"}
+    assert set(result) == {k for k in jax_keys if not k.startswith("v5e8_")} | {"reduced", "generation_batch_size",
+                                                                                "cards"}
     assert finite_numbers(result)
     assert json.loads((tmp_path / "result.json").read_text()) == json.loads(
         (out / "north_star_result_torch.json").read_text()) == result
     assert result["n_views"] == 2 and result["refine_steps"] == 2 and result["pretrain_steps"] == 2
-    assert result["generation_batch_size"] == 4 and result["hardware"] == "CPU"
+    assert result["generation_batch_size"] == 4 and result["hardware"] == "CPU" and result["cards"] == 1
     assert result["reduced"] == ["n_views 2 (reference 100)", "refine_steps 2 (reference 20000)",
                                  "size 32 (reference 1024)", "pretrain_steps 2 (reference 8000)",
                                  "model narrowed to the CPU's size"]

@@ -414,6 +414,21 @@ def test_http_render(served, monkeypatch):
     assert decode_png(http(base + "/render?size=512")[2]).shape == (64, 64, 3)
 
 
+def test_throttled_size_is_render_size_at_a_given_rate(served, monkeypatch):
+    """`throttled_size(size, rate)` is what `render_size` gives while training
+    runs at that rate, and paused renders are not throttled."""
+    _, iface, server = served
+    assert server.throttled_size(512, 0.0) == 128 and server.throttled_size(24, 0.0) == 24
+    assert server.throttled_size(512, 1e6) == 273 and server.throttled_size(512, 2e4) == 64
+    assert server.throttled_size(24, 1e6) == 24
+    monkeypatch.setattr(iface.trainer, "training_state", "training")
+    for rate in (3e4, 5.17e5, 1e6, 1e8):
+        monkeypatch.setitem(writer.GLOBAL_BUFFER, "train_rays_per_sec", rate)
+        assert server.render_size(512) == server.throttled_size(512, rate)
+    monkeypatch.setattr(iface.trainer, "training_state", "paused")
+    assert server.render_size(512) == 512
+
+
 def test_http_scene_params_and_train(served):
     base, iface, _ = served
     iface.set_reference_circle(radius=2.0, theta=60.0)

@@ -243,8 +243,9 @@ def test_port_imports_no_jax():
     grid, the checkpoint reader (JAX `.ckpt` included), the editing
     geometry, the camera arc, the image cache, the fields, the FLOP model,
     the card's timers, the two example scripts, the probe, the three
-    profilers and chip_smoke.py has neither JAX, flax, msgpack, nor any
-    module of the JAX package loaded."""
+    profilers, the data mesh and its test workers and chip_smoke.py has
+    neither JAX, flax, msgpack, nor any module of the JAX package loaded
+    (tests/test_torch_parallel.py checks the spawned ranks themselves)."""
     code = (
         "import sys; sys.path[:0] = ['examples', 'scripts']; "
         "import fit_synthetic_torch, north_star_pass_torch, probe_edit_mask_torch, profile_render_torch, "
@@ -257,7 +258,8 @@ def test_port_imports_no_jax():
         "signerf_tpu_torch.ops.factor_grid_kernel, signerf_tpu_torch.geometry, "
         "signerf_tpu_torch.geometry.primitives, signerf_tpu_torch.editing.conditions, "
         "signerf_tpu_torch.editing.sheet, signerf_tpu_torch.data.camera_arc, "
-        "signerf_tpu_torch.data.datamanager, signerf_tpu_torch.ops.flops, signerf_tpu_torch.models.fields; "
+        "signerf_tpu_torch.data.datamanager, signerf_tpu_torch.ops.flops, signerf_tpu_torch.models.fields, "
+        "signerf_tpu_torch.parallel, signerf_tpu_torch.parallel.mesh, tests.torch_parallel_helpers; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'signerf_tpu', 'msgpack')); print(bad); sys.exit(1 if bad else 0)"
     )
