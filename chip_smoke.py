@@ -84,7 +84,9 @@ the result line):
      on the plain twins;
  14c. the reference sheet: `signerf_nerfacto` trained 300 steps by the train
      CLI on the scene with a grey backdrop (white background colour: on the
-     white scene the NeRF learns no geometry), its 8 views rendered at
+     white scene the NeRF learns no geometry; while a view's mask is empty,
+     a fresh NeRF of 600, then 900 steps, each run's count of empty masks
+     printed), its 8 views rendered at
      512 px through `make_eval_render` (K1), AABB
      masks and conditions (dilation (50, 50)), a `bunny(3)` proxy posed with
      `object_pose_matrix` and ray-traced by `geometry/raster.py` into shape
@@ -142,9 +144,10 @@ the result line):
      per-step |d loss|; the phase's wall;
  15. K7 (signerf_tpu_torch/csrc/flash_attention.cu) against its plain twin
      and an f32 reference at (B, S, H) = (1, 9216, 10), (1, 2304, 20),
-     (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1) and
+     (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1),
      the edit pass's (2, 1536, 10), (2, 384, 20), (8, 1536, 10),
-     (8, 384, 20); CUDA-event times of the kernel, the twin and
+     (8, 384, 20) and phase 24's at a rank's heads (K7_TP_SHAPES: 5 and 10
+     heads); CUDA-event times of the kernel, the twin and
      scaled_dot_product_attention (a yardstick the port never calls) beside
      the bound; a line for each sheet and edit-pass shape: kernel, SDPA,
      their ratio, TFLOP/s and share of the bound;
@@ -207,13 +210,26 @@ the result line):
      through SDXL at published widths (random init, 5 steps, batch 2) on
      the ranks against one rank's dataset by tests/test_torch_edit_flow.py's
      `assert_same_dataset` rule;
+ 24. tensor parallelism (run after 23): max(W, 2) ranks with tensor=2 (NCCL
+     a card a rank on W >= 2 cards, else two gloo ranks on cuda:0; the
+     backend printed), SDXL at published widths and random init with its
+     UNet and ControlNet sharded over each tensor group of 2 ranks: (a) one
+     CFG branch at the 1536 px sheet shape against phase 18's one-rank
+     branch (norm-relative, TP_BRANCH_TOL); (b) `Diffuser.diffuse` on a
+     2x2 sheet of 512 px cells (14c's top-left cells), 3 steps, against
+     one rank's on phase 16's pipeline (mean |err|, TP_SHEET_MEAN); (c) the
+     per-view generation of 23(b) on the (W / 2, 2) mesh against 23(b)'s
+     one-rank dataset (TP_GEN_*); each rank's outputs bit-equal to its
+     tensor group's, K7's exact launches by shape at the rank's local heads
+     (5 and 10), sharded and whole bytes, walls, step medians and peak
+     memory;
  20. a JSON line per kernel, then {"ok": true, "device": {...}} last. A
      kernel's launches are summed over the main path's phases that run it
      (K1: 6, 7, 11, 14, 14d, 14e, 14f, 21, 22 and 23; K2's tables half: 7,
      11, 14d, 14e, 14f, 21, 22 and 23; K3: 11, 14, 21, 22 and 23; K4's
      tables half: 11, 21, 22 and 23; K5: 11, 14, 22 and 23; K6's tables
      half: 11, 22 and 23 (phase 23: rank 0's); K7: 16, 14d,
-     14f, 21 and 22; K8 and K9's tables half: 14b and 21), and its times
+     14f, 21, 22 and 24 (rank 0's); K8 and K9's tables half: 14b and 21), and its times
      and bound are per call, each kind of call weighted by its launches,
      so that launches x (ms - bound_ms) is the time the path loses to it.
 
@@ -1807,6 +1823,12 @@ REFERENCE_FLAGS = ("--pipeline.model.background-color", "white")
 SHEET_AABB_SCENE = ((-0.35, -0.35, 0.25), (0.35, 0.35, 0.75))
 BUNNY_SCENE = dict(position=(0.0, 0.0, 0.5), rotation=(90.0, 0.0, 0.0), scale=0.035)
 MASK_DILATION = (50, 50)  # the generator's default
+# The reference NeRF's schedules: 300 steps (phase 7's), then, while a
+# reference mask is empty, a fresh NeRF of 600 and of 900 steps. At 300
+# steps the runs part at f32 rounding (PERF.md section 6): 23.7 to 33.8
+# dB, and in one run of three 4 of the 8 masks empty. The check that
+# every cell has a mask stays on the last NeRF trained.
+REFERENCE_STEPS = (TRAIN_STEPS, 2 * TRAIN_STEPS, 3 * TRAIN_STEPS)
 # The per-view phase regenerates dataset view 3, as the per-view loop
 # regenerates every dataset view.
 TARGET_VIEW = 3
@@ -1844,20 +1866,8 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
 
     dev = torch.device("cuda")
     data = write_scene(tmp / "reference_scene", REFERENCE_BACKDROP)
-    out = tmp / "reference_nerf"
-    zero_counts(ffc)
-    t0 = time.perf_counter()
-    rc = train_cli.main(train_argv("signerf_nerfacto", data, out, TRAIN_STEPS, *REFERENCE_FLAGS))
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    if rc != 0 or counts(ffc) != NERFACTO_COUNTS(TRAIN_STEPS):
-        fail(f"the reference NeRF's train CLI: rc {rc}, launches {counts(ffc)}")
     parsed = parse_transforms(SIGNeRFDataParserConfig(data=data))
     cams = parsed.cameras.to(dev)
-    model = NerfactoModel(NerfactoModelConfig(background_color=REFERENCE_FLAGS[1]), len(cams))
-    ckpt_dir = out / "experiment" / "signerf_nerfacto" / "checkpoints"
-    model.load_state_dict(load_checkpoint(latest_checkpoint(ckpt_dir))["params"], strict=True)
-    model = model.to(dev).eval()
     h, w = cams.height, cams.width
     chunks = -(-(h * w) // CHUNK)
     scene_aabb = torch.as_tensor(parsed.scene_box_aabb, device=dev)
@@ -1869,25 +1879,44 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
     pose = obj.object_pose_matrix(to_world(parsed, BUNNY_SCENE["position"]), BUNNY_SCENE["rotation"],
                                   [BUNNY_SCENE["scale"] * parsed.dataparser_scale] * 3)
     verts = obj.transform_vertices(verts, pose).astype(np.float32)
-    render = make_eval_render(model, chunk_size=CHUNK)
-    acc_means = []
+    empty_cells = []  # empty AABB masks after each schedule
+    for steps in REFERENCE_STEPS:
+        out = tmp / f"reference_nerf_{steps}"
+        zero_counts(ffc)
+        t0 = time.perf_counter()
+        rc = train_cli.main(train_argv("signerf_nerfacto", data, out, steps, *REFERENCE_FLAGS))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        if rc != 0 or counts(ffc) != NERFACTO_COUNTS(steps):
+            fail(f"the reference NeRF's train CLI: rc {rc}, launches {counts(ffc)}")
+        model = NerfactoModel(NerfactoModelConfig(background_color=REFERENCE_FLAGS[1]), len(cams))
+        ckpt_dir = out / "experiment" / "signerf_nerfacto" / "checkpoints"
+        model.load_state_dict(load_checkpoint(latest_checkpoint(ckpt_dir))["params"], strict=True)
+        model = model.to(dev).eval()
+        render = make_eval_render(model, chunk_size=CHUNK)
+        acc_means = []
 
-    def view(i):
-        rb = cams.generate_rays(camera_index=i, aabb=scene_aabb)
-        out = render(rb.reshape((h * w,)), appearance_mode="index")
-        acc_means.append(out["accumulation"].mean())
-        rgb, depth = out["rgb"].reshape(h, w, 3), out["depth"].reshape(h, w, 1)
-        mask, cond = ec.aabb_mask_condition(depth, rb.origins, rb.directions, mcfg)
-        return rgb, depth, mask, cond
+        def view(i):
+            rb = cams.generate_rays(camera_index=i, aabb=scene_aabb)
+            out = render(rb.reshape((h * w,)), appearance_mode="index")
+            acc_means.append(out["accumulation"].mean())
+            rgb, depth = out["rgb"].reshape(h, w, 3), out["depth"].reshape(h, w, 1)
+            mask, cond = ec.aabb_mask_condition(depth, rb.origins, rb.directions, mcfg)
+            return rgb, depth, mask, cond
 
-    torch.cuda.synchronize()
-    zero_counts(ffc)
-    t0 = time.perf_counter()
-    refs = [view(i) for i in range(len(cams))]
-    torch.cuda.synchronize()
-    views_s = time.perf_counter() - t0
-    if counts(ffc) != expect_counts(K1=3)(chunks * len(cams)):
-        fail(f"the reference views launched {counts(ffc)}, expected K1 3 x {chunks} chunks x {len(cams)} views")
+        torch.cuda.synchronize()
+        zero_counts(ffc)
+        t0 = time.perf_counter()
+        refs = [view(i) for i in range(len(cams))]
+        torch.cuda.synchronize()
+        views_s = time.perf_counter() - t0
+        if counts(ffc) != expect_counts(K1=3)(chunks * len(cams)):
+            fail(f"the reference views launched {counts(ffc)}, expected K1 3 x {chunks} chunks x {len(cams)} views")
+        empty_cells.append(sum(int(float(m.max()) == 0.0) for _, _, m, _ in refs))
+        print(f"phase 14c reference NeRF after {steps} steps: {empty_cells[-1]} of {len(refs)} AABB masks empty",
+              flush=True)
+        if not empty_cells[-1]:
+            break
     raster_s, shape_cov = [], []
     for i, (_, depth, _, _) in enumerate(refs):
         torch.cuda.synchronize()
@@ -1937,7 +1966,7 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
         white_cov.append(float(mask.mean()))
     gts = [torch.from_numpy(load_rgb(f)).to(dev).float() / 255.0 for f in parsed.image_filenames]
     psnr = [float(psnr_fn(rgb, gt)) for (rgb, _, _, _), gt in zip(refs, gts)]
-    print(f"phase 14c reference sheet: signerf_nerfacto trained {TRAIN_STEPS} steps by the train CLI on the scene "
+    print(f"phase 14c reference sheet: signerf_nerfacto trained {steps} steps by the train CLI on the scene "
           f"with a {REFERENCE_BACKDROP} grey backdrop ({' '.join(REFERENCE_FLAGS)}) in {train_s:.3f} s; its {len(refs)} "
           f"views of {w}x{h} in {views_s:.3f} s (K1 {3 * chunks} launches a view), PSNR "
           + ", ".join(f"{v:.2f}" for v in psnr) + f" dB; AABB masks (box {np.round(corners.min(0), 3).tolist()} "
@@ -1953,7 +1982,8 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
           + ", ".join(f"{c:.3f}" for c in white_cov) + f"; on {card}", flush=True)
     return {"layout": layout, "image_sheet": image_sheet, "mask_sheet": mask_sheet, "cond_sheet": cond_sheet,
             "target": scaled[TARGET_VIEW], "count": len(refs), "coverage": coverage, "data": data,
-            "ckpt_dir": ckpt_dir, "psnr": psnr, "accumulation": [float(a) for a in acc_means]}
+            "ckpt_dir": ckpt_dir, "psnr": psnr, "accumulation": [float(a) for a in acc_means],
+            "empty_cells": empty_cells}
 
 
 # The edit pass (phase 14d): SIGNeRF's product path through the trainer API
@@ -3076,7 +3106,7 @@ def phase_k7(torch, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     stats = {"max_abs_err": 0.0}
     per_shape = {}
-    for b, s, h in K7_SHAPES + list(K7_EDIT_SHAPES):
+    for b, s, h in K7_SHAPES + list(K7_EDIT_SHAPES) + [x for x in K7_TP_SHAPES if x not in K7_EDIT_SHAPES]:
         q, k, v = (torch.randn(b, s, h, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
         got = fa.flash_attention_cuda(q, k, v, 0.125)
         torch.cuda.synchronize()
@@ -3092,7 +3122,7 @@ def phase_k7(torch, card: str) -> dict:
         line = (f"phase 15 K7 (B, S, H) = {(b, s, h)}: norm-rel err vs twin {e_twin:.3e}, vs f32 reference "
                 f"{e_ref:.3e} (twin vs f32 {e_twin_ref:.3e})")
         del got, twin, ref
-        if s >= K7_TIMED_FROM:
+        if s >= K7_TIMED_FROM or (b, s, h) in K7_TP_SHAPES:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=0.125)  # noqa: E731
             lib1 = cuda_ms(sdpa, 20)
@@ -3107,9 +3137,10 @@ def phase_k7(torch, card: str) -> dict:
         print(line, flush=True)
         del q, k, v
         torch.cuda.empty_cache()
-    for (b, s, h) in (*K7_SHEET_CALLS, *K7_EDIT_SHAPES):
+    for (b, s, h) in (*K7_SHEET_CALLS, *K7_EDIT_SHAPES, *tp_shapes(K7_SHEET_CALLS)):
         k_ms, _, lib_ms, b_ms, b_by = per_shape[(b, s, h)]
-        which = "sheet" if (b, s, h) in K7_SHEET_CALLS else "edit pass"
+        which = ("sheet" if (b, s, h) in K7_SHEET_CALLS else "edit pass" if (b, s, h) in K7_EDIT_SHAPES
+                 else f"TP-{TP} sheet (a rank's heads)")
         print(f"phase 15 K7 vs scaled_dot_product_attention at the {which} shape (B, S, H) = {(b, s, h)}: kernel "
               f"{k_ms:.4f} ms, SDPA {lib_ms:.4f} ms, ratio {k_ms / lib_ms:.3f}, "
               f"{4 * b * h * s * s * 64 / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.1%} of its bound ({b_ms:.4f} ms, "
@@ -3272,9 +3303,10 @@ def cfg_branch(torch, pipe, sh: dict, seed: int = 9):
     return eps
 
 
-def phase_cfg_branch(torch, card: str, sh: dict) -> None:
+def phase_cfg_branch(torch, card: str, sh: dict):
     """One CFG branch at the sheet shape through K7, then through the twin
-    (`set_flash_attention(False)`)."""
+    (`set_flash_attention(False)`). Returns the branch through K7 (phase
+    24(a)'s one-rank reference)."""
     from signerf_tpu_torch.diffusion import unet as unet_mod
     from signerf_tpu_torch.ops import flash_attention as fa
 
@@ -3297,6 +3329,7 @@ def phase_cfg_branch(torch, card: str, sh: dict) -> None:
           f"{k_ms:.2f} ms with K7, {p_ms:.2f} ms with the twin; on {card}", flush=True)
     if n != K7_PER_STEP // 2 or not bool(torch.isfinite(e_k).all()) or err > CFG_BRANCH_TOL:
         fail("the CFG branch through K7 and through the twin disagree, or K7 did not run in every self-attention")
+    return e_k.float().cpu()
 
 
 def phase_diffusion_profile(torch, card: str, sh: dict) -> None:
@@ -4213,22 +4246,49 @@ def same_dataset(a: Path, b: Path) -> dict:
     return {"pngs": len(pa), "worst_level": worst, "share": share}
 
 
-def dp_checks_rank(mesh, data: str, out: str) -> int:
+def generate_views(torch, run_mesh, diffuser, dev, path: Path):
+    """The per-view generation of phases 23(b) and 24(c): DP_GEN's views of
+    the analytic scene (`dp_render_fn`) at SCENE's size through `diffuser`,
+    on the ranks of `run_mesh` (None: one process), into `path`. Returns
+    the dataset's directory and {wall_s, k7, chunks_s}."""
+    import numpy as np
+
+    from signerf_tpu_torch.cameras.poses import circle_poses
+    from signerf_tpu_torch.generator.datasetgenerator import DatasetGenerator, DatasetGeneratorConfig
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    h, w = SCENE["height"], SCENE["width"]
+    f = 0.8 * w
+    refs = circle_poses(DP_GEN["rows"] * DP_GEN["cols"] - 1, radius=2.0, theta=70.0, phi=(0.0, 240.0)).numpy()
+    views = circle_poses(DP_GEN["views"], radius=2.0, theta=60.0, phi=(20.0, 290.0)).numpy()
+    cfg = DatasetGeneratorConfig(path=path, dataset_name="dp", fx=f, fy=f, cx=w / 2, cy=h / 2, width=w, height=h,
+                                 rows=DP_GEN["rows"], cols=DP_GEN["cols"], aabb_min=DP_BOX[0], aabb_max=DP_BOX[1],
+                                 generation_batch_size=DP_GEN["batch"])
+    gen = DatasetGenerator(cfg, np.eye(4)[:3], 1.0, lambda p: p, dp_render_fn(torch), diffuser=diffuser, device=dev,
+                           mesh=run_mesh)
+    fa.launches = 0
+    t0 = time.perf_counter()
+    out = gen.generate_dataset(reference_camera_to_worlds=refs[:, :3], synthetic_camera_to_worlds=views[:, :3])
+    torch.cuda.synchronize(dev)
+    lo = gen._layout()
+    return out, {"wall_s": time.perf_counter() - t0, "k7": fa.launches, "chunks_s": gen.last_timings["view_s"],
+                 "sheet_hw": (lo.height, lo.width)}
+
+
+def dp_checks_rank(mesh, data: str, out: str, one_root: str) -> int:
     """Phase 23(b) on one rank: DP_CHECK_STEPS DP steps from fed indices, a
     512 px frame and the per-view generation on the ranks; on rank 0 the
-    same work on one rank, compared. Rank 0 writes the record."""
+    same work on one rank (its dataset into `one_root`, which phase 24(c)
+    reads), compared. Rank 0 writes the record."""
     import numpy as np
     import torch
 
-    from signerf_tpu_torch.cameras.poses import circle_poses
     from signerf_tpu_torch.data.datamanager import SIGNeRFDataManager, SIGNeRFDataManagerConfig
     from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig
     from signerf_tpu_torch.diffusion.diffuser import Diffuser, DiffuserConfig
     from signerf_tpu_torch.engine import train_step as tts
     from signerf_tpu_torch.engine.optimizers import OptimizersConfig, make_optimizer
-    from signerf_tpu_torch.generator.datasetgenerator import DatasetGenerator, DatasetGeneratorConfig
     from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
-    from signerf_tpu_torch.ops import flash_attention as fa
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
     dev, ranks = mesh.device, mesh.world_size
@@ -4275,28 +4335,15 @@ def dp_checks_rank(mesh, data: str, out: str) -> int:
         record["frame_equal"] = {k: bool(torch.equal(frame[k], single[k])) for k in single}
 
     # the per-view generation: the ranks' dealt chunks against one rank
-    f = 0.8 * w
-    refs = circle_poses(DP_GEN["rows"] * DP_GEN["cols"] - 1, radius=2.0, theta=70.0, phi=(0.0, 240.0)).numpy()
-    views = circle_poses(DP_GEN["views"], radius=2.0, theta=60.0, phi=(20.0, 290.0)).numpy()
     diffuser = Diffuser(DiffuserConfig(num_inference_steps=DP_GEN["steps"]), device=dev)
 
-    def generate(run_mesh, name):
-        cfg = DatasetGeneratorConfig(path=Path(out).parent / name, dataset_name="dp", fx=f, fy=f, cx=w / 2,
-                                     cy=h / 2, width=w, height=h, rows=DP_GEN["rows"], cols=DP_GEN["cols"],
-                                     aabb_min=DP_BOX[0], aabb_max=DP_BOX[1],
-                                     generation_batch_size=DP_GEN["batch"])
-        gen = DatasetGenerator(cfg, np.eye(4)[:3], 1.0, lambda p: p, dp_render_fn(torch), diffuser=diffuser,
-                               device=dev, mesh=run_mesh)
-        fa.launches = 0
-        t0 = time.perf_counter()
-        path = gen.generate_dataset(reference_camera_to_worlds=refs[:, :3], synthetic_camera_to_worlds=views[:, :3])
-        torch.cuda.synchronize(dev)
-        return path, {"wall_s": time.perf_counter() - t0, "k7": fa.launches, "chunks_s": gen.last_timings["view_s"]}
+    def generate(run_mesh, path):
+        return generate_views(torch, run_mesh, diffuser, dev, path)
 
-    dp_path, dp_gen = generate(mesh, "ranks")
+    dp_path, dp_gen = generate(mesh, Path(out).parent / "ranks")
     record.update(gen=dp_gen, sdxl_init_s=diffuser.pipeline.init_seconds)
     if mesh.is_main:
-        one_path, one_gen = generate(None, "one")
+        one_path, one_gen = generate(None, Path(one_root))
         record.update(one_gen=one_gen, same=same_dataset(Path(one_path), Path(dp_path)))
     records = mesh.gather_objects(record)
     if mesh.is_main:
@@ -4307,7 +4354,7 @@ def dp_checks_rank(mesh, data: str, out: str) -> int:
     return 0
 
 
-def phase_data_parallel(torch, card: str) -> dict:
+def phase_data_parallel(torch, card: str, one_root: Path) -> dict:
     """Phase 23: (a) the `signerf` train CLI with --mesh data on every
     visible card (NCCL; on one card a process group of 1), DP_STEPS steps of
     16,384 global rays on 14c's scene: each rank's launches, step median
@@ -4353,8 +4400,8 @@ def phase_data_parallel(torch, card: str) -> dict:
         out_b.parent.mkdir()
         t0 = time.perf_counter()
         try:
-            mesh_lib.spawn(dp_checks_rank, (str(data), str(out_b)), ranks, tmp, device_type="cuda", backend=backend,
-                           cards=min(cards, ranks), join_timeout_s=DP_JOIN_S)
+            mesh_lib.spawn(dp_checks_rank, (str(data), str(out_b), str(one_root)), ranks, tmp, device_type="cuda",
+                           backend=backend, cards=min(cards, ranks), join_timeout_s=DP_JOIN_S)
         except Exception as exc:
             fail(f"phase 23(b): a rank failed: {exc!r}")
         wall_b = time.perf_counter() - t0
@@ -4396,6 +4443,267 @@ def phase_data_parallel(torch, card: str) -> dict:
     print(f"phase 23 wall {wall_a + wall_b:.1f} s; on {card}", flush=True)
     rank0 = a["ranks"][0]
     return {"micro": rank0["micro"] * rank0["steps"], "world": a["world"]}
+
+
+# Phase 24, tensor parallelism: the SDXL UNet and ControlNet sharded over
+# tensor groups of TP consecutive ranks (signerf_tpu_torch/parallel/mesh.py's
+# tensor axis, diffusion/unet.py's sharded blocks), K7 on each rank's heads.
+TP = 2
+TP_JOIN_S = 600.0
+TP_SHEET = dict(grid=2, steps=3)  # (b): a 2x2 sheet of 512 px cells, num_inference_steps 3
+# (a) One CFG branch at the sheet shape against phase 18's one-rank branch:
+# each row-parallel product sums two bf16 partials in f32 and rounds once
+# where one rank rounds the whole product once, a flipped bf16 rounding per
+# layer that 104 blocks carry on (1.34e-2 norm-relative at the tiny config
+# on the CPU, tests/test_torch_tensor_parallel.py). Bound 0.1, as phase
+# 18's K7 against the twin.
+TP_BRANCH_TOL = 0.1
+# (b) The 2x2 sheet's inpaint against one rank's, mean |err| over the image
+# in [0, 1]: the CPU tests' img2img bound (tests/test_diffusion.py:299).
+TP_SHEET_MEAN = 2e-2
+# (c) The per-view generation against phase 23's one-rank dataset:
+# assert_same_dataset's rule for the PNGs no inpaint touches (renders,
+# masks, conditions); the edited ones 4 levels apart on average over a file
+# at most (tests/test_torch_tensor_parallel.py's mean bound for the tiny
+# SDXL) and at most 5% of a file's values more than 8 levels apart. With
+# random weights the ancestral sampler turns a flipped bf16 rounding into
+# another value for a few pixels: on the H100 (two gloo ranks on one card)
+# the mean was 0.101 levels and single values 84 levels apart, so no bound
+# is put on a single value.
+TP_GEN_MEAN_LEVELS, TP_GEN_FAR, TP_GEN_FAR_SHARE = 4.0, 8, 0.05
+TP_EDITED = ("images/", "images_2/", "references/edited_reference_sheet.png")
+
+
+def tp_shapes(shapes: dict) -> dict:
+    """{(B, S, H): calls} with each H split over the TP ranks."""
+    return {(b, s, h // TP): n for (b, s, h), n in shapes.items()}
+
+
+# The shapes phase 24 runs K7 at (phase 15 times every one of them): one
+# branch of the 1536 px sheet (a), the 1024 px sheet with batched CFG (b),
+# the per-view generation's 512 px sheet alone and in chunks of 2 views (c).
+K7_TP_SHAPES = tuple(itertools.chain.from_iterable(
+    tp_shapes(k7_pass_shapes(px, px, b)) for px, b in ((1536, 1), (1024, 2), (512, 2), (512, 4))))
+
+
+def tp_inputs(ref: dict, sh: dict) -> dict:
+    """(a)'s sheet and depth (phase 18's inputs) and (b)'s 2x2 sheet: the
+    top-left 2x2 cells of phase 14c's reference sheet, mask and condition."""
+    px = TP_SHEET["grid"] * SHEET_CELL
+    return {"sheet": sh["sheet"], "depth": sh["depth"],
+            **{f"b_{k}": ref[f"{k}_sheet"][:px, :px].cpu().numpy() for k in ("image", "mask", "cond")}}
+
+
+def phase_tp_reference(torch, card: str, sh: dict, inputs: dict) -> dict:
+    """Phase 24(b)'s one-rank reference, on phase 16's pipeline: the 2x2
+    sheet through `Diffuser.diffuse` at TP_SHEET's steps."""
+    import dataclasses
+
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser
+
+    base = sh["diffuser"]
+    diffuser = Diffuser(dataclasses.replace(base.config, num_inference_steps=TP_SHEET["steps"]),
+                        pipeline=base.pipeline)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = diffuser.diffuse(inputs["b_image"], inputs["b_image"], inputs["b_mask"], inputs["b_cond"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    med, _, _ = step_stats(base.pipeline)
+    return {"image": out, "wall_s": wall, "step_ms": med, "steps": base.pipeline.last_run["sampler_steps"]}
+
+
+def tp_rank(mesh, inputs_path: str, out: str) -> int:
+    """Phase 24 on one rank: the SDXL stack at random init sharded over this
+    rank's tensor group; (a) one CFG branch at the 1536 px sheet shape, (b)
+    `Diffuser.diffuse` on the 2x2 sheet, (c) the per-view generation on the
+    mesh. Each call's K7 launches by shape, walls, step medians and peak
+    memory; the outputs of (a) and (b) to files. Rank 0 writes every
+    rank's record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from signerf_tpu_torch.diffusion import unet as unet_mod
+    from signerf_tpu_torch.diffusion.diffuser import Diffuser, DiffuserConfig
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    dev = mesh.device
+    data = dict(np.load(inputs_path))
+    shapes: dict = {}
+    real = unet_mod.flash_attention
+
+    def recording(q, k, v, scale):
+        key = tuple(q.shape[:3])
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(q, k, v, scale)
+
+    def counted(fn):
+        """fn()'s result, and K7's launches in it: by shape, in all."""
+        shapes.clear()
+        fa.launches = 0
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, {"shapes": dict(shapes), "launches": fa.launches, "wall_s": time.perf_counter() - t0,
+                     "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+    unet_mod.flash_attention = recording
+    try:
+        diffuser = Diffuser(DiffuserConfig(), device=dev, mesh=mesh)
+        pipe, init = counted(lambda: diffuser.pipeline)
+        blocks = pipe.unet.core
+        rec = {"rank": mesh.rank, "device": str(dev), "init": init, "init_s": pipe.init_seconds,
+               "heads": (blocks.down_1_attn_0.blocks_0.attn1.num_heads, blocks.down_2_attn_0.blocks_0.attn1.num_heads),
+               "bytes": {kind: sum(t.numel() * t.element_size() for t in pipe.tensors(sharded=kind))
+                         for kind in (True, False)}}
+        eps = cfg_branch(torch, pipe, data)
+        with torch.no_grad():
+            e, rec["a"] = counted(lambda: eps(1))
+        torch.save(e.float().cpu(), Path(out) / f"a_rank{mesh.rank}.pt")
+
+        sheet = Diffuser(dataclasses.replace(diffuser.config, num_inference_steps=TP_SHEET["steps"]), pipeline=pipe)
+        calls = []
+        recording_diffuser(sheet, calls)
+        img, rec["b"] = counted(lambda: sheet.diffuse(data["b_image"], data["b_image"], data["b_mask"],
+                                                      data["b_cond"]))
+        rec["b"]["expected"] = tp_shapes(k7_launches(calls, *data["b_image"].shape[:2]))
+        rec["b"]["step_ms"] = step_stats(pipe)
+        np.save(Path(out) / f"b_rank{mesh.rank}.npy", img)
+
+        calls = []
+        views = recording_diffuser(Diffuser(DiffuserConfig(num_inference_steps=DP_GEN["steps"]), device=dev,
+                                            pipeline=pipe, mesh=mesh), calls)
+        (path, gen), rec["c"] = counted(lambda: generate_views(torch, mesh, views, dev, Path(out) / "c"))
+        rec["c"].update(gen, path=str(path), expected=tp_shapes(k7_launches(calls, *gen["sheet_hw"])))
+    finally:
+        unet_mod.flash_attention = real
+    records = mesh.gather_objects(rec)
+    if mesh.is_main:
+        torch.save({"backend": mesh.backend, "world": mesh.world_size, "tensor": mesh.tensor, "ranks": records},
+                   Path(out) / "records.pt")
+    return 0
+
+
+def tp_same_dataset(one: Path, tp: Path) -> dict:
+    """Phase 24(c)'s rule (TP_GEN_*): the same PNGs and transforms.json;
+    untouched PNGs within assert_same_dataset's one level on 5% of the
+    values, edited ones within TP_GEN_MEAN_LEVELS on average and with at
+    most TP_GEN_FAR_SHARE of their values more than TP_GEN_FAR levels
+    apart. Returns the worst of each (fails otherwise)."""
+    import numpy as np
+
+    pa = sorted(p.relative_to(one).as_posix() for p in one.rglob("*.png"))
+    pb = sorted(p.relative_to(tp).as_posix() for p in tp.rglob("*.png"))
+    if pa != pb:
+        fail(f"phase 24(c): the datasets hold other PNGs: {sorted(set(pa) ^ set(pb))[:5]}")
+    worst = {"untouched_level": 0, "untouched_share": 0.0, "edited_level": 0, "edited_mean": 0.0, "edited_far": 0.0}
+    for name in pa:
+        diff = np.abs(read_png(one / name).astype(np.int32) - read_png(tp / name).astype(np.int32))
+        if name.startswith(TP_EDITED):
+            worst["edited_level"] = max(worst["edited_level"], int(diff.max()))
+            worst["edited_mean"] = max(worst["edited_mean"], float(diff.mean()))
+            worst["edited_far"] = max(worst["edited_far"], float((diff > TP_GEN_FAR).mean()))
+        else:
+            worst["untouched_level"] = max(worst["untouched_level"], int(diff.max()))
+            worst["untouched_share"] = max(worst["untouched_share"], float((diff > 0).mean()))
+    same_meta = (json.loads((one / "transforms.json").read_text()) == json.loads((tp / "transforms.json").read_text()))
+    if (worst["untouched_level"] > 1 or worst["untouched_share"] > 0.05 or worst["edited_mean"] > TP_GEN_MEAN_LEVELS
+            or worst["edited_far"] > TP_GEN_FAR_SHARE or not same_meta):
+        fail(f"phase 24(c): the TP dataset differs from one rank's beyond its bound: {worst}, transforms.json equal "
+             f"{same_meta}")
+    return dict(worst, pngs=len(pa))
+
+
+def phase_tensor_parallel(torch, card: str, inputs: dict, eps_one, reference: dict, one_root: Path) -> dict:
+    """Phase 24: max(W, 2) ranks with tensor=TP (NCCL a card a rank on
+    W >= 2 cards, else two gloo ranks on cuda:0), the SDXL sharded over each
+    tensor group: (a) one CFG branch against phase 18's, (b) the 2x2 sheet
+    (`inputs`: `tp_inputs`) against `reference` (one rank, phase 16's
+    pipeline), (c) the per-view
+    generation on the mesh against phase 23's one-rank dataset in
+    `one_root`. Outputs bit-equal within each tensor group; K7's exact
+    launches by shape on every rank. Returns rank 0's K7 launches."""
+    import numpy as np
+
+    from signerf_tpu_torch.parallel import mesh as mesh_lib
+
+    cards = torch.cuda.device_count()
+    ranks = max(cards, TP)
+    backend = "nccl" if cards >= 2 else "gloo"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        np.savez(tmp / "inputs.npz", **inputs)
+        try:
+            mesh_lib.spawn(tp_rank, (str(tmp / "inputs.npz"), str(tmp)), ranks, tmp, device_type="cuda",
+                           backend=backend, cards=min(cards, ranks), join_timeout_s=TP_JOIN_S, tensor=TP)
+        except Exception as exc:  # a rank failed: its error is above
+            fail(f"phase 24: a rank failed: {exc!r}")
+        res = torch.load(tmp / "records.pt", weights_only=False)
+        recs = res["ranks"]
+        if (res["backend"], res["world"], res["tensor"]) != (backend, ranks, TP):
+            fail(f"phase 24: {res['world']} ranks over {res['backend']} with tensor {res['tensor']}")
+        want_a = tp_shapes(k7_pass_shapes(SHEET_GRID * SHEET_CELL, SHEET_GRID * SHEET_CELL, 1))
+        a = [torch.load(tmp / f"a_rank{r}.pt") for r in range(ranks)]
+        b = [np.load(tmp / f"b_rank{r}.npy") for r in range(ranks)]
+        a_err = [rel_err(e, eps_one) for e in a]
+        b_err = [float(np.abs(x.astype(np.float64) - reference["image"]).mean()) for x in b]
+        for r, rec in enumerate(recs):
+            first = r - r % TP  # the first rank of r's tensor group
+            bad = []
+            if rec["heads"] != (10 // TP, 20 // TP):
+                bad.append(f"local heads {rec['heads']}")
+            if rec["a"]["shapes"] != want_a or rec["a"]["launches"] != sum(want_a.values()):
+                bad.append(f"(a) K7 {rec['a']['shapes']} ({rec['a']['launches']} launches), expected {want_a}")
+            for part in ("b", "c"):
+                if rec[part]["shapes"] != rec[part]["expected"] or rec[part]["launches"] != sum(
+                        rec[part]["shapes"].values()):
+                    bad.append(f"({part}) K7 {rec[part]['shapes']} ({rec[part]['launches']} launches), expected "
+                               f"{rec[part]['expected']}")
+            if not torch.equal(a[r], a[first]) or not np.array_equal(b[r], b[first]):
+                bad.append(f"outputs differ from rank {first}'s (its tensor group)")
+            if not bool(torch.isfinite(a[r]).all()) or a_err[r] > TP_BRANCH_TOL:
+                bad.append(f"(a) eps {a_err[r]:.3g} norm-relative from phase 18's (bound {TP_BRANCH_TOL})")
+            if b[r].shape != reference["image"].shape or not np.isfinite(b[r]).all() or b_err[r] > TP_SHEET_MEAN:
+                bad.append(f"(b) {b[r].shape}, mean |err| {b_err[r]:.4g} against one rank (bound {TP_SHEET_MEAN})")
+            if bad:
+                fail(f"phase 24 rank {r}: " + "; ".join(bad))
+        for rec in recs:
+            byt = rec["bytes"]
+            print(f"phase 24 rank {rec['rank']} of {ranks} ({backend}, tensor {TP}, view group {rec['rank'] // TP}) "
+                  f"on {rec['device']}: SDXL created sharded in {rec['init_s']:.2f} s, holding {byt[True] / 1e9:.3f} "
+                  f"GB of shards and {byt[False] / 1e9:.3f} GB whole, local heads {rec['heads']}, peak "
+                  f"{rec['init']['peak_gib']:.2f} GiB; (a) one CFG branch at the {SHEET_GRID * SHEET_CELL} px sheet: "
+                  f"K7 {rec['a']['launches']} ({rec['a']['shapes']}), wall {rec['a']['wall_s']:.3f} s, peak "
+                  f"{rec['a']['peak_gib']:.2f} GiB, eps {a_err[rec['rank']]:.3e} norm-relative from phase 18's; (b) "
+                  f"the 2x2 sheet: K7 {rec['b']['launches']}, wall {rec['b']['wall_s']:.3f} s, sampler step median "
+                  f"{rec['b']['step_ms'][0]:.2f} ms, peak {rec['b']['peak_gib']:.2f} GiB, mean |err| "
+                  f"{b_err[rec['rank']]:.4g} against one rank; (c) the generation: K7 {rec['c']['launches']}, wall "
+                  f"{rec['c']['wall_s']:.3f} s, peak {rec['c']['peak_gib']:.2f} GiB; on {card}", flush=True)
+        same = tp_same_dataset(Path(one_root) / "dp", Path(recs[0]["c"]["path"]))
+        print(f"phase 24 tensor parallelism at {ranks} ranks over {backend}, tensor {TP} (data {ranks // TP}): "
+              f"outputs bit-equal within each tensor group; (a) eps within {max(a_err):.3e} of phase 18's one-rank "
+              f"branch (bound {TP_BRANCH_TOL}); (b) the {TP_SHEET['grid']}x{TP_SHEET['grid']} sheet of "
+              f"{SHEET_CELL} px cells at {TP_SHEET['steps']} steps within {max(b_err):.4g} mean |err| of one rank's "
+              f"(bound {TP_SHEET_MEAN}; one rank's wall {reference['wall_s']:.3f} s, step median "
+              f"{reference['step_ms']:.2f} ms); (c) {DP_GEN['views']} views of {SCENE['width']} px against phase "
+              f"23's one-rank dataset: {same['pngs']} PNGs, untouched ones at most {same['untouched_level']} "
+              f"level(s) apart on {same['untouched_share']:.4f} of a file, edited ones {same['edited_mean']:.3f} "
+              f"levels apart on average (bound {TP_GEN_MEAN_LEVELS}), {same['edited_far']:.4f} of a file's values "
+              f"more than {TP_GEN_FAR} levels (bound {TP_GEN_FAR_SHARE}), at most {same['edited_level']}; phase "
+              f"wall {time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = {}
+    for part in ("a", "b", "c"):
+        for shape, n in recs[0][part]["shapes"].items():
+            launched[shape] = launched.get(shape, 0) + n
+    return {"k7_shapes": launched, "k7_launches": sum(launched.values())}
 
 
 def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms", bound_key="",
@@ -4466,12 +4774,19 @@ def main() -> int:
     k7 = phase_k7(torch, card)
     sheet = phase_sheet(torch, card, ref)
     phase_per_view(torch, card, sheet)
-    phase_cfg_branch(torch, card, sheet)
+    eps_one = phase_cfg_branch(torch, card, sheet)
     phase_diffusion_profile(torch, card, sheet)
+    tp_in = tp_inputs(ref, sheet)
+    tp_ref = phase_tp_reference(torch, card, sheet, tp_in)
     last_sdxl = phase_last_sdxl(torch, card, sheet)
     sheet["diffuser"]._sdxl = None  # phase 22 creates its own
     p22 = phase_scripts(torch, card)
-    p23 = phase_data_parallel(torch, card)
+    one_root = Path(tempfile.mkdtemp(prefix="chip_smoke_one_"))
+    try:
+        p23 = phase_data_parallel(torch, card, one_root)
+        p24 = phase_tensor_parallel(torch, card, tp_in, eps_one, tp_ref, one_root)
+    finally:
+        shutil.rmtree(one_root, ignore_errors=True)
     launched = signerf["launches"]
     # K3, K4's and K6's tables halves and K5 once a micro-batch (phase 23:
     # rank 0's micro-batches, the launches this process counted)
@@ -4509,11 +4824,13 @@ def main() -> int:
     # the viewer's and phase 22's (14d, 14f, 22).
     k7_calls = {shape: 2 * n * (sheet["steps"] + last_sdxl["steps"]) for shape, n in K7_SHEET_CALLS.items()}
     for shape, n in itertools.chain(edit["k7_shapes"].items(), viewer["k7_shapes"].items(),
-                                    p22["k7_shapes"].items()):
+                                    p22["k7_shapes"].items(), p24["k7_shapes"].items()):
         k7_calls[shape] = k7_calls.get(shape, 0) + n
+    if set(k7_calls) - set(k7["per_shape"]):
+        fail(f"K7 ran at shapes phase 15 did not time: {sorted(set(k7_calls) - set(k7['per_shape']))}")
     k7_stats = per_call("K7", [(n, k7["per_shape"][shape]) for shape, n in k7_calls.items()], k7["max_abs_err"])
     k7_counted = (sheet["launches"] + edit["k7_launches"] + viewer["k7_launches"] + last_sdxl["k7_launches"]
-                  + p22["k7_launches"])
+                  + p22["k7_launches"] + p24["k7_launches"])
     if k7_stats["launches"] != k7_counted:
         fail(f"K7: {k7_stats['launches']} launches weighted, {k7_counted} counted")
     k2_coords = [(camopt["K2 coords"] // 3, k2["per_call"][name]["coords"]) for name, _ in fields]

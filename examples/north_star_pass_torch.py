@@ -15,14 +15,17 @@ landed in the NeRF (mean |change| of view 0's render inside the edit mask
 against outside it). Usage, from the repository root:
 
     python examples/north_star_pass_torch.py [n_views] [refine_steps] [pretrain_steps] [load_dir]
-        [--device cuda|cpu] [--size 1024] [--out DIR] [--result FILE] [--mesh auto|none|data|data=K]
+        [--device cuda|cpu] [--size 1024] [--out DIR] [--result FILE]
+        [--mesh auto|none|data|data=K|production|data=K,tensor=T|tensor=T]
 
 On more than one card (`--mesh`, as the train CLI's: auto takes every
-visible card) the pass runs data-parallel, one process a card: the views'
-chunks and the refinement's rays split over the cards, rank 0 builds the
-sheet, prints and writes the result (with "cards": W); under a launcher
-(`torchrun --nproc-per-node 4 examples/north_star_pass_torch.py ...`) each
-process joins its group.
+visible card) the pass runs one process a card: the refinement's rays
+split over all the cards, the views' chunks over the view groups (with a
+tensor axis, each group of T cards holds one SDXL sharded over it and
+runs its chunks together; `production` is (W / 2, 2)); rank 0's group
+builds the sheet, rank 0 prints and writes the result (with "cards": W
+and the mesh's shape in its notes); under a launcher (`torchrun --nproc-per-node
+4 examples/north_star_pass_torch.py ...`) each process joins its group.
 
 `load_dir` holds a checkpoint of this scene (the pretrain of an earlier run,
 `OUT/out/signerf/checkpoints`), so the pretrain is skipped, as the
@@ -201,7 +204,8 @@ def parse_args(argv: Optional[Sequence[str]]) -> argparse.Namespace:
     ap.add_argument("--size", type=int, default=REFERENCE["size"], help="image side in pixels")
     ap.add_argument("--out", type=Path, default=None, help="output tree (default outputs/north_star_torch[_Nv])")
     ap.add_argument("--result", type=Path, default=None, help="also write the result JSON here")
-    ap.add_argument("--mesh", default="auto", help="auto | none | data | data=K (cards; see the train CLI)")
+    ap.add_argument("--mesh", default="auto",
+                    help="auto | none | data | data=K | production | data=K,tensor=T | tensor=T (see the train CLI)")
     return ap.parse_args(argv)
 
 
@@ -225,10 +229,10 @@ def main(
     dev = resolve_device(args.device)
     if mesh is not None:
         return _pass(mesh, argv, configure, make_diffuser, reduced)
-    world = mesh_lib.mesh_from_spec(args.mesh, mesh_lib.visible_devices(dev))
-    if not mesh_lib.launched() and world is None:
+    shape = mesh_lib.mesh_from_spec(args.mesh, mesh_lib.visible_devices(dev))
+    if not mesh_lib.launched() and shape is None:
         return _pass(None, argv, configure, make_diffuser, reduced)
-    if not mesh_lib.launched() and world > 1 and (configure or make_diffuser or reduced):
+    if not mesh_lib.launched() and shape.size > 1 and (configure or make_diffuser or reduced):
         raise ValueError("spawned ranks get argv only: pass mesh= for configure, make_diffuser or reduced")
     root = _root(args)
     out = mesh_lib.run(args.mesh, dev, root, _pass, (argv, configure, make_diffuser, reduced))
@@ -399,8 +403,10 @@ def _pass(mesh, argv, configure, make_diffuser, reduced) -> Dict:
                      f"({len(step_ms)} calls of {cfg.steps_per_call} steps, the first left out), {rays} rays a step"
                      + ("" if mesh is None else f" over {cards} cards, {rays // cards} a card"))
         if mesh is not None:
-            notes.append(f"generation {phases['generation'] / n_views:.3f} s a view over {cards} cards (the "
-                         f"generation wall over {n_views} views; chunks of {batch} views dealt round-robin)")
+            notes.append(f"mesh (data, tensor) = ({mesh.view_groups}, {mesh.tensor}): generation "
+                         f"{phases['generation'] / n_views:.3f} s a view over {cards} cards (the generation wall "
+                         f"over {n_views} views; chunks of {batch} views dealt round-robin over {mesh.view_groups} "
+                         f"view groups of {mesh.tensor} card(s), SDXL sharded over each group's cards)")
         for rank, (rank_median, rank_peak, rank_bd) in enumerate(ranks):
             who = "" if mesh is None else f"rank {rank}: "
             groups_ms = "; ".join(f"{k} {v:.3f}" for k, v in rank_bd["groups_ms"].items())

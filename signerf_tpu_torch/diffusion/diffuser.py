@@ -21,9 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
+
+if TYPE_CHECKING:
+    from signerf_tpu_torch.parallel.mesh import DataMesh
 
 DiffuseFn = Callable[[np.ndarray, np.ndarray, Optional[np.ndarray], Optional[np.ndarray]], np.ndarray]
 IN_PROCESS = ("torch_sdxl", "jax_sdxl")
@@ -55,22 +58,27 @@ class DiffuserConfig:
     sdxl_weights_path: Optional[str] = None
     mask_blur: int = 4
     inpainting_fill: int = 1  # A1111 fill mode: 0 fill, 1 original, 2 noise, 3 zeros
-    # Accepted for config parity. Under the port's data mesh each rank holds
-    # the whole pipeline and takes whole chunks of views; the "tensor" axis
-    # this names in the JAX package (SDXL tensor parallelism) is not ported.
+    # Accepted for config parity. The JAX package declares it ("shard UNet
+    # over this mesh axis") and never reads it: its mesh decides, sharding
+    # the UNet and ControlNet over a "tensor" axis when it has one. So does
+    # the port: `Diffuser(mesh=...)` with a tensor size above 1.
     sharding_axis: Optional[str] = None
 
 
 class Diffuser:
     """Dispatches `diffuse` to the configured backend."""
 
-    def __init__(self, config: DiffuserConfig, custom_fn: Optional[DiffuseFn] = None, device=None, pipeline=None):
+    def __init__(self, config: DiffuserConfig, custom_fn: Optional[DiffuseFn] = None, device=None, pipeline=None,
+                 mesh: Optional["DataMesh"] = None):
         """`device`: where the in-process pipeline runs (None: the card).
         `pipeline`: an `SDXLInpaintPipeline` to use instead of building one
-        at first use (the full architecture, from `sdxl_weights_path`)."""
+        at first use (the full architecture, from `sdxl_weights_path`).
+        `mesh`: the pipeline it builds holds this rank's tensor shards (the
+        ranks of a tensor group must then call `diffuse` together)."""
         self.config = config
         self.custom_fn = custom_fn
         self.device = device
+        self.mesh = mesh
         self._sdxl = pipeline
 
     def _in_process(self) -> bool:
@@ -128,7 +136,8 @@ class Diffuser:
         if self._sdxl is None:
             from signerf_tpu_torch.diffusion.sdxl_pipeline import SDXLInpaintPipeline
 
-            self._sdxl = SDXLInpaintPipeline.create(weights_path=self.config.sdxl_weights_path, device=self.device)
+            self._sdxl = SDXLInpaintPipeline.create(weights_path=self.config.sdxl_weights_path, device=self.device,
+                                                    mesh=self.mesh)
         return self._sdxl
 
     def _img2img(self, image, mask, condition, device_out, sheet_cache):

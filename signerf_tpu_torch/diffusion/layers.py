@@ -11,12 +11,21 @@ bf16 (a second rounding, as in JAX). Activations
 are NHWC at every module boundary, as in the JAX package; a conv permutes
 to NCHW and back, which on the card is free when the tensor and the kernel
 are channels_last in memory (the pipeline converts the kernels once).
+
+Under tensor parallelism a Dense holds a `Shard` of its whole kernel:
+columns (q, k, v, GEGLU's proj: each rank computes its own outputs) or
+rows (to_out, ff_out: each rank's partial product is summed over the
+tensor group by `reduce` before the bias, which every rank holds whole and
+adds once, after the sum). `init_flax_` draws a sharded kernel whole from
+the generator and keeps the shard, so every tensor size holds the same
+weights.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,14 +34,45 @@ from torch import nn
 BF16 = torch.bfloat16
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A rank's part of a whole parameter: the `spans` [start, stop) of the
+    whole's axis `dim`, in order, concatenated."""
+
+    dim: int
+    spans: Tuple[Tuple[int, int], ...]
+
+    @property
+    def size(self) -> int:
+        return sum(b - a for a, b in self.spans)
+
+    def take(self, whole: torch.Tensor) -> torch.Tensor:
+        parts = [whole.narrow(self.dim, a, b - a) for a, b in self.spans]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self.dim)
+
+
 class Dense(nn.Module):
-    def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
+    """`in_features` and `out_features` are the whole layer's. With a
+    `shard` of dim 1 the kernel holds those output columns (and the bias
+    the same entries); with dim 0 those input rows, and `reduce` sums the
+    partial products over the tensor group before the whole bias."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True, shard: Optional[Shard] = None,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
         super().__init__()
+        self.whole_shape = (in_features, out_features)
+        self.shard, self.reduce = shard, reduce
+        if shard is not None and shard.dim == 0:
+            in_features = shard.size
+        elif shard is not None:
+            out_features = shard.size
         self.kernel = nn.Parameter(torch.empty(in_features, out_features, dtype=BF16))
         self.bias = nn.Parameter(torch.empty(out_features, dtype=BF16)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x.to(BF16), self.kernel)
+        if self.reduce is not None:
+            y = self.reduce(y)
         return y if self.bias is None else y + self.bias
 
 
@@ -96,7 +136,13 @@ def init_flax_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     from signerf_tpu_torch.diffusion.norms import GroupNormBF16, LayerNorm, LayerNormBF16
 
     for mod in module.modules():
-        if isinstance(mod, (Dense, Conv)):
+        if isinstance(mod, Dense) and mod.shard is not None:
+            whole = torch.empty(mod.whole_shape, dtype=torch.float32, device=mod.kernel.device)
+            _lecun_normal_(whole, mod.whole_shape[0], gen)
+            mod.kernel.copy_(mod.shard.take(whole))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (Dense, Conv)):
             if isinstance(mod, Conv) and mod.zero_init:
                 mod.kernel.zero_()
             else:

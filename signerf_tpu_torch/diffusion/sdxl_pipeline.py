@@ -10,8 +10,16 @@ The scheduling gates are the JAX package's, with the same einsum-memory
 model (`unet.FLASH_SCORE_BYTES_THRESHOLD`): the serial-views gate runs a
 batch of views one at a time (and so decides which noise each view gets),
 the sequential-CFG gate runs the uncond and cond branches one after the
-other at sheet scale. The mesh, tensor parallelism and the meshed flash
-path of the JAX package are not ported.
+other at sheet scale.
+
+Tensor parallelism: `create(mesh=...)` with a mesh whose tensor size T is
+above 1 builds this rank's shards of the UNet and the ControlNet
+(`unet.TensorShard`; JAX's `_shard_params` over the "tensor" axis) and
+everything else whole. Every rank of a tensor group then calls `img2img`
+with the same inputs and seed, and all of them return the same images;
+each self-attention runs K7 on the rank's own heads. Weights are read or
+drawn whole and cut to the rank's shards, so every T holds the same
+weights.
 
 Weights: `create` builds the full architecture on the meta device and
 materialises it in bf16 directly on the target device. It loads
@@ -27,28 +35,34 @@ the edited pixels are noise), and warns.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from signerf_tpu_torch.convert import load_sdxl_from_jax_
+from signerf_tpu_torch.convert import load_sdxl_from_jax_, shard_sdxl_state
 from signerf_tpu_torch.diffusion import sampler as S
 from signerf_tpu_torch.diffusion import unet as unet_mod
 from signerf_tpu_torch.diffusion.clip import CLIP_BIGG_CONFIG, CLIP_L_CONFIG, CLIPTextConfig, CLIPTextModel
-from signerf_tpu_torch.diffusion.layers import Conv, init_flax_
+from signerf_tpu_torch.diffusion.layers import Conv, Dense, init_flax_
 from signerf_tpu_torch.diffusion.tokenizer import load_tokenizer
 from signerf_tpu_torch.diffusion.unet import (
     SDXL_UNET_CONFIG,
     TINY_UNET_CONFIG,
+    WHOLE,
     ControlNet,
+    TensorShard,
     UNet2DConditionModel,
     UNetConfig,
 )
 from signerf_tpu_torch.diffusion.vae import TINY_VAE_CONFIG, AutoencoderKL, VAEConfig
 from signerf_tpu_torch.engine.checkpoints import msgpack_restore_file
+
+if TYPE_CHECKING:
+    from signerf_tpu_torch.parallel.mesh import DataMesh
 
 COMPONENTS = ("unet", "controlnet", "vae", "clip_l", "clip_g")
 
@@ -119,6 +133,13 @@ def _f32(x, device) -> torch.Tensor:
                            device=device)
 
 
+def tensor_shard(mesh: Optional["DataMesh"]) -> TensorShard:
+    """This rank's shard of a mesh's tensor group (whole without one)."""
+    if mesh is None or mesh.tensor == 1:
+        return WHOLE
+    return TensorShard(mesh.tensor_rank, mesh.tensor, mesh.tensor_all_sum_)
+
+
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller names another device; no silent CPU path."""
     device = torch.device("cuda" if device is None else device)
@@ -130,13 +151,15 @@ def resolve_device(device=None) -> torch.device:
 class SDXLInpaintPipeline:
     """Holds the five modules and exposes `img2img`."""
 
-    def __init__(self, config: SDXLConfig, modules: Dict[str, torch.nn.Module], tokenizer, device):
+    def __init__(self, config: SDXLConfig, modules: Dict[str, torch.nn.Module], tokenizer, device,
+                 tp: TensorShard = WHOLE):
         assert config.clip_l.hidden_size + config.clip_g.hidden_size == config.unet.cross_attention_dim, (
             "UNet cross_attention_dim must equal concat CLIP hidden sizes"
         )
         self.config = config
         self.tokenizer = tokenizer
         self.device = torch.device(device)
+        self.tp = tp
         for mod in modules.values():
             mod.eval().requires_grad_(False)  # inference only
         self.unet = modules["unet"]
@@ -149,16 +172,16 @@ class SDXLInpaintPipeline:
         self.last_run: Dict[str, Any] = {}
 
     @staticmethod
-    def build_modules(config: SDXLConfig) -> Dict[str, torch.nn.Module]:
+    def build_modules(config: SDXLConfig, tp: TensorShard = WHOLE) -> Dict[str, torch.nn.Module]:
         """The five modules with uninitialised bf16 parameters (on the
         current default device: build under `torch.device("meta")` to
-        allocate nothing)."""
+        allocate nothing), the UNet and the ControlNet as `tp`'s shards."""
         pooled = config.clip_g.projection_dim or config.clip_g.hidden_size
         return {
-            "unet": UNet2DConditionModel(config.unet, pooled_dim=pooled),
+            "unet": UNet2DConditionModel(config.unet, pooled_dim=pooled, tp=tp),
             # 3-channel (RGB depth) conditioning, as diffusers' conv_in [16, 3, 3, 3]
             "controlnet": ControlNet(config.unet, cond_downscale_steps=int(np.log2(config.vae_downscale)),
-                                     pooled_dim=pooled),
+                                     pooled_dim=pooled, tp=tp),
             "vae": AutoencoderKL(config.vae),
             "clip_l": CLIPTextModel(config.clip_l),
             "clip_g": CLIPTextModel(config.clip_g),
@@ -171,33 +194,41 @@ class SDXLInpaintPipeline:
         config: Optional[SDXLConfig] = None,
         seed: int = 0,
         device=None,
+        mesh: Optional["DataMesh"] = None,
     ) -> "SDXLInpaintPipeline":
         """The full SDXL architecture unless `config` says otherwise (the
         tiny config is for tests), on the card unless `device` says
-        otherwise, in bf16. Weights come from `weights_path`'s
-        `sdxl_params.pt` (the port's `{component: state_dict}`), else its
-        `sdxl_params.msgpack` (the JAX package's params tree, flax msgpack,
-        as `scripts/convert_sdxl_weights.py` writes it), else a seeded
-        random init with a RANDOM-INIT warning. Sets `init_seconds` on the
+        otherwise (with a `mesh`, its rank's device), in bf16. Weights come
+        from `weights_path`'s `sdxl_params.pt` (the port's `{component:
+        state_dict}`), else its `sdxl_params.msgpack` (the JAX package's
+        params tree, flax msgpack, as `scripts/convert_sdxl_weights.py`
+        writes it), else a seeded random init with a RANDOM-INIT warning.
+        With a `mesh` of tensor size T > 1 the UNet and the ControlNet hold
+        this rank's shards of those weights. Sets `init_seconds` on the
         result."""
         t0 = time.perf_counter()
         config = config or SDXLConfig()
-        device = resolve_device(device)
+        device = resolve_device(mesh.device if device is None and mesh is not None else device)
         if device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False  # the f32 mask blur stays f32
         tokenizer = load_tokenizer(weights_path)
+        tp = tensor_shard(mesh)
+        head_dim = config.unet.attention_head_dim
         with torch.device("meta"):
-            modules = cls.build_modules(config)
+            modules = cls.build_modules(config, tp)
         modules = {k: m.to_empty(device=device) for k, m in modules.items()}
         root = Path(weights_path) if weights_path is not None else None
         if root is not None and (root / "sdxl_params.pt").exists():
             state = torch.load(root / "sdxl_params.pt", map_location=device, weights_only=True)
+            state = shard_sdxl_state(state, tp.rank, tp.size, head_dim)
             for name, mod in modules.items():
                 mod.load_state_dict(state[name], strict=True)
+            del state
         elif root is not None and (root / "sdxl_params.msgpack").exists():
             # the JAX package's weights (scripts/convert_sdxl_weights.py,
             # f32): decoded as views of the mapped file, cast leaf by leaf
-            load_sdxl_from_jax_(modules, msgpack_restore_file(root / "sdxl_params.msgpack"))
+            load_sdxl_from_jax_(modules, msgpack_restore_file(root / "sdxl_params.msgpack"), tp.rank, tp.size,
+                                head_dim)
         else:
             from signerf_tpu_torch.utils.calibration import warn_uncalibrated
 
@@ -211,23 +242,31 @@ class SDXLInpaintPipeline:
             gen = torch.Generator(device=device).manual_seed(seed)
             for name in COMPONENTS:
                 init_flax_(modules[name], gen)
-        pipe = cls(config, modules, tokenizer, device)
+        pipe = cls(config, modules, tokenizer, device, tp)
         pipe.to_channels_last()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         pipe.init_seconds = time.perf_counter() - t0
         return pipe
 
-    def tensors(self):
+    def tensors(self, sharded: Optional[bool] = None):
         """Every parameter and buffer of the five modules (for the ranks'
-        weight check, `DataMesh.assert_replicas_equal`)."""
+        weight check, `DataMesh.assert_replicas_equal`); with `sharded`
+        True only this rank's shards of the tensor-parallel leaves, with
+        False only the leaves that every rank holds whole."""
         for name in COMPONENTS:
-            module = getattr(self, name)
-            yield from module.parameters()
-            yield from module.buffers()
+            for mod in getattr(self, name).modules():
+                split = isinstance(mod, Dense) and mod.shard is not None
+                for leaf, t in itertools.chain(mod.named_parameters(recurse=False), mod.named_buffers(recurse=False)):
+                    # a row-parallel Dense's bias is whole on every rank
+                    is_shard = split and (leaf == "kernel" or mod.shard.dim == 1)
+                    if sharded is None or sharded == is_shard:
+                        yield t
 
     def load_state_dicts(self, state: Dict[str, Dict[str, torch.Tensor]]) -> None:
-        """Load `{component: state_dict}` (e.g. `convert.sdxl_from_jax`)."""
+        """Load a whole `{component: state_dict}` (e.g.
+        `convert.sdxl_from_jax`), cut to this rank's shards."""
+        state = shard_sdxl_state(state, self.tp.rank, self.tp.size, self.config.unet.attention_head_dim)
         for name in COMPONENTS:
             getattr(self, name).load_state_dict(state[name], strict=True)
         self.to_channels_last()

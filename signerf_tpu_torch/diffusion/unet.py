@@ -17,19 +17,32 @@ everything else, and every CPU tensor, takes the einsum path of
 tilings and a TPU memory valve and do not gate K7 (it never holds the
 scores); `FLASH_SCORE_BYTES_THRESHOLD` stays as the einsum-memory model
 the pipeline's sequential-CFG and serial-views gates read.
+
+Tensor parallelism (the JAX package's `tensor_parallel_pspecs` over a
+"tensor" mesh axis, Megatron style): built with a `TensorShard` of rank r
+in a group of T, each attention holds the q, k and v columns of heads
+[r H / T, (r + 1) H / T) and the same rows of `to_out`, and runs its
+attention (K7 for `attn1`) on those local heads; GEGLU's `proj` holds the
+matching slices of both its halves, h and gate, and `ff_out` the same
+rows. The row-parallel products are summed over the group in f32 and
+rounded to bf16 once, then the bias is added (JAX's psum sums the bf16
+partials in bf16). A block whose head count, or FF width, T does not
+divide runs whole on every rank, as JAX's meshed flash falls back to
+einsum for such a layer. Everything else (convs, norms, embeddings, the
+VAE and both CLIPs) is replicated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from signerf_tpu_torch.diffusion.layers import Conv, Dense, upsample_nearest_2x
+from signerf_tpu_torch.diffusion.layers import Conv, Dense, Shard, upsample_nearest_2x
 from signerf_tpu_torch.diffusion.norms import GroupNormBF16, LayerNormBF16
 from signerf_tpu_torch.ops.flash_attention import HEAD_DIM, flash_attention, flash_attention_plain
 
@@ -77,6 +90,34 @@ def set_flash_attention(enabled: bool) -> None:
     FLASH_ATTENTION = enabled
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorShard:
+    """Rank `rank` of a tensor group of `size` ranks; `all_sum` sums a
+    tensor over the group in place (`DataMesh.tensor_all_sum_`)."""
+
+    rank: int = 0
+    size: int = 1
+    all_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def divides(self, n: int) -> bool:
+        """Whether a layer of n heads (or FF columns) is sharded."""
+        return self.size > 1 and n % self.size == 0
+
+    def shard(self, dim: int, whole: int, blocks: int = 1) -> Shard:
+        """This rank's 1/T of each of `blocks` equal blocks of an axis of `whole`."""
+        n = whole // blocks
+        part = n // self.size
+        return Shard(dim, tuple((b * n + self.rank * part, b * n + (self.rank + 1) * part) for b in range(blocks)))
+
+    def reduce(self, partial: torch.Tensor) -> torch.Tensor:
+        """The row-parallel products (bf16), summed over the group in f32,
+        rounded to bf16 once."""
+        return self.all_sum(partial.float()).to(torch.bfloat16)
+
+
+WHOLE = TensorShard()
+
+
 def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True, shift: int = 0) -> torch.Tensor:
     """Sinusoidal embedding [B] -> [B, dim] f32 (diffusers convention)."""
     half = dim // 2
@@ -113,14 +154,19 @@ class ResnetBlock2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, query_dim: int, context_dim: int, num_heads: int, head_dim: int, use_flash: bool = True):
+    def __init__(self, query_dim: int, context_dim: int, num_heads: int, head_dim: int, use_flash: bool = True,
+                 tp: TensorShard = WHOLE):
         super().__init__()
         inner = num_heads * head_dim
+        cols = rows = reduce = None
+        if tp.divides(num_heads):  # this rank's heads; else whole on every rank
+            cols, rows, reduce = tp.shard(1, inner), tp.shard(0, inner), tp.reduce
+            num_heads //= tp.size
         self.num_heads, self.head_dim, self.use_flash = num_heads, head_dim, use_flash
-        self.to_q = Dense(query_dim, inner, use_bias=False)
-        self.to_k = Dense(context_dim, inner, use_bias=False)
-        self.to_v = Dense(context_dim, inner, use_bias=False)
-        self.to_out = Dense(inner, query_dim)
+        self.to_q = Dense(query_dim, inner, use_bias=False, shard=cols)
+        self.to_k = Dense(context_dim, inner, use_bias=False, shard=cols)
+        self.to_v = Dense(context_dim, inner, use_bias=False, shard=cols)
+        self.to_out = Dense(inner, query_dim, shard=rows, reduce=reduce)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         self_attn = context is None
@@ -140,9 +186,13 @@ class CrossAttention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, dim_out: int):
+    """`proj` computes [h | gate]; under tensor parallelism a rank holds
+    the same 1/T of both halves (`shard` of 2 blocks), so that its h and
+    its gate pair up, and returns that 1/T of the output columns."""
+
+    def __init__(self, dim: int, dim_out: int, shard: Optional[Shard] = None):
         super().__init__()
-        self.proj = Dense(dim, dim_out * 2)
+        self.proj = Dense(dim, dim_out * 2, shard=shard)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -152,15 +202,19 @@ class GEGLU(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int, use_flash: bool = True):
+    def __init__(self, dim: int, num_heads: int, head_dim: int, context_dim: int, use_flash: bool = True,
+                 tp: TensorShard = WHOLE):
         super().__init__()
         self.norm1 = LayerNormBF16(dim)
-        self.attn1 = CrossAttention(dim, dim, num_heads, head_dim, use_flash)
+        self.attn1 = CrossAttention(dim, dim, num_heads, head_dim, use_flash, tp)
         self.norm2 = LayerNormBF16(dim)
-        self.attn2 = CrossAttention(dim, context_dim, num_heads, head_dim)
+        self.attn2 = CrossAttention(dim, context_dim, num_heads, head_dim, tp=tp)
         self.norm3 = LayerNormBF16(dim)
-        self.ff_geglu = GEGLU(dim, dim * 4)
-        self.ff_out = Dense(dim * 4, dim)
+        width = dim * 4
+        sharded = tp.divides(width)
+        self.ff_geglu = GEGLU(dim, width, tp.shard(1, 2 * width, blocks=2) if sharded else None)
+        self.ff_out = Dense(width, dim, shard=tp.shard(0, width) if sharded else None,
+                            reduce=tp.reduce if sharded else None)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
@@ -170,13 +224,14 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     def __init__(self, ch: int, depth: int, num_heads: int, head_dim: int, groups: int, context_dim: int,
-                 use_flash: bool = True):
+                 use_flash: bool = True, tp: TensorShard = WHOLE):
         super().__init__()
         self.depth = depth
         self.norm = _gn(ch, groups)
         self.proj_in = Dense(ch, ch)
         for i in range(depth):
-            self.add_module(f"blocks_{i}", BasicTransformerBlock(ch, num_heads, head_dim, context_dim, use_flash))
+            self.add_module(f"blocks_{i}", BasicTransformerBlock(ch, num_heads, head_dim, context_dim, use_flash,
+                                                                 tp))
         self.proj_out = Dense(ch, ch)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
@@ -195,9 +250,10 @@ class UNetCore(nn.Module):
     the skips before the up path. `pooled_dim` is the width of
     `add_text_embeds` (flax infers `add_embed_1`'s input width from the
     call; by default the config's `projection_class_embeddings_input_dim`
-    less the six time ids)."""
+    less the six time ids). `tp`: this rank's tensor shard."""
 
-    def __init__(self, config: UNetConfig, encoder_only: bool = False, pooled_dim: Optional[int] = None):
+    def __init__(self, config: UNetConfig, encoder_only: bool = False, pooled_dim: Optional[int] = None,
+                 tp: TensorShard = WHOLE):
         super().__init__()
         cfg = self.config = config
         self.encoder_only = encoder_only
@@ -217,7 +273,7 @@ class UNetCore(nn.Module):
                 self.add_module(f"down_{i}_res_{j}", ResnetBlock2D(prev, ch, groups, time_dim))
                 if cfg.transformer_layers[i] > 0:
                     self.add_module(f"down_{i}_attn_{j}", Transformer2D(
-                        ch, cfg.transformer_layers[i], ch // hd, hd, groups, ctx, cfg.use_flash_attention))
+                        ch, cfg.transformer_layers[i], ch // hd, hd, groups, ctx, cfg.use_flash_attention, tp))
                 prev = ch
                 skips.append(ch)
             if i < len(chans) - 1:
@@ -226,7 +282,7 @@ class UNetCore(nn.Module):
         self.mid_res_1 = ResnetBlock2D(chans[-1], chans[-1], groups, time_dim)
         if cfg.transformer_layers[-1] > 0:
             self.mid_attn = Transformer2D(chans[-1], cfg.transformer_layers[-1], chans[-1] // hd, hd, groups, ctx,
-                                          cfg.use_flash_attention)
+                                          cfg.use_flash_attention, tp)
         self.mid_res_2 = ResnetBlock2D(chans[-1], chans[-1], groups, time_dim)
         if encoder_only:
             return
@@ -236,7 +292,7 @@ class UNetCore(nn.Module):
                 self.add_module(f"up_{i}_res_{j}", ResnetBlock2D(prev + skips.pop(), ch, groups, time_dim))
                 if cfg.transformer_layers[block] > 0:
                     self.add_module(f"up_{i}_attn_{j}", Transformer2D(
-                        ch, cfg.transformer_layers[block], ch // hd, hd, groups, ctx, cfg.use_flash_attention))
+                        ch, cfg.transformer_layers[block], ch // hd, hd, groups, ctx, cfg.use_flash_attention, tp))
                 prev = ch
             if i < len(chans) - 1:
                 self.add_module(f"up_{i}_upsample", Conv(ch, ch, 3, padding=1))
@@ -302,10 +358,10 @@ class UNetCore(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig, pooled_dim: Optional[int] = None):
+    def __init__(self, config: UNetConfig, pooled_dim: Optional[int] = None, tp: TensorShard = WHOLE):
         super().__init__()
         self.config = config
-        self.core = UNetCore(config, pooled_dim=pooled_dim)
+        self.core = UNetCore(config, pooled_dim=pooled_dim, tp=tp)
 
     def forward(self, sample, timesteps, context, add_text_embeds, add_time_ids, extra_down_residuals=None,
                 extra_mid_residual=None):
@@ -320,7 +376,7 @@ class ControlNet(nn.Module):
     zero-initialised 1x1 convs. Returns (down_residuals, mid_residual)."""
 
     def __init__(self, config: UNetConfig, cond_downscale_steps: int = 3, cond_channels: int = 3,
-                 pooled_dim: Optional[int] = None):
+                 pooled_dim: Optional[int] = None, tp: TensorShard = WHOLE):
         super().__init__()
         self.config = config
         self.cond_conv_in = Conv(cond_channels, 16, 3, padding=1)
@@ -332,7 +388,7 @@ class ControlNet(nn.Module):
             prev, blk = next_ch, blk + 2
         chans = config.block_out_channels
         self.cond_conv_out = Conv(prev, chans[0], 3, padding=1, zero_init=True)
-        self.core = UNetCore(config, encoder_only=True, pooled_dim=pooled_dim)
+        self.core = UNetCore(config, encoder_only=True, pooled_dim=pooled_dim, tp=tp)
         skips = [chans[0]]
         for i, ch in enumerate(chans):
             skips += [ch] * (config.layers_per_block + (i < len(chans) - 1))

@@ -24,7 +24,9 @@ reload, each rank samples rays with its own generator (seeded from (seed,
 rank)), the train step averages gradients over the ranks, and only rank 0
 prints, writes events and config, and writes and prunes checkpoints; a
 barrier follows each save, so no rank reads a checkpoint before it is on
-disk.
+disk. A mesh with a tensor axis changes none of this: the NeRF is
+data-parallel over all its ranks, and only the generator's SDXL is
+sharded over each tensor group (the pipeline hands it the mesh).
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ images as a JSON summary.
 Flags: --data PATH, --load-dir PATH (its newest step-*.pt, else its newest
 JAX step-*.ckpt), --output PATH (default eval.json), --device DEV (default
 cuda), --lpips true|false, --lpips-weights PATH.npz (without it LPIPS is a
-random-feature distance and a warning says so), --mesh auto|none|data|data=K
-(as the train CLI's: more than one card splits each frame's chunks over the
-cards; rank 0 scores and writes), --model.KEY VALUE (SIGNeRFModelConfig,
+random-feature distance and a warning says so), --mesh auto|none|data|data=K|
+production|data=K,tensor=T|tensor=T (as the train CLI's: more than one card
+splits each frame's chunks over all the cards, whatever the shape; rank 0
+scores and writes), --model.KEY VALUE (SIGNeRFModelConfig,
 e.g. --model.encoding-backend hash).
 """
 

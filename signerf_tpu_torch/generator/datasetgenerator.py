@@ -22,18 +22,22 @@ device (the card unless the caller names another); PNGs are moved to the
 host and encoded by a thread pool, and original photos are decoded one
 chunk ahead by another.
 
-With a `DataMesh` (`parallel/mesh.py`), rank 0 builds and inpaints the
-reference sheet, saves it and the reference views, and broadcasts the
-edited and condition sheets; every rank then builds its own sheet cache,
-checks that its SDXL weights equal rank 0's, and runs the chunks of
-`generation_batch_size` views dealt to it round-robin, each chunk called
-exactly as one rank calls it (the same views, batch and draws), so the
-dataset does not depend on the number of ranks. Each rank writes its
-views' PNGs under their global indices; rank 0 gathers the frame entries,
-writes `transforms.json` in view order and runs the merge with the
-original dataset; a barrier ends the call. (The JAX package splits the
-views of one chunk over its devices instead; the port's draws belong to
-the chunk.)
+With a `DataMesh` (`parallel/mesh.py`) of shape (K, T), the ranks of
+view group 0 (rank 0's tensor group; rank 0 alone with T = 1) build and
+inpaint the reference sheet together, rank 0 saves it and the reference
+views and broadcasts the edited and condition sheets; every rank then
+builds its own sheet cache, checks that its SDXL weights equal the other
+ranks' (each shard across the view groups), and the chunks of
+`generation_batch_size` views are dealt round-robin over the K view
+groups, each chunk called exactly as one rank calls it (the same views,
+batch and draws), so the dataset does not depend on K or T beyond the
+rounding of T's sums. A group's ranks all run its chunks (their SDXL is
+one sharded model) and its first rank writes their PNGs under their
+global indices; rank 0 gathers the frame entries, writes
+`transforms.json` in view order and runs the merge with the original
+dataset; a barrier ends the call. (The JAX package splits the views of
+one chunk over its devices instead; the port's draws belong to the
+chunk.)
 """
 
 from __future__ import annotations
@@ -149,11 +153,13 @@ class DatasetGenerator:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
+        # the first rank of each tensor group writes its group's views
+        self.writes = mesh is None or mesh.tensor_rank == 0
         self.original_transform_matrix = np.asarray(original_transform_matrix)
         self.original_scale_factor = float(original_scale_factor)
         self.transform_poses_to_original_space = transform_poses_to_original_space
         self.render_fn = render_fn
-        self.diffuser = diffuser or Diffuser(config.diffuser, device=self.device)
+        self.diffuser = diffuser or Diffuser(config.diffuser, device=self.device, mesh=mesh)
         self.is_synthetic = False
         self._mesh: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.dataset_path: Optional[Path] = None
@@ -591,8 +597,10 @@ class DatasetGenerator:
         transforms = self._base_transforms(merge_with_original_dataset)
         n_ref = len(ref_cams)
         edited_sheet = cond_sheet = None
-        if self.is_main:
+        if self.mesh is None or self.mesh.view_group == 0:
+            # rank 0's tensor group inpaints the sheet together; rank 0 keeps it
             image_sheet, mask_sheet, cond_sheet, edited_sheet, references = self.generate_reference_sheet(ref_cams)
+        if self.is_main:
             refs_dir = self.dataset_path / "references"
             for name, sheet in (("image", image_sheet), ("mask", mask_sheet), ("condition", cond_sheet),
                                 ("edited", edited_sheet)):
@@ -604,10 +612,12 @@ class DatasetGenerator:
                 transforms["reference_indices"].append(i)
             self._write_transforms(transforms)
         if self.mesh is not None:
-            edited_sheet, cond_sheet = self.mesh.broadcast_tensors(None if edited_sheet is None
-                                                                   else [edited_sheet, cond_sheet])
+            edited_sheet, cond_sheet = self.mesh.broadcast_tensors([edited_sheet, cond_sheet] if self.is_main
+                                                                   else None)
             if self.diffuser.config.mode in IN_PROCESS:
-                self.mesh.assert_replicas_equal(self.diffuser.pipeline.tensors(), "the SDXL weights")
+                pipe = self.diffuser.pipeline
+                self.mesh.assert_replicas_equal(pipe.tensors(sharded=False), "the SDXL weights",
+                                                sharded=pipe.tensors(sharded=True))
         self.last_timings = {"sheet_s": time.time() - t_start, "view_s": []}
         self._print(
             f"[generator] reference sheet + {n_ref} reference views done ({time.time() - t_start:.0f}s)",
@@ -619,7 +629,7 @@ class DatasetGenerator:
         bsz = max(1, int(c.generation_batch_size))
         chunks = [list(range(start, min(start + bsz, len(gen_cams)))) for start in range(0, len(gen_cams), bsz)]
         if self.mesh is not None:
-            chunks = chunks[self.mesh.rank :: self.mesh.world_size]
+            chunks = chunks[self.mesh.view_group :: self.mesh.view_groups]
         # Every view is spliced into the same edited sheet, so its encoder
         # features are computed once here (see lastcell_vae_window).
         sheet_cache = None
@@ -646,6 +656,8 @@ class DatasetGenerator:
                     decodeds=decoded, sheet_cache=sheet_cache,
                 )
             for i, images in zip(chunk, images_list):
+                if not self.writes:
+                    continue
                 transforms = self.save_generated_images(
                     n_ref + i, images, gen_cams, i, transforms, is_original=gen_filenames[i] is not None
                 )

@@ -60,8 +60,9 @@ class SIGNeRFPipeline:
         mesh: Optional["DataMesh"] = None,
     ):
         """`diffuser`: the generator's inpainter (None: the configured one,
-        built on `device`). `mesh`: the data-parallel group the generator
-        deals its views over (None: one device)."""
+        built on `device`, SDXL sharded over `mesh`'s tensor groups). `mesh`:
+        the process group the generator deals its views over (None: one
+        device)."""
         self.config = config
         self.device = torch.device(device)
         self.datamanager = SIGNeRFDataManager(config.datamanager, self.device)
@@ -69,7 +70,7 @@ class SIGNeRFPipeline:
         self._render = make_eval_render(self.model, chunk_size=min(config.model.eval_num_rays_per_chunk, 8192))
         outputs = self.datamanager.outputs
         if diffuser is None:
-            diffuser = Diffuser(config.dataset_generator.diffuser, device=self.device)
+            diffuser = Diffuser(config.dataset_generator.diffuser, device=self.device, mesh=mesh)
         self.dataset_generator = DatasetGenerator(
             config.dataset_generator,
             original_transform_matrix=outputs.dataparser_transform,

@@ -15,10 +15,12 @@ Flags:
   --downscale K        render at 1/K resolution
   --depth true         also write inverted-depth visualizations
   --device DEV         torch device (default cuda); `cuda` without a card raises
-  --mesh SPEC          auto (default) | none | data | data=K, as the train
-                       CLI's: more than one card splits each frame's chunks
-                       over the cards (one process a card, self-spawned or
-                       under torchrun); rank 0 writes the PNGs
+  --mesh SPEC          auto (default) | none | data | data=K | production |
+                       data=K,tensor=T | tensor=T, as the train CLI's: more
+                       than one card splits each frame's chunks over all
+                       the cards, whatever the shape (one process a card,
+                       self-spawned or under torchrun); rank 0 writes the
+                       PNGs
   --model.KEY VALUE    NerfactoModelConfig overrides, e.g.
                        --model.encoding-backend hash (must match the checkpoint)
 

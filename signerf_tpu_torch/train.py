@@ -24,13 +24,19 @@ Flags, as in the JAX CLI:
                        config and poses
   --pipeline.dataset-generator.KEY VALUE   generator and diffuser knobs,
                        e.g. --pipeline.dataset-generator.diffuser.prompt "..."
-  --mesh SPEC          auto (default) | none | data | data=K: auto is one
-                       card when one is visible, else every visible card;
-                       data is every visible card, even one (a process
-                       group of 1); data=K is K cards. More than one card
-                       runs data-parallel, one process a card over NCCL:
-                       the rays of a step, the per-view generation and
-                       the eval renders split over the cards. Without a
+  --mesh SPEC          auto (default) | none | data | data=K | production |
+                       data=K,tensor=T | tensor=T: auto is one card when
+                       one is visible, else every visible card as the data
+                       mesh; data is every visible card, even one (a
+                       process group of 1); data=K is K cards; production
+                       is every card as (W / 2, 2); data=K,tensor=T is K x
+                       T cards in K groups of T consecutive cards, each
+                       group holding one SDXL UNet and ControlNet sharded
+                       over its cards (tensor parallelism), tensor=T one
+                       such group. More than one card runs one process a
+                       card over NCCL: the rays of a step and the eval
+                       renders split over all the cards, the per-view
+                       generation's chunks over the groups. Without a
                        launcher this CLI spawns its own ranks (a file://
                        rendezvous under --output-dir); under one, e.g.
                          torchrun --nproc-per-node 4 -m signerf_tpu_torch.train
@@ -38,7 +44,6 @@ Flags, as in the JAX CLI:
                        each process joins the launcher's group. More than
                        one rank needs --train-only True or
                        --skip-interface True (the viewer runs on one).
-                       production and tensor axes are not ported (ROADMAP).
   --device DEV         torch device (default cuda); `cuda` without a card raises
   --a.b.c VALUE        any SIGNeRFTrainerConfig field, e.g.
                        --max-num-iterations 300 --pipeline.model.use-camera-opt True
@@ -94,7 +99,8 @@ def _run(mesh, config, device, train_only: bool) -> int:
     """One rank's work (`mesh` None: the one-device run)."""
     if mesh is not None:
         device = mesh.device
-        mesh.print(f"[train] data mesh: {mesh.world_size} ranks over {mesh.backend}", flush=True)
+        mesh.print(f"[train] mesh (data, tensor) = ({mesh.view_groups}, {mesh.tensor}): {mesh.world_size} ranks "
+                   f"over {mesh.backend}", flush=True)
     from signerf_tpu_torch.interface import app
 
     if not (train_only or config.skip_interface):

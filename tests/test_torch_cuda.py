@@ -11,7 +11,8 @@ to K10, K7 at the edit pass's shapes, one small dataset-generator pass
 on the card, the web viewer's `/render` through K1, a linear proposal
 field through K3 and K4, `FactorGridEncoding`'s planes and
 `encode_with_grad` through K3, K4, K8 and K9, one data-parallel step at
-two or more ranks (K1 and K2 on every rank) and the kernels built once by
+two or more ranks (K1 and K2 on every rank), one tensor-parallel SDXL
+block at two ranks (K7 on each rank's heads) and the kernels built once by
 ranks that start together.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
@@ -1205,6 +1206,26 @@ def test_dp_step_launches_k1_and_k2_on_every_rank(cuda, tmp_path):
         launched = {k: v for k, v in rec["launches"].items() if v}
         assert launched == {"launches": 3, "bwd_table_launches": 3}, (r, launched)
         assert rec["param_diff"] == 0.0 and rec["loss"] == rec["loss"], rec
+
+
+def test_tp_block_runs_k7_on_each_ranks_heads(cuda, tmp_path):
+    """One SDXL transformer block at published widths sharded over a tensor
+    group of two ranks (NCCL a card each on two or more cards, else two
+    gloo ranks on cuda:0): each rank launches K7 once on its 10 of the 20
+    heads, both ranks give the same output bit for bit, and it is within
+    2e-2 norm-relative of the whole block (the f32 sum of two bf16
+    partials against one bf16 product, per row-parallel layer)."""
+    from signerf_tpu_torch.parallel import mesh as mesh_lib
+
+    hp = parallel_helpers()
+    _, backend, cards = dp_ranks()
+    mesh_lib.spawn(hp.card_tp_block, (str(tmp_path),), 2, tmp_path, device_type="cuda", backend=backend,
+                   cards=min(cards, 2), join_timeout_s=300, tensor=2)
+    r0, r1 = (torch.load(tmp_path / f"tp_card_rank{r}.pt", weights_only=False) for r in range(2))
+    assert (r0["k7"], r0["heads"], r1["k7"], r1["heads"]) == (1, 10, 1, 10)
+    assert torch.equal(r0["y"], r1["y"]) and bool(torch.isfinite(r0["y"]).all())
+    err = float((r0["y"] - r0["whole"]).norm() / r0["whole"].norm())
+    assert 0.0 < err < 2e-2, err
 
 
 def test_ranks_build_the_kernels_once(cuda, tmp_path):

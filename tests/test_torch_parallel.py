@@ -81,37 +81,59 @@ RAGGED = 100  # 7 chunks on one rank; padded to 8 (4 a rank) on two
 # ---------------------------------------------------------------------------
 
 
+def jax_shape(mesh):
+    """A JAX mesh's (data, tensor) sizes (1 for an axis it lacks)."""
+    return (mesh.shape.get("data", 1), mesh.shape.get("tensor", 1))
+
+
 @pytest.mark.parametrize("spec", ["none", "off", "1", "false", "auto", None, "data", "data=2", "DATA=8",
                                   " data=4 "])
 def test_mesh_spec_resolves_as_jax(spec):
-    """Each spec resolves to the JAX mesh's device count (None where JAX
-    builds no mesh) on the conftest's 8 devices."""
+    """Each spec resolves to the JAX mesh's (data, tensor) shape (None where
+    JAX builds no mesh) on the conftest's 8 devices; `auto` is the data mesh."""
     want = jmesh_from_spec(spec)
-    assert mesh_from_spec(spec, len(jax.devices())) == (None if want is None else want.size)
+    got = mesh_from_spec(spec, len(jax.devices()))
+    assert got == (None if want is None else jax_shape(want))
+    assert got is None or (got.size == want.size and got.tensor == 1)
 
 
 def test_mesh_spec_on_one_device_and_on_the_cpu():
     assert mesh_from_spec("auto", 1) is None and mesh_from_spec(None, 1) is None
-    assert mesh_from_spec("data", 1) == 1 and mesh_from_spec("data=1", 1) == 1
-    # the CPU: one process unless data=K asks for K
-    assert mesh_from_spec("auto", None) is None and mesh_from_spec("data", None) == 1
-    assert mesh_from_spec("data=3", None) == 3
+    assert mesh_from_spec("data", 1) == (1, 1) and mesh_from_spec("data=1", 1) == (1, 1)
+    # the CPU: one process unless explicit sizes ask for more
+    assert mesh_from_spec("auto", None) is None and mesh_from_spec("data", None) == (1, 1)
+    assert mesh_from_spec("data=3", None) == (3, 1) and mesh_from_spec("tensor=2", None) == (1, 2)
+    with pytest.raises(ValueError, match="not divisible by tensor=2"):
+        mesh_from_spec("production", None)
 
 
 @pytest.mark.parametrize("spec", ["production", "data=4,tensor=2", "tensor=2"])
 def test_mesh_spec_refuses_the_tensor_axis(spec):
-    """JAX builds these meshes; the port refuses them and names the ROADMAP item."""
-    assert jmesh_from_spec(spec) is not None
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1"):
-        mesh_from_spec(spec, 8)
+    """The tensor axis resolves as JAX builds it: production (4, 2) on the
+    conftest's 8 devices, explicit sizes as given. JAX's tensor groups (the
+    rows of its device array, reshape((n // T, T))) are runs of consecutive
+    devices, as the port's tensor groups are runs of consecutive ranks."""
+    want = jmesh_from_spec(spec)
+    got = mesh_from_spec(spec, len(jax.devices()))
+    assert got == jax_shape(want) and got.size == want.size and got.tensor == 2
+    ids = np.array([d.id for d in np.asarray(want.devices).reshape(-1)]).reshape(-1, got.tensor)
+    assert ids.tolist() == [[2 * g, 2 * g + 1] for g in range(got.data)]
 
 
-@pytest.mark.parametrize("spec", ["bogus", "data=9"])
-def test_mesh_spec_refuses_bad_specs_as_jax(spec):
+@pytest.mark.parametrize("spec,devices", [("bogus", 8), ("data=9", 8), ("data=8,tensor=2", 8), ("tensor=16", 8),
+                                          ("production", 7)])
+def test_mesh_spec_refuses_bad_specs_as_jax(spec, devices):
+    """What JAX refuses: an unknown spec, more devices than there are, and
+    the production mesh on an odd count (JAX's `production_mesh(7)`)."""
+    from signerf_tpu.parallel import production_mesh
+
     with pytest.raises(ValueError):
-        jmesh_from_spec(spec)
+        if devices == len(jax.devices()):
+            jmesh_from_spec(spec)
+        else:
+            production_mesh(devices)
     with pytest.raises(ValueError):
-        mesh_from_spec(spec, len(jax.devices()))
+        mesh_from_spec(spec, devices)
 
 
 def test_rank_seed_keeps_the_seed_on_rank_zero():
@@ -299,10 +321,11 @@ def test_ranks_hold_equal_parameters(suite):
 
 
 @pytest.mark.parametrize("name", ["nerfacto", "signerf"])
-def test_dp_train_equals_one_rank_on_the_concatenated_batch(suite, xla_routes, name):
+def test_dp_train_equals_one_rank_on_the_concatenated_batch(suite, xla_routes, monkeypatch, name):
     """The port's one-rank step on both ranks' pixels in order, in as many
     micro-batches as ranks, averages the same per-rank gradients: measured
     equal bit for bit (a sum of two f32 terms halved, in either order)."""
+    monkeypatch.setattr(tts, "_sample_indices", tts._sample_indices)  # hp.train_case feeds its own; restored after
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # the ranks' threads: CPU reductions split by thread
     try:

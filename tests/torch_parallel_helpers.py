@@ -1,7 +1,8 @@
 """Rank workers of the port's data-parallel tests (tests/test_torch_parallel.py
 and the card tests): the DP train step, the DP eval render, the generator's
 dealt chunks and the headless train CLI, each run by every rank of a
-`DataMesh` and, with `mesh=None`, by one process.
+`DataMesh` and, with `mesh=None`, by one process; and on the card a DP
+step and one tensor-parallel SDXL block.
 
 This module imports torch and the port only: spawned ranks re-import it by
 name, and no JAX may enter them. Everything a worker needs (configs,
@@ -299,6 +300,39 @@ def card_step(mesh: mesh_lib.DataMesh, out: str) -> int:
         worst = max(worst, float((t - ref).abs().max()))
     torch.save({"launches": launches, "loss": loss, "param_diff": worst, "backend": mesh.backend,
                 "device": str(dev)}, Path(out) / f"card_rank{mesh.rank}.pt")
+    return 0
+
+
+def card_tp_block(mesh: mesh_lib.DataMesh, out: str) -> int:
+    """One SDXL transformer block at published widths (1280 channels, 20
+    heads, S = 1024, the context of 77 x 2048) sharded over this rank's
+    tensor group, its self-attention through K7 on the rank's heads; on
+    rank 0 the whole block on the same seeded weights and inputs. Each
+    rank's output, K7 launches and heads to `out`/tp_card_rank{r}.pt."""
+    from signerf_tpu_torch.diffusion.layers import init_flax_
+    from signerf_tpu_torch.diffusion.sdxl_pipeline import tensor_shard
+    from signerf_tpu_torch.diffusion.unet import BasicTransformerBlock
+    from signerf_tpu_torch.ops import flash_attention as fa
+
+    dev = mesh.device
+
+    def block(tp):
+        with torch.device(dev):
+            mod = BasicTransformerBlock(1280, 20, 64, 2048, tp=tp)
+        return init_flax_(mod, torch.Generator(device=dev).manual_seed(0)).eval()
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(1, 1024, 1280, generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(1, 77, 2048, generator=g, device=dev).to(torch.bfloat16)
+    sharded = block(tensor_shard(mesh))
+    with torch.no_grad():
+        fa.launches = 0
+        y = sharded(x, ctx)
+        torch.cuda.synchronize(dev)
+        rec = {"y": y.float().cpu(), "k7": fa.launches, "heads": sharded.attn1.num_heads, "backend": mesh.backend}
+        if mesh.is_main:
+            rec["whole"] = block(tensor_shard(None))(x, ctx).float().cpu()
+    torch.save(rec, Path(out) / f"tp_card_rank{mesh.rank}.pt")
     return 0
 
 
