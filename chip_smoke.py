@@ -99,7 +99,7 @@ the result line):
      phase 14c's scene: `signerf_nerfacto` at its defaults trained 300
      steps; `generate_dataset` at the generator's defaults (2x3 sheet of
      256 px cells, downscale 2, generation_batch_size 4,
-     lastcell_vae_window) and the Diffuser's (torch_sdxl, 20 steps,
+     lastcell_vae_window) and the Diffuser's but 5 steps (torch_sdxl,
      strength 0.9, CFG 7, ControlNet 0.8) on SDXL at random init, with 5
      reference poses on a circle and the 8 cameras' PNGs as originals;
      `exchange_training_dataset`; 300 refinement steps. Checks
@@ -120,8 +120,9 @@ the result line):
      lock wait, render and PNG encode; K1 3 x chunks each), 300 training
      steps without and 300 with a client at 2 fps (every reply at the
      throttled size, a pause and a resume; step medians), /export of a mesh
-     at 64^3 and of a point cloud, /preview (SDXL created in it) and
-     /generate until the refinement (300 steps) completes, each with exact
+     at 64^3 and of a point cloud, /params (EDIT_SDXL_STEPS), /preview
+     (SDXL created in it) and /generate until the refinement (300 steps)
+     completes, each with exact
      K1, K2-tables and K7 launches (K7 from the pipeline's schedule), the
      dataset schema, peak memory;
  14g. the hash-grid backend (`encoding_backend="hash"`, nerfacto's own
@@ -134,7 +135,7 @@ the result line):
      float64 and float32 on the CPU at N = 4096; (b) the render CLI with
      `--model.encoding-backend hash` on phase 6's scene, rays/s and warm
      frame median; (c) the `signerf_nerfacto` train CLI with the hash
-     backend for 300 steps on 14c's scene (step median, rays/s, peak
+     backend for 150 steps on 14c's scene (step median, rays/s, peak
      memory), PSNR and accumulation of its 8 views beside 14c's factor
      NeRF (rays in the scene box, and between the near and far planes),
      both export subcommands on its checkpoint; (d) the `signerf` train
@@ -146,8 +147,9 @@ the result line):
      and an f32 reference at (B, S, H) = (1, 9216, 10), (1, 2304, 20),
      (2, 2304, 20), (1, 4096, 10), (1, 1000, 10), (3, 77, 2), (1, 1, 1),
      the edit pass's (2, 1536, 10), (2, 384, 20), (8, 1536, 10),
-     (8, 384, 20) and phase 24's at a rank's heads (K7_TP_SHAPES: 5 and 10
-     heads); CUDA-event times of the kernel, the twin and
+     (8, 384, 20), phase 24's and 25(b)'s at a rank's heads (K7_TP_SHAPES,
+     K7_TP_EDIT_SHAPES: 5 and 10 heads) and phase 22's pass's 768 px sheet
+     (K7_PASS_SHAPES); CUDA-event times of the kernel, the twin and
      scaled_dot_product_attention (a yardstick the port never calls) beside
      the bound; a line for each sheet and edit-pass shape: kernel, SDPA,
      their ratio, TFLOP/s and share of the bound;
@@ -186,19 +188,24 @@ the result line):
  22. the repository's example scripts and the probe (run after 21):
      examples/fit_synthetic_torch.py's `main` (5 dispatches of 50 steps at
      4096 rays on its 16-view analytic scene: eval PSNR, rays/s, exact K1
-     and K2 launches); scripts/probe_edit_mask_torch.py's pretrain of the
-     pass's NeRF on its 100-view ring at 1024 px, 1000 `signerf` steps and
-     500 more at a time while a reference mask is empty (at most 2500);
+     and K2 launches); the pretrain's kernels at its shapes, which phases 3
+     to 5 do not time (K1 and K2's tables half at the proposal fields, K3,
+     K5 and the tables halves of K4 and K6 at the base field, for a
+     micro-batch of 16,384 rays), against their twins, with times and
+     bounds; scripts/probe_edit_mask_torch.py's pretrain of the pass's
+     NeRF on its 100-view ring at 512 px, `signerf` steps of 16,384 rays in
+     one micro-batch until every reference mask is non-empty (checks at
+     1000, 1300, 1600, 2000 and 2500 steps);
      examples/north_star_pass_torch.py's
-     `main` at 4 views of 1024 px from that checkpoint (its 3x3 sheet of
-     512 px cells, full-width SDXL at random init, 20 steps, 100
-     refinement steps): the result's keys against the JAX script's schema,
+     `main` at 2 views of 512 px from that checkpoint (its 3x3 sheet of
+     256 px cells, full-width SDXL at random init, 5 steps (20 in the
+     script), 100 refinement steps; K7's shapes on that sheet timed by phase 15): the result's keys against the JAX script's schema,
      every number finite, a non-empty edit mask, exact K1 to K6 launches
      and K7 from the pipeline's schedule, the walls of each phase;
  23. data parallelism over the visible cards (run after 22), one process a
      card on torch.distributed: (a) the `signerf` train CLI with `--mesh
      data` over NCCL on all W cards (on one card a process group of 1,
-     which still runs the all-reduce), 100 steps of 16,384 global rays on
+     which still runs the all-reduce), 50 steps of 16,384 global rays on
      14c's scene: each rank's exact launches (its micro-batches of 4096
      rays), step median, wall and peak memory, and every rank's final
      parameters equal to rank 0's; (b) at max(W, 2) ranks (NCCL with a card
@@ -207,7 +214,7 @@ the result line):
      against one rank on the concatenated indices (loss and parameters
      within DP_LOSS_RTOL and DP_PARAM_TOL), a 512 px frame against one
      rank's bit for bit, and the per-view generation of 4 views of 512 px
-     through SDXL at published widths (random init, 5 steps, batch 2) on
+     through SDXL at published widths (random init, 3 steps, batch 2) on
      the ranks against one rank's dataset by tests/test_torch_edit_flow.py's
      `assert_same_dataset` rule;
  24. tensor parallelism (run after 23): max(W, 2) ranks with tensor=2 (NCCL
@@ -223,18 +230,41 @@ the result line):
      tensor group's, K7's exact launches by shape at the rank's local heads
      (5 and 10), sharded and whole bytes, walls, step medians and peak
      memory;
+ 25. the viewer on a mesh of ranks (run after 14f, on 14c's scene and
+     checkpoint): the train CLI's own work without --train-only or
+     --skip-interface on (a) (data, tensor) = (2, 1) and (b) (1, 2), two
+     ranks (gloo on cuda:0 on one card, NCCL a card a rank on more),
+     `signerf_nerfacto` at its registered widths, 8192 global rays a step,
+     SDXL + ControlNet-depth at published widths and random init (1 sampler
+     step a call); rank 0 serves on a port of its own and a client thread
+     there drives every route: a bad /nudge (400, and the next command
+     runs), /nudge of the reference ring, paused /render at 128 and 512 px,
+     /scene, /preview, /generate (300 refinement steps, a client at
+     VIEWER_CLIENT_FPS in their second half, a pause and a resume),
+     /export of both kinds, /render; exact launches on every rank (K1 on
+     rank 0 alone for each /render and export; K7 by shape from the
+     pipeline's schedule, at a rank's heads on (1, 2)), parameters equal on
+     every rank at the pause and after the refinement, the step median
+     with and without the client, lock wait and render during training,
+     the control word's ms a call, /preview and /generate walls, the
+     dataset schema; (c) on four cards or more also (W, 1) at phase 14f's
+     settings, its /generate against 14f's one-rank wall;
  20. a JSON line per kernel, then {"ok": true, "device": {...}} last. A
      kernel's launches are summed over the main path's phases that run it
-     (K1: 6, 7, 11, 14, 14d, 14e, 14f, 21, 22 and 23; K2's tables half: 7,
-     11, 14d, 14e, 14f, 21, 22 and 23; K3: 11, 14, 21, 22 and 23; K4's
-     tables half: 11, 21, 22 and 23; K5: 11, 14, 22 and 23; K6's tables
-     half: 11, 22 and 23 (phase 23: rank 0's); K7: 16, 14d,
-     14f, 21, 22 and 24 (rank 0's); K8 and K9's tables half: 14b and 21), and its times
+     (K1: 6, 7, 11, 14, 14d, 14e, 14f, 21, 22, 23 and 25; K2's tables half:
+     7, 11, 14d, 14e, 14f, 21, 22, 23 and 25; K3: 11, 14, 21, 22 and 23;
+     K4's tables half: 11, 21, 22 and 23; K5: 11, 14, 22 and 23; K6's
+     tables half: 11, 22 and 23; K7: 16, 14d, 14f, 21, 22, 24 and 25; K8
+     and K9's tables half: 14b and 21; of phases 23 to 25 rank 0's, and of
+     25 its (a) and (b): (c) runs 1024 rays a rank, a step N that phase 3
+     did not time), and its times
      and bound are per call, each kind of call weighted by its launches,
-     so that launches x (ms - bound_ms) is the time the path loses to it.
+     so that launches x (ms - bound_ms) is the time the path loses to it;
+     a line of each phase's wall.
 
 Phases 1 to 22 run on one card (their CLIs with `--mesh none`) whatever
-the host holds; the last line's count is every visible card.
+the host holds; the last line's count is every visible card. Phase 25 runs
+right after 14f, on 14c's scene and checkpoint.
 
 The script imports torch and the port only.
 """
@@ -299,7 +329,7 @@ SIGNERF_SAMPLES = SIGNERF_RAYS // SIGNERF_MICRO * 48
 # The proposal schedule's calls of K10 and K4 in phase 5b: a render chunk's
 # samples of the first proposal field (256 a ray).
 PROPOSAL_SAMPLES = CHUNK * 256
-SIGNERF_STEPS = 300
+SIGNERF_STEPS = 100  # not 300: the later phases need the smoke's time
 SIGNERF_CAMERA_OPT_STEPS = 2
 BASE_SCHEDULE = (8, 2048, 16)  # levels, max_res, F of the base field
 # K3 to K6 vs their plain twins: the same f32 formulas on the same bf16
@@ -1995,6 +2025,10 @@ def phase_reference_sheet(torch, card: str, tmp: Path, white_ckpt: Path) -> dict
 # and their masks come out empty: 2 of 5 at 72-degree steps on this ring,
 # all 5 on a ring at 60 degrees).
 EDIT_STEPS = TRAIN_STEPS
+# num_inference_steps of the edit flows' generation in 14d, 14f and 22 (4
+# sampler steps at strength 0.9, not the default 20: the smoke's time);
+# phase 16 runs the default 20 on the 1536 px sheet.
+EDIT_SDXL_STEPS = 5
 EDIT_REFERENCES = 5
 EDIT_REFERENCE_RING = dict(radius=2.0, theta=70.0, phi=(0.0, 180.0))
 EDIT_CLI_STEPS = 50
@@ -2131,6 +2165,7 @@ def phase_edit_pass(torch, card: str, tmp: Path, ref: dict) -> dict:
     cfg.pipeline.model.background_color = REFERENCE_FLAGS[1]
     cfg.max_num_iterations = cfg.steps_per_save = EDIT_STEPS
     gen_cfg = cfg.pipeline.dataset_generator
+    gen_cfg.diffuser.num_inference_steps = EDIT_SDXL_STEPS
     gen_cfg.path = tmp / "generations"
     gen_cfg.aabb_min, gen_cfg.aabb_max = tuple(corners.min(0)), tuple(corners.max(0))
     h, w = SCENE["height"], SCENE["width"]
@@ -2241,7 +2276,7 @@ def phase_edit_pass(torch, card: str, tmp: Path, ref: dict) -> dict:
           f"trained {EDIT_STEPS} steps in {train_s:.3f} s; generate_dataset at the generator's defaults ("
           f"{gen_cfg.rows}x{gen_cfg.cols} sheet of {cell_w}x{cell_h} cells = {sheet_w}x{sheet_h}, downscale "
           f"{ds}, generation_batch_size {gen_cfg.generation_batch_size}, lastcell_vae_window "
-          f"{gen_cfg.lastcell_vae_window}) and the diffuser's ({gen_cfg.diffuser.mode}, "
+          f"{gen_cfg.lastcell_vae_window}) and the diffuser's but its steps ({gen_cfg.diffuser.mode}, "
           f"{gen_cfg.diffuser.num_inference_steps} steps, strength {gen_cfg.diffuser.denoising_strength}, CFG "
           f"{gen_cfg.diffuser.guidance_scale}, ControlNet {gen_cfg.diffuser.controlnet_conditioning_scale}; SDXL "
           f"random init, warned) with {EDIT_REFERENCES} reference poses and the {views} originals: {gen_s:.3f} s "
@@ -2605,12 +2640,16 @@ def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
         if cloud.get("points", 0) <= 0 or counts(ffc) != expect_counts(K1=3)(cloud_chunks):
             fail(f"phase 14f: /export pointcloud {cloud}, launches {counts(ffc)}, expected K1 3 x {cloud_chunks}")
 
-        # Preview Generation: the reference sheet at the generator's defaults,
-        # with the selection and the reference poses placed through the API.
+        # Preview Generation: the reference sheet at the generator's defaults
+        # but EDIT_SDXL_STEPS, with the selection and the reference poses
+        # placed through the API.
         iface.set_selection_aabb(tuple(corners.min(0)), tuple(corners.max(0)))
         iface.set_reference_poses(scene_poses_to_world(parsed, circle_poses(EDIT_REFERENCES,
                                                                             **EDIT_REFERENCE_RING).numpy()))
         gen = trainer.pipeline.dataset_generator
+        http_post(base + "/params", {"num_inference_steps": EDIT_SDXL_STEPS})
+        if gen.diffuser.config.num_inference_steps != EDIT_SDXL_STEPS:
+            fail(f"phase 14f: /params left num_inference_steps at {gen.diffuser.config.num_inference_steps}")
         zero_counts(ffc)
         fa.launches = 0
         diffuse_calls.clear()
@@ -2719,6 +2758,7 @@ def phase_viewer(torch, card: str, tmp: Path, ref: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"chunks": chunks, "train_steps": 2 * VIEWER_STEPS + EDIT_STEPS, "mesh_calls": mesh_calls,
+            "generate_s": generate_s,
             "k7_shapes": k7_shapes, "k7_launches": k7_total}
 
 
@@ -2743,7 +2783,7 @@ SECTOR = 32  # bytes a DRAM access moves
 # table gradient also by the atomics' order.
 HASH_F64_TOL = 1e-3
 HASH_F32_TOL = 1e-6
-HASH_TRAIN_STEPS = 300
+HASH_TRAIN_STEPS = 150  # not 300, for the same reason
 HASH_SIGNERF_STEPS = 4
 HASH_REPEAT_STEPS = 10
 
@@ -3106,7 +3146,7 @@ def phase_k7(torch, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     stats = {"max_abs_err": 0.0}
     per_shape = {}
-    for b, s, h in K7_SHAPES + list(K7_EDIT_SHAPES) + [x for x in K7_TP_SHAPES if x not in K7_EDIT_SHAPES]:
+    for b, s, h in dict.fromkeys((*K7_SHAPES, *K7_EDIT_SHAPES, *K7_TP_SHAPES, *K7_TP_EDIT_SHAPES, *K7_PASS_SHAPES)):
         q, k, v = (torch.randn(b, s, h, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
         got = fa.flash_attention_cuda(q, k, v, 0.125)
         torch.cuda.synchronize()
@@ -3122,7 +3162,7 @@ def phase_k7(torch, card: str) -> dict:
         line = (f"phase 15 K7 (B, S, H) = {(b, s, h)}: norm-rel err vs twin {e_twin:.3e}, vs f32 reference "
                 f"{e_ref:.3e} (twin vs f32 {e_twin_ref:.3e})")
         del got, twin, ref
-        if s >= K7_TIMED_FROM or (b, s, h) in K7_TP_SHAPES:
+        if s >= K7_TIMED_FROM or (b, s, h) in K7_TP_SHAPES + K7_TP_EDIT_SHAPES + K7_PASS_SHAPES:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=0.125)  # noqa: E731
             lib1 = cuda_ms(sdpa, 20)
@@ -3955,22 +3995,105 @@ def phase_last_sdxl(torch, card: str, sh: dict) -> dict:
 # and the reference-scale edit pass through their own functions, at a cut scale.
 FIT_DISPATCHES = 5  # 50 steps each, after the first
 FIT_MIN_PSNR = 20.0  # dB on the analytic sphere after 300 steps of 4096 rays
-# 4 views, one chunk of the generator's batch: phase 23 needs the ~40 s that
-# a second chunk took (at 8 views the warm per-view marginal was 7.8 to 9.2
-# s a view; with one chunk the pass reports none).
-NS_VIEWS, NS_SIZE = 4, 1024
-NS_REFINE_STEPS = 100
+# The pass at 2 views of 512 px (a 768 px sheet of 256 px cells), one chunk
+# of the generator's batch, on the probe's NeRF of the ring at the same
+# size: phases 23 to 25 need the time (on an H100 the whole smoke took
+# 1063.3 s with 2 views of 1024 px; at 8 views the warm per-view marginal
+# was 7.8 to 9.2 s a view; with one chunk the pass reports none).
+NS_VIEWS, NS_SIZE, NS_PASS_SIZE = 2, 512, 512
+NS_SHEET = SHEET_GRID * NS_PASS_SIZE // 2
+# K7's shapes on the pass's sheet, with CFG sequential (B = 1) or batched
+# (B = 2; 4 for two views at once): phase 15 times them.
+K7_PASS_SHAPES = tuple(itertools.chain.from_iterable(k7_pass_shapes(NS_SHEET, NS_SHEET, b) for b in (1, 2, 4)))
+NS_REFINE_STEPS = 100  # one train call of the pass (steps_per_call 100)
 # The NeRF that the pass edits: on 8 views its depth stays behind the edit
 # box after 1200 steps, so every mask is empty; on the pass's 100-view ring
-# the masks fill after 1000 to 2000 steps, but not in every run (one of
+# the masks fill after 500 to 2000 steps, but not in every run (one of
 # three runs of one tree still had them empty at 2000: the runs part at f32
 # rounding; PERF.md section 6), so the smoke pretrains until every
-# reference mask is non-empty, checking every 500 steps from 1000 on (a
-# check renders the 8 references twice at 1024 px), at most
-# NS_PRETRAIN_STEPS[-1] steps. The pass loads it from `load_dir`, as
-# the reference edits an existing NeRF; the scene space is the same on
-# both rings.
-NS_PRETRAIN_VIEWS, NS_PRETRAIN_STEPS = 100, (1000, 1500, 2000, 2500)
+# reference mask is non-empty, checking at each of NS_PRETRAIN_STEPS (the
+# trainer runs calls of 100; a check renders the 8 references twice), at
+# most NS_PRETRAIN_STEPS[-1] steps. A step is the method's 16,384 rays in
+# NS_PRETRAIN_MICRO micro-batches, not 4: the gradient is the same mean
+# over the step's rays, and a step of 4 micro-batches waits on the host
+# (idle 0.76 of it in the pass's profile: 170 to 200 ms a step on an
+# H100, 109 ms in 2 micro-batches), which made the pretrain most of the
+# smoke's wall. `phase_pretrain_calls` times its kernels at their N. The pass loads it from `load_dir`, as the reference
+# edits an existing NeRF; the scene space is the same on both rings.
+NS_PRETRAIN_VIEWS, NS_PRETRAIN_STEPS = 100, (1000, 1300, 1600, 2000, 2500)
+NS_PRETRAIN_MICRO = 1
+
+
+def phase_pretrain_calls(torch) -> dict:
+    """The kernels of the pretrain's micro-batches (NS_PRETRAIN_MICRO a step
+    of SIGNERF_RAYS), at shapes that phases 3 to 5 do not time: K1 and K2's
+    tables half at the proposal fields' N, K3, K5 and the tables halves of
+    K4 and K6 (with grad_g) at the base field's N, uniform coordinates,
+    each against its plain twin (K1 and K3 by max abs error over max|ref|,
+    the others norm-relative, with phases 3 to 5's bounds), then timed
+    against it in turns, with its bound."""
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(22)
+    rays = SIGNERF_RAYS // NS_PRETRAIN_MICRO
+    keys = ("K1", "K2 tables", "K3", "K4 tables", "K5", "K6 tables")
+    out = {"K1": {}, "K2 tables": {}, "max_abs_err": dict.fromkeys(keys, 0.0)}
+    line = [f"phase 22 the pretrain's {rays}-ray micro-batches, kernel vs plain twin (error, ms):"]
+
+    def entry(label, key, tol, got, want, n, kern, plain, b, floor=None):
+        # got and want: the leaves; with `floor`, max abs error over max(max|ref|, floor), else norm-relative
+        if floor is None:
+            errs = [rel_err(a, w) for a, w in zip(got, want)]
+        else:
+            errs = [float((a - w).abs().max()) / max(float(w.abs().max()), floor) for a, w in zip(got, want)]
+        if not all(bool(torch.isfinite(a).all()) for a in got) or max(errs) > tol:
+            fail(f"{label} N={n}: errors {errs} against the twin (bound {tol}), or non-finite")
+        out["max_abs_err"][key] = max([out["max_abs_err"][key]] + [float((a - w).abs().max())
+                                                                   for a, w in zip(got, want)])
+        k_ms, p_ms = twin_ms(torch, kern, plain)
+        line.append(f"{label} N={n} {max(errs):.2e}, {k_ms:.4f} vs {p_ms:.4f} (bound {b[0]:.4f} {b[1]}, "
+                    f"{b[0] / k_ms:.1%} of it);")
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0], "bound_by": b[1]}
+
+    def run(fn, *args):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        return got
+
+    for name, shape, per_ray in TRAIN_SCHEDULES[:2]:  # the proposal fields
+        n = rays * per_ray
+        args = make_case(torch, *shape, n, gen, dev)
+        b = factor_bounds(args[0], args[1], args[2], n, shape[3], shape[4])
+        out["K1"][name] = entry(f"K1 {name}", "K1", KERNEL_TOL, [run(ffc.density_mlp_cuda, *args)],
+                                [ffc.density_mlp_plain(*args)], n, lambda: ffc.density_mlp_cuda(*args),
+                                lambda: ffc.density_mlp_plain(*args), b["K1"], floor=1e-3)
+        res, feat, tables, w0, b0, w1, _, x = args  # K2 takes no output bias, and K1's cotangent
+        args = (res, feat, tables, w0, b0, w1, x, torch.randn(n, shape[4], generator=gen).to(dev))
+        got, want = run(ffc.density_mlp_bwd_cuda, *args), ffc.density_mlp_bwd_plain(*args)
+        out["K2 tables"][name] = entry(f"K2 tables {name}", "K2 tables", K2_TOL, [got[0], *got[1]],
+                                       [want[0], *want[1]], n, lambda: ffc.density_mlp_bwd_cuda(*args),
+                                       lambda: ffc.density_mlp_bwd_plain(*args), b["K2 tables"])
+        del args, got, want, tables, x
+    n = rays * TRAIN_SCHEDULES[2][2]
+    args, g, ct = encode_case(torch, n, gen, dev)
+    b = factor_bounds(args[0], args[1], args[2], n)
+    out["K3"] = entry("K3", "K3", K3_TOL, [run(ffc.encode_cuda, *args)], [ffc.encode_plain(*args)], n,
+                      lambda: ffc.encode_cuda(*args), lambda: ffc.encode_plain(*args), b["K3"], floor=1e-12)
+    out["K4 tables"] = entry("K4 tables", "K4 tables", K456_TOL, [run(ffc.encode_bwd_cuda, *args, g)[0]],
+                             [ffc.encode_bwd_plain(*args, g)[0]], n, lambda: ffc.encode_bwd_cuda(*args, g),
+                             lambda: ffc.encode_bwd_plain(*args, g), b["K4 tables"])
+    out["K5"] = entry("K5", "K5", K456_TOL, [run(ffc.grad_dot_cuda, *args, g)], [ffc.grad_dot_plain(*args, g)], n,
+                      lambda: ffc.grad_dot_cuda(*args, g), lambda: ffc.grad_dot_plain(*args, g), b["K5"])
+    out["K6 tables"] = entry("K6 tables and grad_g", "K6 tables", K456_TOL, run(ffc.grad_dot_bwd_cuda, *args, g, ct)[:2],
+                             ffc.grad_dot_bwd_plain(*args, g, ct)[:2], n, lambda: ffc.grad_dot_bwd_cuda(*args, g, ct),
+                             lambda: ffc.grad_dot_bwd_plain(*args, g, ct), b["K6 tables"])
+    del args, g, ct
+    torch.cuda.empty_cache()
+    print(" ".join(line), flush=True)
+    return out
+
+
 NS_RESULT_KEYS = ("script", "commit", "date", "hardware", "cards", "n_views", "refine_steps", "pretrain_steps",
                   "loaded_checkpoint", "phases_s", "edit_pass_s", "edit_pass_min", "sheet_s", "sheet_warm_s",
                   "refine_rays_per_s", "warm_per_view_marginal_s", "view_s_first", "eval_psnr_db",
@@ -3995,8 +4118,8 @@ def phase_scripts(torch, card: str) -> dict:
     `scripts/probe_edit_mask_torch.py`'s pretrain of the pass's NeRF
     (NS_PRETRAIN_STEPS on its NS_PRETRAIN_VIEWS-view ring; every reference
     mask non-empty) and `examples/north_star_pass_torch.py` at NS_VIEWS
-    views of NS_SIZE px on that checkpoint (3x3 sheet, full-width SDXL at
-    random init, 20 steps; NS_REFINE_STEPS refinement steps), each through
+    views of NS_PASS_SIZE px on that checkpoint (3x3 sheet, full-width SDXL at
+    random init, EDIT_SDXL_STEPS steps; NS_REFINE_STEPS refinement steps), each through
     its own functions, with exact launches, the result's schema and finite
     numbers."""
     import gc
@@ -4029,9 +4152,10 @@ def phase_scripts(torch, card: str) -> dict:
           f"{fit['eval_psnr_db']:.2f} dB; launches K1 {got['K1']}, K2 tables {got['K2 tables']}; wall {fit_s:.1f} s; "
           f"on {card}", flush=True)
 
-    chunks = -(-NS_SIZE * NS_SIZE // CHUNK)
+    chunks = -(-NS_SIZE * NS_SIZE // CHUNK)  # a frame of the probe's ring
+    pass_chunks = -(-NS_PASS_SIZE * NS_PASS_SIZE // CHUNK)  # and of the pass's
 
-    def signerf_counts(micro: int, renders: int) -> dict:
+    def signerf_counts(micro: int, renders: int, chunks: int) -> dict:
         # a micro-batch's forward and backward, then the eval render's chunks (normals on)
         want = expect_counts(K1=2, K2_tables=2, K3=1, K4_tables=1, K5=1, K6_tables=1)(micro)
         for name, per_chunk in (("K1", 2), ("K3", 1), ("K5", 1)):
@@ -4039,24 +4163,33 @@ def phase_scripts(torch, card: str) -> dict:
         return want
 
 
+    def pretrain_micro(cfg):
+        cfg.pipeline.datamanager.micro_batches = NS_PRETRAIN_MICRO
+
+    pre_calls = phase_pretrain_calls(torch)
     calls = []
     tmp = Path(tempfile.mkdtemp(prefix="north_star_"))
     try:
         zero_counts(ffc)
         t0 = time.perf_counter()
         trainer, rows = probe.probe(tmp / "pretrain", NS_PRETRAIN_VIEWS, NS_SIZE, NS_PRETRAIN_STEPS, dev,
-                                    until_filled=True)
+                                    configure=pretrain_micro, until_filled=True)
         pre_steps = trainer.step
-        pre_micro = pre_steps * trainer.pipeline.datamanager.sampler_settings().micro_batches
+        settings = trainer.pipeline.datamanager.sampler_settings()
+        if (settings.num_rays, settings.micro_batches) != (SIGNERF_RAYS, NS_PRETRAIN_MICRO):
+            fail(f"the pass's pretrain ran {settings.num_rays} rays a step in {settings.micro_batches} micro-batches, "
+                 f"expected {SIGNERF_RAYS} in {NS_PRETRAIN_MICRO}")
+        pre_micro = pre_steps * NS_PRETRAIN_MICRO
         ckpt = save_checkpoint(tmp / "checkpoint", trainer.step, trainer.pipeline.model.state_dict(),
                                trainer.optimizer)
         pre_s = time.perf_counter() - t0
         del trainer
         probe_renders = 2 * ns.REFERENCE_VIEWS * len(rows)
-        got, want = counts(ffc), signerf_counts(pre_micro, probe_renders)
+        got, want = counts(ffc), signerf_counts(pre_micro, probe_renders, chunks)
         coverage = rows[-1]["coverage"]
-        print(f"phase 22 scripts/probe_edit_mask_torch.py: {pre_steps} signerf steps on the pass's "
-              f"{NS_PRETRAIN_VIEWS}-view ring at {NS_SIZE} px (until every reference mask filled; coverage "
+        print(f"phase 22 scripts/probe_edit_mask_torch.py: {pre_steps} signerf steps of {SIGNERF_RAYS} rays in "
+              f"{NS_PRETRAIN_MICRO} micro-batches on the pass's {NS_PRETRAIN_VIEWS}-view ring at {NS_SIZE} px (until "
+              f"every reference mask filled; coverage "
               + ", ".join(f"{min(r['coverage']):.4f} at {r['steps']}" for r in rows) + f"), the last "
               f"{rows[-1]['train_s']:.1f} s; the {len(coverage)} "
               f"reference masks cover " + " ".join(f"{c:.4f}" for c in coverage) + "; of the rays crossing the box, "
@@ -4068,28 +4201,32 @@ def phase_scripts(torch, card: str) -> dict:
         zero_counts(ffc)
         fa.launches = 0
         t0 = time.perf_counter()
+        def sdxl_steps(cfg):
+            cfg.pipeline.dataset_generator.diffuser.num_inference_steps = EDIT_SDXL_STEPS
+
         result = ns.main([str(NS_VIEWS), str(NS_REFINE_STEPS), str(pre_steps), str(ckpt.parent),
-                          "--device", "cuda", "--mesh", "none", "--size", str(NS_SIZE), "--out", str(tmp / "pass")],
-                         make_diffuser=lambda c: recording_diffuser(Diffuser(c, device=dev), calls))
+                          "--device", "cuda", "--mesh", "none", "--size", str(NS_PASS_SIZE), "--out",
+                          str(tmp / "pass")], configure=sdxl_steps,
+                         make_diffuser=lambda c: recording_diffuser(Diffuser(c, device=dev), calls),
+                         reduced=[f"SDXL num_inference_steps {EDIT_SDXL_STEPS} (reference {ns.SDXL_STEPS})"])
         ns_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     got = counts(ffc)
     micro = SIGNERF_MICRO * (NS_REFINE_STEPS + 1 + ns.PROFILE_STEPS)  # the profile's warm-up and window
     renders = NS_VIEWS + 2 * ns.REFERENCE_VIEWS + 1 + min(ns.EVAL_VIEWS, NS_VIEWS + ns.REFERENCE_VIEWS)
-    want = signerf_counts(micro, renders)
-    sheet = SHEET_CELL * SHEET_GRID
-    k7_shapes = k7_launches(calls, sheet, sheet)
-    if got != want or fa.launches != sum(k7_shapes.values()) or set(k7_shapes) - set(K7_SHEET_CALLS):
+    want = signerf_counts(micro, renders, pass_chunks)
+    k7_shapes = k7_launches(calls, NS_SHEET, NS_SHEET)
+    if got != want or fa.launches != sum(k7_shapes.values()) or set(k7_shapes) - set(K7_PASS_SHAPES):
         fail(f"north_star_pass_torch: launched {got}, expected {want} ({micro} signerf micro-batches, {renders} renders of "
-             f"{chunks} chunks); K7 {fa.launches}, expected {sum(k7_shapes.values())} from the pipeline's schedule "
-             f"{k7_shapes} (phase 15 times {tuple(K7_SHEET_CALLS)})")
+             f"{pass_chunks} chunks); K7 {fa.launches}, expected {sum(k7_shapes.values())} from the pipeline's schedule "
+             f"{k7_shapes} (phase 15 times {K7_PASS_SHAPES})")
     if set(result) != set(NS_RESULT_KEYS) or not finite_numbers(result) or not result["edit_mask_coverage"] > 0:
         fail(f"north_star_pass_torch: result keys {tuple(result)}, expected {NS_RESULT_KEYS}; finite "
              f"{finite_numbers(result)}; edit mask coverage {result.get('edit_mask_coverage')}")
     ph = result["phases_s"]
     print(f"phase 22 examples/north_star_pass_torch.py {NS_VIEWS} {NS_REFINE_STEPS} {pre_steps} CHECKPOINT "
-          f"--size {NS_SIZE}: walls setup {ph['setup']:.3f} s, generation "
+          f"--size {NS_PASS_SIZE}: walls setup {ph['setup']:.3f} s, generation "
           f"{ph['generation']:.3f} s (sheet {result['sheet_s']:.3f} s, first chunk {result['view_s_first']:.3f} s, "
           f"warm per-view marginal {result['warm_per_view_marginal_s']} s, batch {result['generation_batch_size']}), "
           f"sheet again {result['sheet_warm_s']:.3f} s, exchange {ph['exchange']:.3f} s, refine {ph['refine']:.3f} s "
@@ -4104,14 +4241,14 @@ def phase_scripts(torch, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 22 wall {fit_s + pre_s + ns_s:.1f} s; on {card}", flush=True)
-    return {"fit_steps": fit["steps"], "fit_chunks": fit["eval_chunks"], "micro": micro + pre_micro,
-            "eval_chunks": chunks * (renders + probe_renders), "k7_shapes": k7_shapes,
-            "k7_launches": fa.launches}
+    return {"fit_steps": fit["steps"], "fit_chunks": fit["eval_chunks"], "micro": micro, "pre_micro": pre_micro,
+            "pre_calls": pre_calls, "eval_chunks": pass_chunks * renders + chunks * probe_renders,
+            "k7_shapes": k7_shapes, "k7_launches": fa.launches}
 
 
 # Phase 23, data parallelism over the visible cards: one process a card on
 # torch.distributed (signerf_tpu_torch/parallel/mesh.py).
-DP_STEPS = 100  # (a): the `signerf` train CLI with --mesh data
+DP_STEPS = 50  # (a): the `signerf` train CLI with --mesh data
 DP_CHECK_STEPS = 4  # (b): DP steps from fed indices against one rank
 DP_CHECK_RAYS = TRAIN_RAYS  # (b): `signerf_nerfacto` at 4096 global rays
 # (b) DP against one rank on the same card: the same per-rank batches, but
@@ -4123,7 +4260,7 @@ DP_LOSS_RTOL = 1e-3
 DP_PARAM_TOL = STEP_TOL
 # (b) per-view generation: 4 views of 512 px, a 2x2 sheet of 256 px cells,
 # SDXL at published widths (random init), 5 sampler steps, batches of 2.
-DP_GEN = dict(views=4, rows=2, cols=2, steps=5, batch=2)
+DP_GEN = dict(views=4, rows=2, cols=2, steps=3, batch=2)  # 3 steps: 2 sampler steps at strength 0.9
 DP_BOX = ((-0.35, -0.35, 0.25), (0.35, 0.35, 0.75))  # the edit box over the sphere's top, world space
 DP_JOIN_S = 600.0  # a rank that hangs fails the phase
 
@@ -4484,6 +4621,9 @@ def tp_shapes(shapes: dict) -> dict:
 # the per-view generation's 512 px sheet alone and in chunks of 2 views (c).
 K7_TP_SHAPES = tuple(itertools.chain.from_iterable(
     tp_shapes(k7_pass_shapes(px, px, b)) for px, b in ((1536, 1), (1024, 2), (512, 2), (512, 4))))
+# Phase 25(b)'s: the edit pass's shapes at a rank's heads (the viewer's
+# sheet and chunks of views on a (1, 2) mesh).
+K7_TP_EDIT_SHAPES = tuple(tp_shapes(dict.fromkeys(K7_EDIT_SHAPES, 0)))
 
 
 def tp_inputs(ref: dict, sh: dict) -> dict:
@@ -4706,6 +4846,431 @@ def phase_tensor_parallel(torch, card: str, inputs: dict, eps_one, reference: di
     return {"k7_shapes": launched, "k7_launches": sum(launched.values())}
 
 
+# Phase 25, the viewer on a mesh of ranks (signerf_tpu_torch/interface/
+# channel.py): the train CLI's viewer (`train.parse`, `train._run`, no
+# --train-only, no --skip-interface) on 14c's scene and checkpoint, rank 0
+# serving on a port of its own with a client thread there driving every
+# route, the other rank following rank 0's commands. (a) (data, tensor) =
+# (2, 1) and (b) (1, 2), two ranks (gloo on cuda:0 on one card, NCCL a card
+# a rank on more); (c) on four cards or more, (W, 1) at phase 14f's
+# settings, its /generate against 14f's one-rank wall.
+VR_MESHES = ((2, 1), (1, 2))  # (data, tensor)
+VR_SIZES = (128, 512)
+VR_REPEATS = 3  # timed paused /render requests a size, after one warm-up
+VR_RAYS = 2 * TRAIN_RAYS  # global rays a step: phase 7's N on each of the two ranks
+VR_STEPS = EDIT_STEPS  # refinement steps of /generate, 12 calls of 25
+VR_QUIET_FROM = 25  # refinement steps from here on are timed, without a client until half-way
+VR_DIFFUSION_STEPS = 2  # /params num_inference_steps: 1 sampler step at strength 0.9 (TP over gloo is slow)
+VR_JOIN_S = 900.0
+VR_MIN_CARDS_FOR_C = 4
+VR_WORD_PROBES = 50  # empty control words back to back after the run: a word's own cost
+
+
+def params_digest(torch, model) -> str:
+    """sha256 of every parameter and buffer's bytes, in state_dict order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def viewer_ranks_client(torch, server, trainer, ffc, plan: dict) -> dict:
+    """Phase 25's client on rank 0's host: every route, in order. Raises on
+    a reply it does not expect; returns the timings and the launches rank 0
+    made for its own requests (which no other rank makes)."""
+    import urllib.error
+
+    from signerf_tpu_torch.utils.images import decode_png
+
+    base = f"http://127.0.0.1:{server.port_bound}"
+    rec = {"render_chunks": 0}
+
+    def chunks_of(size: int) -> int:
+        return -(-(size * size) // CHUNK)
+
+    def exact(label, before, want):
+        got = count_delta(counts(ffc), before)
+        if got != want:
+            raise AssertionError(f"{label}: rank 0 launched {got}, expected {want}")
+
+    http_post(base + "/params", {"num_inference_steps": plan["diffusion_steps"]} if plan["diffusion_steps"] else {})
+    try:
+        http_post(base + "/nudge", {"element": "nope"})
+        rec["bad_nudge"] = 200
+    except urllib.error.HTTPError as err:
+        rec["bad_nudge"] = err.code
+    if rec["bad_nudge"] != 400 or http_post(base + "/nudge", plan["ring"]) != {"ok": True}:
+        raise AssertionError(f"a bad /nudge gave {rec['bad_nudge']} (400 expected), or the next one failed")
+
+    paused = {}
+    for size in VR_SIZES:
+        rows = []
+        for rep in range(VR_REPEATS + 1):
+            before = counts(ffc)
+            t0 = time.perf_counter()
+            headers, body = http_get(f"{base}/render?{VIEWER_VIEW}&size={size}")
+            wall = time.perf_counter() - t0
+            rec["render_chunks"] += chunks_of(size)
+            if decode_png(body).shape != (size, size, 3):
+                raise AssertionError(f"paused /render at {size} px gave {decode_png(body).shape}")
+            exact(f"paused /render at {size} px", before, expect_counts(K1=3)(chunks_of(size)))
+            if rep:
+                rows.append((wall * 1e3, server_timing(headers)))
+        paused[size] = rows
+    scene = json.loads(http_get(base + "/scene")[1])
+    if len(scene["reference_poses"]) != EDIT_REFERENCES or len(scene["train_poses"]) != SCENE["cameras"]:
+        raise AssertionError(f"/scene: {len(scene['reference_poses'])} references, {len(scene['train_poses'])} views")
+
+    frame_chunks = chunks_of(SCENE["width"])
+    before = counts(ffc)
+    t0 = time.perf_counter()
+    sheets = http_post(base + "/preview", {})
+    rec["preview_s"] = time.perf_counter() - t0
+    got = count_delta(counts(ffc), before)
+    if got["K1"] != 3 * frame_chunks * EDIT_REFERENCES or set(sheets) != {"image", "mask", "condition", "edited"}:
+        raise AssertionError(f"/preview: rank 0 launched {got}, sheets {sorted(sheets)}")
+
+    steps = plan["steps"]
+    client_from, client_to = (steps // 2, steps - 25) if plan["client"] else (steps, steps)
+    gen = trainer.pipeline.dataset_generator  # /generate's (the exchange builds another)
+    t0 = time.perf_counter()
+    if http_post(base + "/generate", {}) != {"started": True}:
+        raise AssertionError("/generate did not start")
+    while trainer.step < client_from and not server._generation.done():
+        time.sleep(0.05)
+    rec["client_from"] = trainer.step
+    replies, pause = [], None
+    while trainer.step < client_to and not server._generation.done():
+        t_req = time.perf_counter()
+        headers, body = http_get(f"{base}/render?{VIEWER_VIEW}&size=512")
+        size = decode_png(body).shape[0]
+        rec["render_chunks"] += chunks_of(size)
+        replies.append((size, (time.perf_counter() - t_req) * 1e3, server_timing(headers)))
+        if len(replies) == 2 and pause is None:
+            if http_post(base + "/train", {"state": "paused"}) != {"training_state": "paused"}:
+                raise AssertionError("/train paused")
+            held_from, t_pause = trainer.step, time.perf_counter()
+            time.sleep(1.5)
+            held = json.loads(http_get(base + "/state")[1])
+            http_post(base + "/train", {"state": "training"})
+            pause = (held_from, held["step"], held["training_state"], time.perf_counter() - t_pause)
+            if pause[:3] != (held_from, held_from, "paused"):
+                raise AssertionError(f"a paused refinement went on: {pause}")
+        time.sleep(max(0.0, 1.0 / VIEWER_CLIENT_FPS - (time.perf_counter() - t_req)))
+    rec["client_to"] = trainer.step
+    server._generation.result(timeout=VR_JOIN_S)
+    rec["generate_s"] = time.perf_counter() - t0
+    end = json.loads(http_get(base + "/state")[1])
+    if (end["training_state"], end["step"]) != ("completed", steps) or (plan["client"] and pause is None):
+        raise AssertionError(f"/generate ended at {end['training_state']}, step {end['step']}; pause {pause}")
+    _, _, coverage = check_generated(Path(trainer.config.pipeline.datamanager.dataparser.data), gen,
+                                     SCENE["cameras"], f"phase 25{plan['label']} /generate")
+    rec.update(replies=replies, pause=pause, paused=paused, coverage=coverage, timings=dict(gen.last_timings))
+
+    before = counts(ffc)
+    t0 = time.perf_counter()
+    mesh = http_post(base + "/export", {"kind": "mesh", "resolution": EDIT_MESH_RESOLUTION, "iso": EDIT_MESH_ISO})
+    rec["mesh_s"] = time.perf_counter() - t0
+    rec["mesh_calls"] = -(-((EDIT_MESH_RESOLUTION + 1) ** 3) // (1 << 16))
+    exact("/export mesh", before, expect_counts(K1=1)(rec["mesh_calls"]))
+    before = counts(ffc)
+    t0 = time.perf_counter()
+    cloud = http_post(base + "/export", {"kind": "pointcloud"})
+    rec["cloud_s"] = time.perf_counter() - t0
+    # every camera of the generated dataset (the references and the views)
+    rec["cloud_chunks"] = trainer.pipeline.datamanager.num_images * chunks_of(SCENE["width"] // 4)
+    exact("/export pointcloud", before, expect_counts(K1=3)(rec["cloud_chunks"]))
+    if mesh.get("faces", 0) <= 0 or cloud.get("points", 0) <= 0:
+        raise AssertionError(f"/export: mesh {mesh}, point cloud {cloud}")
+    before = counts(ffc)
+    img = decode_png(http_get(f"{base}/render?{VIEWER_VIEW}&size=128")[1])
+    rec["render_chunks"] += chunks_of(128)
+    exact("/render after /generate", before, expect_counts(K1=3)(chunks_of(128)))
+    if img.shape != (128, 128, 3):
+        raise AssertionError(f"/render after /generate: {img.shape}")
+    return rec
+
+
+def viewer_ranks_rank(mesh, argv, out: str, plan: dict) -> int:
+    """Phase 25 on one rank: the train CLI's work (`train.parse`,
+    `train._run`) with its viewer on port 0; on rank 0 the client
+    (`viewer_ranks_client`) in a thread, which closes the viewer's channel
+    at its end. This rank's launches (zeroed before `_run`), K7's by shape
+    against the pipeline's schedule, CUDA events at each step's loss,
+    control words, parameter digests at the pause and the end and peak
+    memory; rank 0 writes every rank's record."""
+    import threading
+    import traceback
+
+    import torch
+
+    from signerf_tpu_torch import pipeline as tpipe
+    from signerf_tpu_torch import train as cli
+    from signerf_tpu_torch.diffusion import unet as unet_mod
+    from signerf_tpu_torch.engine import train_step as tts
+    from signerf_tpu_torch.engine import trainer as ttrainer
+    from signerf_tpu_torch.interface import app
+    from signerf_tpu_torch.ops import flash_attention as fa
+    from signerf_tpu_torch.ops import fused_factor_cuda as ffc
+
+    events, calls, shapes, servers, trainers, channels, pauses = [], [], {}, [], [], [], []
+    real = dict(loss=tts.default_loss_fn, flash=unet_mod.flash_attention, diffuser=tpipe.Diffuser,
+                setup=ttrainer.SIGNeRFTrainer.setup, run_interface=app.run_interface, command=app.run_command,
+                start=app.ViewerServer.start_background, channel=app.CommandChannel)
+
+    def recording_loss(model, outputs, batch):
+        total, ld = real["loss"](model, outputs, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return total, ld
+
+    def recording_flash(q, k, v, scale):
+        key = tuple(q.shape[:3])
+        shapes[key] = shapes.get(key, 0) + 1
+        return real["flash"](q, k, v, scale)
+
+    def make_diffuser(config, device=None, mesh=None):
+        return recording_diffuser(real["diffuser"](config, device=device, mesh=mesh), calls)
+
+    def setup(self, *a, **k):
+        trainers.append(self)
+        return real["setup"](self, *a, **k)
+
+    def run_interface(trainer, port=VIEWER_PORT):
+        return real["run_interface"](trainer, port=0)
+
+    def run_command(interface, name, args, kwargs):
+        result = real["command"](interface, name, args, kwargs)
+        if name == "train" and args[0] == "paused":
+            pauses.append((interface.trainer.step, params_digest(torch, interface.trainer.pipeline.model)))
+        return result
+
+    def start_background(self):
+        httpd = real["start"](self)
+        self.port_bound = httpd.server_address[1]
+        servers.append(self)
+        return httpd
+
+    def channel(*a, **k):
+        channels.append(real["channel"](*a, **k))
+        return channels[-1]
+
+    client: dict = {}
+
+    def drive():
+        try:
+            deadline = time.perf_counter() + 300
+            while not servers and time.perf_counter() < deadline:
+                time.sleep(0.05)
+            client.update(viewer_ranks_client(torch, servers[0], trainers[0], ffc, plan))
+        except BaseException:  # noqa: BLE001 - the main process fails the phase with it
+            client["error"] = traceback.format_exc()
+        finally:
+            if servers:
+                servers[0].channel.close()
+
+    _, _, config, train_only = cli.parse(argv)
+    tts.default_loss_fn, unet_mod.flash_attention, tpipe.Diffuser = recording_loss, recording_flash, make_diffuser
+    ttrainer.SIGNeRFTrainer.setup, app.run_interface, app.run_command = setup, run_interface, run_command
+    app.ViewerServer.start_background, app.CommandChannel = start_background, channel
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    zero_counts(ffc)
+    fa.launches = 0
+    thread = threading.Thread(target=drive, daemon=True) if mesh.is_main else None
+    try:
+        if thread is not None:
+            thread.start()
+        t0 = time.perf_counter()
+        rc = cli._run(mesh, config, mesh.device, train_only)
+        torch.cuda.synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+    finally:
+        tts.default_loss_fn, unet_mod.flash_attention, tpipe.Diffuser = real["loss"], real["flash"], real["diffuser"]
+        ttrainer.SIGNeRFTrainer.setup, app.run_interface = real["setup"], real["run_interface"]
+        app.run_command, app.ViewerServer.start_background = real["command"], real["start"]
+        app.CommandChannel = real["channel"]
+    if thread is not None:
+        thread.join(60)
+    # A word's own cost: the ranks left the viewer together, so back-to-back
+    # empty words on a fresh channel wait for no rank's other work.
+    probe = real["channel"](mesh, lambda *a: None)
+    for _ in range(VR_WORD_PROBES):
+        probe.serve_once(block=False)
+    object_ms = []  # the same empty word as a pickled object (two broadcasts), beside it
+    for _ in range(VR_WORD_PROBES):
+        t0 = time.perf_counter()
+        mesh.broadcast_object(([], False), group=probe.group)
+        object_ms.append((time.perf_counter() - t0) * 1e3)
+    (trainer,) = trainers
+    lo = trainer.pipeline.dataset_generator._layout()
+    want_k7 = k7_launches(calls, lo.height, lo.width)
+    if mesh.tensor > 1:
+        want_k7 = tp_shapes(want_k7)
+    bsz = trainer.config.pipeline.dataset_generator.generation_batch_size
+    chunks = [list(range(s, min(s + bsz, SCENE["cameras"]))) for s in range(0, SCENE["cameras"], bsz)]
+    rec = {"rank": mesh.rank, "device": str(mesh.device), "rc": rc, "wall_s": wall, "launches": counts(ffc),
+           "k7": fa.launches, "k7_shapes": dict(shapes), "k7_expected": want_k7, "pauses": pauses,
+           "digest": params_digest(torch, trainer.pipeline.model), "step": trainer.step,
+           "step_ms": [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))],
+           "words": channels[0].words, "word_ms": [s * 1e3 for s in channels[0].word_s],
+           "probe_word_ms": [s * 1e3 for s in probe.word_s], "object_word_ms": object_ms,
+           "view_group": mesh.view_group, "my_views": sum(len(c) for c in chunks[mesh.view_group::mesh.view_groups]),
+           "served": len(servers), "client": client, "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2**30}
+    records = mesh.gather_objects(rec)
+    if mesh.is_main:
+        torch.save({"backend": mesh.backend, "world": mesh.world_size, "tensor": mesh.tensor, "ranks": records},
+                   Path(out))
+    return 0
+
+
+def viewer_ranks_run(torch, card: str, ref: dict, tmp: Path, shape, plan: dict, label: str) -> dict:
+    """One viewer on a (data, tensor) = `shape` mesh (phase 25(a), (b) or
+    (c)): spawn its ranks, check every record, print its figures. Returns
+    rank 0's kernel work."""
+    import numpy as np
+
+    from signerf_tpu_torch.data.dataparser import SIGNeRFDataParserConfig, parse_transforms
+    from signerf_tpu_torch.parallel import mesh as mesh_lib
+
+    cards = torch.cuda.device_count()
+    ranks = shape[0] * shape[1]
+    backend = "nccl" if cards >= ranks else "gloo"
+    parsed = parse_transforms(SIGNeRFDataParserConfig(data=ref["data"]))
+    corners = to_world(parsed, list(itertools.product(*zip(*SHEET_AABB_SCENE))))
+    run_dir = tmp / label.strip("()")
+    argv = ["signerf_nerfacto", "--data", str(ref["data"]), "--load-dir", str(ref["ckpt_dir"]), "--device", "cuda",
+            "--mesh", f"data={shape[0]},tensor={shape[1]}", "--output-dir", str(run_dir), "--max-num-iterations",
+            str(plan["steps"]), "--steps-per-save", str(plan["steps"]), "--pipeline.datamanager.train-num-rays-per-batch",
+            str(plan["rays"]), "--pipeline.dataset-generator.path", str(run_dir / "generations"),
+            "--pipeline.dataset-generator.aabb-min", json.dumps(corners.min(0).tolist()),
+            "--pipeline.dataset-generator.aabb-max", json.dumps(corners.max(0).tolist()), *REFERENCE_FLAGS]
+    # the interface's default ring (radius 1, world origin) moved onto 14c's
+    # reference ring: the scene's centre, radius 2 in the scene's frame
+    plan = dict(plan, label=label, ring={"element": "reference", "translate": to_world(parsed, [0.0, 0.0, 0.0]).tolist(),
+                            "scale": float(EDIT_REFERENCE_RING["radius"] * parsed.dataparser_scale)})
+    out = run_dir / "records.pt"
+    run_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        mesh_lib.spawn(viewer_ranks_rank, (argv, str(out), plan), ranks, run_dir, device_type="cuda",
+                       backend=backend, cards=min(cards, ranks), join_timeout_s=VR_JOIN_S, tensor=shape[1])
+    except Exception as exc:  # a rank failed: its error is above
+        fail(f"phase 25{label}: a rank failed: {exc!r}")
+    spawn_s = time.perf_counter() - t0
+    res = torch.load(out, weights_only=False)
+    recs = res["ranks"]
+    c = recs[0]["client"]
+    if "error" in c:
+        fail(f"phase 25{label}: the client on rank 0 failed:\n{c['error']}")
+    if (res["backend"], res["world"], res["tensor"]) != (backend, ranks, shape[1]):
+        fail(f"phase 25{label}: {res['world']} ranks over {res['backend']}, tensor {res['tensor']}")
+    frame = -(-(SCENE["width"] * SCENE["height"]) // CHUNK)
+    steps = plan["steps"]
+    for r in recs:
+        views = (2 * EDIT_REFERENCES if r["view_group"] == 0 else 0) + r["my_views"]
+        want = expect_counts(K1=3, K2_tables=3)(steps)
+        want["K1"] += 3 * frame * views
+        if r["rank"] == 0:
+            want["K1"] += 3 * (c["render_chunks"] + c["cloud_chunks"]) + c["mesh_calls"]
+        bad = []
+        if r["rc"] != 0 or r["served"] != (r["rank"] == 0) or r["step"] != steps:
+            bad.append(f"rc {r['rc']}, served {r['served']}, step {r['step']}")
+        if r["launches"] != want:
+            bad.append(f"launches {r['launches']}, expected {want}")
+        if r["k7_shapes"] != r["k7_expected"] or r["k7"] != sum(r["k7_expected"].values()):
+            bad.append(f"K7 {r['k7']} {r['k7_shapes']}, the schedule {r['k7_expected']}")
+        if r["digest"] != recs[0]["digest"] or r["pauses"] != recs[0]["pauses"] or r["words"] != recs[0]["words"]:
+            bad.append(f"parameters or pauses differ from rank 0's: {r['pauses']} against {recs[0]['pauses']}, "
+                       f"words {r['words']} against {recs[0]['words']}")
+        if bad:
+            fail(f"phase 25{label} rank {r['rank']}: " + "; ".join(bad))
+
+    def ms_line(xs):
+        return f"{median(xs):.3f} ({min(xs):.3f} to {max(xs):.3f})" if xs else "none"
+
+    lat = "; ".join(
+        f"{size} px: request {ms_line([x[0] for x in rows])}, lock {ms_line([x[1]['lock'] for x in rows])}, render "
+        f"{ms_line([x[1]['render'] for x in rows])}, PNG {ms_line([x[1]['png'] for x in rows])}"
+        for size, rows in c["paused"].items())
+    windows = []
+    for r in recs:
+        quiet = r["step_ms"][VR_QUIET_FROM:c["client_from"] - 1]
+        busy = r["step_ms"][c["client_from"]:c["client_to"] - 1]
+        windows.append(f"rank {r['rank']} {ms_line(quiet)} ms without a client (steps {VR_QUIET_FROM} to "
+                       f"{c['client_from']}), {ms_line(busy)} ms with one (steps {c['client_from']} to {c['client_to']})")
+    sizes = [x[0] for x in c["replies"]]
+    launches = "; ".join(f"rank {r['rank']}: " + ", ".join(f"{k} {v}" for k, v in r["launches"].items() if v)
+                         + f", K7 {r['k7']}" for r in recs)
+    t = c["timings"]
+    print(f"phase 25{label} the train CLI's viewer on (data, tensor) = {shape}, {ranks} ranks over {backend} on "
+          f"{sorted({r['device'] for r in recs})}: rank 0 served and {ranks - 1} followed over {recs[0]['words']} control "
+          f"words; a bad /nudge answered 400 and the next command ran; paused /render median (range) over "
+          f"{VR_REPEATS} in ms: {lat}; /preview {c['preview_s']:.3f} s; /generate "
+          f"{c['generate_s']:.3f} s to completed (sheet {t['sheet_s']:.3f} s, rank 0's chunks "
+          + ", ".join(f"{x:.3f}" for x in t["view_s"]) + f" s, {steps} refinement steps of {plan['rays']} global rays; "
+          f"mask coverage " + ", ".join(f"{x:.3f}" for x in c["coverage"]) + "); "
+          f"refinement step median (range): " + "; ".join(windows)
+          + f"; {len(sizes)} replies at " + ", ".join(f"{s} px x {sizes.count(s)}" for s in sorted(set(sizes)))
+          + f" while training, request {ms_line([x[1] for x in c['replies']])} ms, lock wait "
+          f"{ms_line([x[2]['lock'] for x in c['replies']])} ms, render {ms_line([x[2]['render'] for x in c['replies']])} "
+          f"ms; paused at step {c['pause'][0] if c['pause'] else None} for "
+          f"{c['pause'][3] if c['pause'] else 0.0:.3f} s, held on every rank; parameter digests equal on every rank at "
+          f"the pause ({len(recs[0]['pauses'])}) and after the refinement; control word a train call (each rank's wait "
+          f"for it and its broadcast, the later rank's is its cost): " + ", ".join(
+              f"rank {r['rank']} {ms_line(r['word_ms'])} ms" for r in recs) + f" over {len(recs[0]['word_ms'])} calls, "
+          f"alone ({VR_WORD_PROBES} empty words back to back) " + ", ".join(
+              f"rank {r['rank']} {ms_line(r['probe_word_ms'])} ms" for r in recs) + " (as a pickled object: "
+          + ", ".join(f"rank {r['rank']} {ms_line(r['object_word_ms'])} ms" for r in recs) + "); "
+          f"/export mesh {c['mesh_s']:.3f} s, point cloud "
+          f"{c['cloud_s']:.3f} s; launches by rank: {launches} (K1 on rank 0 alone for each /render: 3 x "
+          f"{c['render_chunks']} chunks, and for the exports); peak memory "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in recs) + f" GiB; wall of the spawned ranks {spawn_s:.1f} s; on "
+          f"{card}", flush=True)
+    r0 = recs[0]
+    mine = 2 * EDIT_REFERENCES + r0["my_views"]
+    return {"chunks": c["render_chunks"] + c["cloud_chunks"] + frame * mine, "train_steps": steps,
+            "mesh_calls": c["mesh_calls"], "k7_shapes": r0["k7_shapes"], "k7_launches": r0["k7"],
+            "generate_s": c["generate_s"]}
+
+
+def phase_viewer_ranks(torch, card: str, ref: dict, one_rank: dict) -> dict:
+    """Phase 25: the viewer on (2, 1) and (1, 2) (VR_MESHES) at VR_STEPS
+    refinement steps of VR_RAYS and VR_DIFFUSION_STEPS, a client at
+    VIEWER_CLIENT_FPS in the refinement's second half; on four cards or
+    more also (W, 1) at phase 14f's settings against `one_rank` (14f's
+    walls). Returns rank 0's kernel work over (a) and (b)."""
+    cards = torch.cuda.device_count()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_viewer_ranks_"))
+    t0 = time.perf_counter()
+    total = {"chunks": 0, "train_steps": 0, "mesh_calls": 0, "k7_shapes": {}, "k7_launches": 0}
+    try:
+        plan = {"steps": VR_STEPS, "rays": VR_RAYS, "diffusion_steps": VR_DIFFUSION_STEPS, "client": True}
+        for shape, label in zip(VR_MESHES, ("(a)", "(b)")):
+            got = viewer_ranks_run(torch, card, ref, tmp, shape, plan, label)
+            for key in ("chunks", "train_steps", "mesh_calls", "k7_launches"):
+                total[key] += got[key]
+            for s, n in got["k7_shapes"].items():
+                total["k7_shapes"][s] = total["k7_shapes"].get(s, 0) + n
+        if cards >= VR_MIN_CARDS_FOR_C:
+            plan = {"steps": EDIT_STEPS, "rays": TRAIN_RAYS, "diffusion_steps": EDIT_SDXL_STEPS, "client": False}
+            got = viewer_ranks_run(torch, card, ref, tmp, (cards, 1), plan, "(c)")
+            print(f"phase 25(c) /generate on {cards} cards {got['generate_s']:.3f} s against phase 14f's one rank "
+                  f"{one_rank['generate_s']:.3f} s (ratio {got['generate_s'] / one_rank['generate_s']:.3f}); on {card}",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 25 wall {time.perf_counter() - t0:.1f} s; on {card}", flush=True)
+    return total
+
+
 def kernel_entry(name, source, line, launches, stats, ms_key="ms", plain_key="plain_ms", bound_key="",
                  replaces="signerf_tpu/ops/fused_factor_pallas.py"):
     return {
@@ -4737,74 +5302,120 @@ def main() -> int:
         fail(f"run from the repository root: {exc}")
 
     t_start = time.perf_counter()
+    walls, t_lap = [], [t_start]
+
+    def lap(label: str) -> None:
+        # the wall of the phase (or phases) that ran since the last lap
+        now = time.perf_counter()
+        walls.append(f"{label} {now - t_lap[0]:.1f}")
+        t_lap[0] = now
+
     card = phase_environment(torch)
     phase_build()
+    lap("1-2")
     k1 = phase_kernel(torch)
+    lap("3")
     k2 = phase_k2(torch)
+    lap("4")
     k36 = phase_k3_k6(torch)
+    lap("5")
     k810 = phase_k8_k10(torch)
+    lap("5b")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         data = write_scene(tmp / "scene")
         render_launches = phase_render(torch, card, data, tmp)
+        lap("6")
         train = phase_train(torch, card, data, tmp, "signerf_nerfacto", TRAIN_STEPS, TRAIN_RAYS, 1,
                             NERFACTO_COUNTS, 7)
+        lap("7")
         camopt = phase_camera_opt(torch, data, tmp, "signerf_nerfacto", CAMERA_OPT_STEPS,
                                   expect_counts(K1=3, K2_tables=3, K2_coords=3), 8)
+        lap("8")
         phase_plain_step(torch, data)
+        lap("9")
         phase_eval(torch, data, tmp, train["ckpt_dir"])
+        lap("10")
         signerf = phase_train(torch, card, data, tmp, "signerf", SIGNERF_STEPS, SIGNERF_RAYS, SIGNERF_MICRO,
                               SIGNERF_COUNTS, 11)
+        lap("11")
         signerf_camopt = phase_camera_opt(
             torch, data, tmp, "signerf", SIGNERF_CAMERA_OPT_STEPS,
             expect_counts(K1=8, K2_tables=8, K2_coords=8, K3=4, K4_tables=4, K4_coords=4, K5=4,
                           K6_tables=4, K6_coords=4), 12,
         )
+        lap("12")
         phase_signerf_step(torch, data, signerf["ckpt_dir"])
         phase_profile(torch, card, data, signerf["ckpt_dir"])
+        lap("13")
         evaluation = phase_signerf_eval(torch, data, signerf["ckpt_dir"])
+        lap("14")
         grad_entry = phase_grad_entry_points(torch, card, data, signerf["ckpt_dir"])
+        lap("14b")
         ref = phase_reference_sheet(torch, card, tmp, train["ckpt_dir"])
+        lap("14c")
         edit = phase_edit_pass(torch, card, tmp, ref)
+        lap("14d-e")
         viewer = phase_viewer(torch, card, tmp, ref)
+        lap("14f")
+        p25 = phase_viewer_ranks(torch, card, ref, viewer)
+        lap("25")
         phase_hash(torch, card, data, tmp, ref)
+        lap("14g")
         last = phase_last_modules(torch, card, data, tmp, ref, train)
+        lap("21(a-d, g, h)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     k7 = phase_k7(torch, card)
+    lap("15")
     sheet = phase_sheet(torch, card, ref)
+    lap("16")
     phase_per_view(torch, card, sheet)
+    lap("17")
     eps_one = phase_cfg_branch(torch, card, sheet)
+    lap("18")
     phase_diffusion_profile(torch, card, sheet)
+    lap("19")
     tp_in = tp_inputs(ref, sheet)
     tp_ref = phase_tp_reference(torch, card, sheet, tp_in)
+    lap("24's one-rank reference")
     last_sdxl = phase_last_sdxl(torch, card, sheet)
+    lap("21(e, f)")
     sheet["diffuser"]._sdxl = None  # phase 22 creates its own
     p22 = phase_scripts(torch, card)
+    lap("22")
     one_root = Path(tempfile.mkdtemp(prefix="chip_smoke_one_"))
     try:
         p23 = phase_data_parallel(torch, card, one_root)
+        lap("23")
         p24 = phase_tensor_parallel(torch, card, tp_in, eps_one, tp_ref, one_root)
+        lap("24")
     finally:
         shutil.rmtree(one_root, ignore_errors=True)
     launched = signerf["launches"]
     # K3, K4's and K6's tables halves and K5 once a micro-batch (phase 23:
-    # rank 0's micro-batches, the launches this process counted)
+    # rank 0's micro-batches, the launches this process counted); phase 22's
+    # pretrain runs `pre` micro-batches of 16,384 rays, at the shapes of
+    # `pre_calls`
     ns_train = p22["micro"] + p23["micro"]
+    pre, pre_calls = p22["pre_micro"], p22["pre_calls"]
+    pre_err = pre_calls["max_abs_err"]
     # Calls of each field at a render chunk's and a train step's N in phases
     # 6, 7, 11, 14, the edit pass (14d, 14e), the viewer (14f) and the
     # example scripts (22; the eval render and a `signerf` step call only the
     # proposal fields, the latter in each of its micro-batches), and the base
     # field's at the mesh export's N.
-    chunks = render_launches // 3 + edit["chunks"] + viewer["chunks"] + last["arc_chunks"] + p22["fit_chunks"]
+    chunks = (render_launches // 3 + edit["chunks"] + viewer["chunks"] + last["arc_chunks"] + p22["fit_chunks"]
+              + p25["chunks"])
     steps = (train["launches"]["K1"] // 3 + edit["train_steps"] + viewer["train_steps"] + last["repeat_steps"]
-             + p22["fit_steps"])
+             + p22["fit_steps"] + p25["train_steps"])
     eval_chunks = evaluation["K1"] // 2 + p22["eval_chunks"]
     micro = launched["K1"] // 2 + p22["micro"] + p23["micro"]
     fields = [(name, name != "final") for name, _, _ in TRAIN_SCHEDULES]
     k1_calls = [(chunks + eval_chunks * proposal, k1["per_call"][(name, "chunk")]) for name, proposal in fields]
     k1_calls += [(steps + micro * proposal, k1["per_call"][(name, "train")]) for name, proposal in fields]
-    k1_calls += [(edit["mesh_calls"] + viewer["mesh_calls"], k1["per_call"][("final", "mesh")])]
+    k1_calls += [(pre, pre_calls["K1"][name]) for name, proposal in fields if proposal]
+    k1_calls += [(edit["mesh_calls"] + viewer["mesh_calls"] + p25["mesh_calls"], k1["per_call"][("final", "mesh")])]
     # Phase 21(a): the linear proposals' steps and chunks run K1 (and K2's
     # tables half) for the base field only, K3 (and K4's tables half) for
     # the proposal fields.
@@ -4814,9 +5425,11 @@ def main() -> int:
     k1_calls += [(lin_steps, k1["per_call"][("final", "train")]), (lin_chunks, k1["per_call"][("final", "chunk")])]
     k2_tables = [(steps + micro * proposal, k2["per_call"][name]["tables"]) for name, proposal in fields]
     k2_tables += [(lin_steps, k2["per_call"]["final"]["tables"])]
+    k2_tables += [(pre, pre_calls["K2 tables"][name]) for name, proposal in fields if proposal]
     k3_calls = [(launched["K3"] + ns_train, k36["K3"]), (evaluation["K3"] + p22["eval_chunks"], k36["K3"]["eval"]),
-                (last["K3"], k36["K3"])]
-    k4_calls = [(launched["K4 tables"] + ns_train, k36["K4 tables"]), (last["K4 tables"], k36["K4 tables"])]
+                (last["K3"], k36["K3"]), (pre, pre_calls["K3"])]
+    k4_calls = [(launched["K4 tables"] + ns_train, k36["K4 tables"]), (last["K4 tables"], k36["K4 tables"]),
+                (pre, pre_calls["K4 tables"])]
     for name, _, _ in PROPOSAL_FIELDS:
         k3_calls += [(lin_steps, p21[("K3", name, "train")]), (lin_chunks, p21[("K3", name, "chunk")])]
         k4_calls += [(lin_steps, p21[("K4 tables", name, "train")])]
@@ -4824,36 +5437,40 @@ def main() -> int:
     # the viewer's and phase 22's (14d, 14f, 22).
     k7_calls = {shape: 2 * n * (sheet["steps"] + last_sdxl["steps"]) for shape, n in K7_SHEET_CALLS.items()}
     for shape, n in itertools.chain(edit["k7_shapes"].items(), viewer["k7_shapes"].items(),
-                                    p22["k7_shapes"].items(), p24["k7_shapes"].items()):
+                                    p22["k7_shapes"].items(), p24["k7_shapes"].items(), p25["k7_shapes"].items()):
         k7_calls[shape] = k7_calls.get(shape, 0) + n
     if set(k7_calls) - set(k7["per_shape"]):
         fail(f"K7 ran at shapes phase 15 did not time: {sorted(set(k7_calls) - set(k7['per_shape']))}")
     k7_stats = per_call("K7", [(n, k7["per_shape"][shape]) for shape, n in k7_calls.items()], k7["max_abs_err"])
     k7_counted = (sheet["launches"] + edit["k7_launches"] + viewer["k7_launches"] + last_sdxl["k7_launches"]
-                  + p22["k7_launches"] + p24["k7_launches"])
+                  + p22["k7_launches"] + p24["k7_launches"] + p25["k7_launches"])
     if k7_stats["launches"] != k7_counted:
         fail(f"K7: {k7_stats['launches']} launches weighted, {k7_counted} counted")
     k2_coords = [(camopt["K2 coords"] // 3, k2["per_call"][name]["coords"]) for name, _ in fields]
     kernels = [
         kernel_entry("fused_factor_density (per call)", "fused_factor_density.cu", 1475, None,
-                     per_call("K1", k1_calls, k1["max_abs_err"])),
+                     per_call("K1", k1_calls, max(k1["max_abs_err"], pre_err["K1"]))),
         kernel_entry("fused_factor_density_bwd (tables and MLP half, per call)", "fused_factor_density_bwd.cu", 1686,
-                     None, per_call("K2 tables half", k2_tables, k2["max_abs_err"])),
+                     None, per_call("K2 tables half", k2_tables, max(k2["max_abs_err"], pre_err["K2 tables"]))),
         kernel_entry("fused_factor_density_bwd (coords half, per call)", "fused_factor_density_bwd.cu", 1776, None,
                      per_call("K2 coords half", k2_coords, k2["max_abs_err"])),
         kernel_entry("fused_factor_encode (per call)", "fused_factor_encode.cu", 196, None,
-                     per_call("K3", k3_calls, max(k36["K3"]["max_abs_err"], p21["max_abs_err"]["K3"]))),
+                     per_call("K3", k3_calls, max(k36["K3"]["max_abs_err"], p21["max_abs_err"]["K3"],
+                                                  pre_err["K3"]))),
         kernel_entry("fused_factor_encode_bwd (tables half, per call)", "fused_factor_encode.cu", 626, None,
-                     per_call("K4 tables half", k4_calls,
-                              max(k36["K4 tables"]["max_abs_err"], p21["max_abs_err"]["K4 tables"]))),
+                     per_call("K4 tables half", k4_calls, max(k36["K4 tables"]["max_abs_err"],
+                                                              p21["max_abs_err"]["K4 tables"], pre_err["K4 tables"]))),
         kernel_entry("fused_factor_encode_bwd (coords half)", "fused_factor_encode.cu", 640,
                      signerf_camopt["K4 coords"], k36["K4 coords"]),
         kernel_entry("fused_factor_grad_dot", "fused_factor_grad_dot.cu", 1037, None,
                      per_call("K5", [(launched["K5"] + ns_train, k36["K5"]),
-                                     (evaluation["K5"] + p22["eval_chunks"], k36["K5"]["eval"])],
-                              k36["K5"]["max_abs_err"])),
-        kernel_entry("fused_factor_grad_dot_bwd (tables half and grad_g)", "fused_factor_grad_dot.cu", 1315,
-                     launched["K6 tables"] + ns_train, k36["K6 tables"]),
+                                     (evaluation["K5"] + p22["eval_chunks"], k36["K5"]["eval"]),
+                                     (pre, pre_calls["K5"])],
+                              max(k36["K5"]["max_abs_err"], pre_err["K5"]))),
+        kernel_entry("fused_factor_grad_dot_bwd (tables half and grad_g, per call)", "fused_factor_grad_dot.cu", 1315,
+                     None, per_call("K6 tables half", [(launched["K6 tables"] + ns_train, k36["K6 tables"]),
+                                                       (pre, pre_calls["K6 tables"])],
+                                    max(k36["K6 tables"]["max_abs_err"], pre_err["K6 tables"]))),
         kernel_entry("fused_factor_grad_dot_bwd (coords half)", "fused_factor_grad_dot.cu", 1329,
                      signerf_camopt["K6 coords"], k36["K6 coords"]),
         kernel_entry("flash_attention (per call)", "flash_attention.cu", 216, None, k7_stats,
@@ -4866,6 +5483,7 @@ def main() -> int:
         kernel_entry("factor_dense_encode (factor_encode_pallas)", "fused_factor_encode.cu", 79, grad_entry["K10"],
                      k810["K10"], replaces="signerf_tpu/ops/pallas/factor_grid_kernel.py"),
     ]
+    print(f"phase 20 walls in run order, s: {'; '.join(walls)}", flush=True)
     print(f"phase 20 smoke wall {time.perf_counter() - t_start:.1f} s, the build included; on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     kind = torch.cuda.get_device_name(0)

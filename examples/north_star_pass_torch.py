@@ -319,7 +319,7 @@ def _pass(mesh, argv, configure, make_diffuser, reduced) -> Dict:
     full = [s for i, s in enumerate(chunk_s) if i > 0 and ((i * cards) + 1) * batch <= n_views]
     warm_marginal = float(np.median(full)) / batch if full else None
     log(f"dataset generation ({n_views} views + {REFERENCE_VIEWS} references, "
-        f"{gen_cfg.rows}x{gen_cfg.cols} sheet, {SDXL_STEPS} SDXL steps, batch {batch}): "
+        f"{gen_cfg.rows}x{gen_cfg.cols} sheet, {gen_cfg.diffuser.num_inference_steps} SDXL steps, batch {batch}): "
         f"{phases['generation']:.1f}s (sheet {timings.get('sheet_s', 0):.1f}s, warm per-view marginal "
         f"{float('nan') if warm_marginal is None else warm_marginal:.2f}s)", flush=True)
 

@@ -27,6 +27,11 @@ barrier follows each save, so no rank reads a checkpoint before it is on
 disk. A mesh with a tensor axis changes none of this: the NeRF is
 data-parallel over all its ranks, and only the generator's SDXL is
 sharded over each tensor group (the pipeline hands it the mesh).
+
+Under the viewer on a mesh (`interface/channel.py`), `control` is set on
+every rank: the loop calls it between train calls, and it runs rank 0's
+queued commands and holds the loop while paused, so that every rank
+pauses, resumes and changes state at the same step.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import dataclasses
 import threading
 import time
 from pathlib import Path
-from typing import TYPE_CHECKING, Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Callable, Dict, Optional
 
 import torch
 
@@ -137,6 +142,8 @@ class SIGNeRFTrainer:
         self.is_main = mesh is None or mesh.is_main
         self.training_state = "paused"  # paused | training | completed
         self.train_lock = FairLock()
+        # Called between train calls when set (the viewer's channel on a mesh).
+        self.control: Optional[Callable[[], None]] = None
         self.pipeline: Optional[SIGNeRFPipeline] = None
         self.previous_cameras: Optional[Dict[str, Any]] = None
         self.step = 0
@@ -277,7 +284,9 @@ class SIGNeRFTrainer:
         self.training_state = "training"
         t_start = time.time()
         while self.step < c.max_num_iterations:
-            if self.training_state == "paused":  # set by an interface's pause button
+            if self.control is not None:
+                self.control()  # returns once no longer paused
+            elif self.training_state == "paused":  # set by an interface's pause button
                 time.sleep(0.1)
                 continue
             with self.train_lock:

@@ -16,7 +16,10 @@ built-in web viewer (`interface/app.py`) drives it.
   * Preview Generation                              -> preview_generation
   * Generate Dataset & Train                        -> generate_and_train
 
-Poses and sheets are handed out as numpy arrays on the host. The synthetic
+Poses and sheets are handed out as numpy arrays on the host. On a mesh of
+ranks (`interface/channel.py`) every rank runs the same calls in the same
+order; the reference sheet of `preview_generation` is inpainted by view
+group 0 (rank 0's tensor group), as `generate_dataset` does it. The synthetic
 sphere poses draw from a `torch.Generator` seeded with `seed` (the JAX
 package draws from `PRNGKey(seed)`, so the poses differ between the
 packages for one seed).
@@ -305,11 +308,15 @@ class GenerationInterface:
     # Preview Generation
     # ------------------------------------------------------------------
 
-    def preview_generation(self) -> Dict[str, np.ndarray]:
+    def preview_generation(self) -> Optional[Dict[str, np.ndarray]]:
         """Run one reference-sheet generation; return the four sheets
-        (original, mask, condition, edited) as float arrays on the host."""
+        (original, mask, condition, edited) as float arrays on the host
+        (None on a rank outside view group 0, which has no part in it)."""
         if self.reference_poses is None:
             self.set_reference_circle()
+        mesh = getattr(self.trainer, "mesh", None)
+        if mesh is not None and mesh.view_group != 0:
+            return None
         gen = self.trainer.pipeline.dataset_generator
         gen.backfill_intrinsics(self.trainer.pipeline.datamanager.cameras)
         with torch.inference_mode():

@@ -33,11 +33,24 @@ Renders and exports hold the trainer's `train_lock`, so they never overlap
 an optimizer step or the dataset exchange, and run under
 `torch.inference_mode()` (a handler thread starts with grad mode on). They
 look the pipeline up at call time: `/generate` replaces it.
+
+On a mesh of W > 1 ranks (one process a card, `parallel/mesh.py`) rank 0
+alone serves HTTP and the other ranks follow (`run_interface`). The reads,
+`/`, `/state`, `/events`, `/scene`, `/render` and `/export`, run on rank
+0's replica as above and issue no collective: the render is the rank-local
+one, and after each all-reduced step every rank holds the same parameters,
+so rank 0's frame is the mesh's. The state changes (`/params`, `/nudge`,
+`/drag`, `/train`) and the collective work (`/preview`, inpainted by rank
+0's tensor group; `/generate`, whose generation, exchange and refinement
+run on every rank) are commands of `interface/channel.py`: every rank runs
+them in one order, from one thread, between train calls while training,
+and the reply waits until every rank has run them.
 """
 
 from __future__ import annotations
 
 import base64
+import functools
 import json
 import threading
 import time
@@ -51,6 +64,7 @@ import torch
 
 from signerf_tpu_torch.engine.writer import GLOBAL_BUFFER
 from signerf_tpu_torch.interface.api import GenerationInterface
+from signerf_tpu_torch.interface.channel import CommandChannel
 from signerf_tpu_torch.utils.images import encode_png
 
 _PAGE = """<!DOCTYPE html>
@@ -168,6 +182,20 @@ es.onerror = ()=>{ /* EventSource auto-reconnects */ };
 refresh();
 </script></body></html>"""
 
+# The viewer's commands: the interface's method each runs ("train" sets the
+# trainer's state). On a mesh every rank runs them through the channel.
+COMMANDS = {"params": "set_generation_params", "nudge": "nudge", "drag": "drag", "preview": "preview_generation",
+            "generate": "generate_and_train"}
+
+
+def run_command(interface: GenerationInterface, name: str, args: tuple, kwargs: dict):
+    """Viewer command `name` on this rank; its result."""
+    if name == "train":
+        (interface.trainer.training_state,) = args
+        return args[0]
+    return getattr(interface, COMMANDS[name])(*args, **kwargs)
+
+
 class ViewerServer:
     # viewer render budget: the fraction of the measured train throughput
     # one on-push render may take, at the target update rate
@@ -178,10 +206,38 @@ class ViewerServer:
     SSE_POLL_S = 0.25
     SSE_HEARTBEAT_S = 5.0
 
-    def __init__(self, interface: GenerationInterface, port: int = 7007):
+    def __init__(self, interface: GenerationInterface, port: int = 7007, channel: Optional[CommandChannel] = None):
+        """`channel`: on a mesh, rank 0's end of the command channel (None:
+        one process, commands run in the handler's thread)."""
         self.interface = interface
         self.port = port
-        self._worker: Optional[threading.Thread] = None
+        self.channel = channel
+        self._worker: Optional[threading.Thread] = None  # one process: the /generate thread
+        self._generation = None  # on a mesh: the /generate command's future
+        self._start_lock = threading.Lock()
+
+    def command(self, name: str, *args, **kwargs):
+        """Run a viewer command here, or on every rank through the channel."""
+        if self.channel is not None:
+            return self.channel.call(name, *args, **kwargs)
+        return run_command(self.interface, name, args, kwargs)
+
+    def generation_running(self) -> bool:
+        if self.channel is not None:
+            return self._generation is not None and not self._generation.done()
+        return self._worker is not None and self._worker.is_alive()
+
+    def start_generation(self) -> bool:
+        """Start Generate Dataset & Train unless it is running; whether it started."""
+        with self._start_lock:
+            if self.generation_running():
+                return False
+            if self.channel is not None:
+                self._generation = self.channel.submit("generate")
+            else:
+                self._worker = threading.Thread(target=self.interface.generate_and_train, daemon=True)
+                self._worker.start()
+            return True
 
     def _state_dict(self):
         t = self.interface.trainer
@@ -391,6 +447,17 @@ class ViewerServer:
                 else:
                     self._json({"error": "not found"}, 404)
 
+            def _reply(self, fn):
+                """`fn()`'s result as JSON; a bad request 400, another error 500."""
+                try:
+                    result = fn()
+                except (KeyError, ValueError, TypeError) as exc:
+                    self._json({"error": str(exc)}, 400)
+                except Exception as exc:  # noqa: BLE001 - e.g. a command that failed on another rank
+                    self._json({"error": f"{type(exc).__name__}: {exc}"}, 500)
+                else:
+                    self._json(result)
+
             def do_POST(self):
                 url = urlparse(self.path)
                 length = int(self.headers.get("Content-Length", 0) or 0)
@@ -401,33 +468,30 @@ class ViewerServer:
                     except json.JSONDecodeError:
                         body = {}
                 if url.path == "/preview":
-                    sheets = server.interface.preview_generation()
-                    self._json({k: base64.b64encode(encode_png(v)).decode() for k, v in sheets.items()})
+
+                    def preview():
+                        sheets = server.command("preview")
+                        return {k: base64.b64encode(encode_png(v)).decode() for k, v in sheets.items()}
+
+                    self._reply(preview)
                 elif url.path == "/generate":
-                    if server._worker is None or not server._worker.is_alive():
-                        server._worker = threading.Thread(target=server.interface.generate_and_train, daemon=True)
-                        server._worker.start()
+                    if server.start_generation():
                         self._json({"started": True})
                     else:
                         self._json({"started": False, "reason": "busy"})
                 elif url.path == "/train":
                     state = body.get("state", "training")
-                    server.interface.trainer.training_state = state
-                    self._json({"training_state": state})
+                    self._reply(lambda: {"training_state": server.command("train", state)})
                 elif url.path == "/params":
-                    server.interface.set_generation_params(**body)
-                    self._json({"ok": True})
+                    self._reply(lambda: server.command("params", **body) or {"ok": True})
                 elif url.path == "/nudge":
-                    try:
-                        server.interface.nudge(
-                            body["element"],
-                            translate=tuple(body.get("translate", (0, 0, 0))),
-                            scale=float(body.get("scale", 1.0)),
-                            rotate_deg=tuple(body.get("rotate_deg", (0, 0, 0))),
-                        )
-                        self._json({"ok": True})
-                    except (KeyError, ValueError) as exc:
-                        self._json({"error": str(exc)}, 400)
+                    self._reply(lambda: server.command(
+                        "nudge",
+                        body["element"],
+                        translate=tuple(body.get("translate", (0, 0, 0))),
+                        scale=float(body.get("scale", 1.0)),
+                        rotate_deg=tuple(body.get("rotate_deg", (0, 0, 0))),
+                    ) or {"ok": True})
                 elif url.path == "/export":
                     try:
                         kind = body.pop("kind", "pointcloud")
@@ -441,7 +505,8 @@ class ViewerServer:
                     except (KeyError, ValueError) as exc:
                         self._json({"error": str(exc)}, 400)
                 elif url.path == "/drag":
-                    try:
+
+                    def drag():
                         size = int(body.get("size", 128))
                         cam = server._orbit_cam(
                             float(body.get("yaw", 30.0)),
@@ -449,10 +514,10 @@ class ViewerServer:
                             float(body.get("radius", 2.0)),
                             size,
                         )
-                        server.interface.drag(body["element"], float(body["dx_px"]), float(body["dy_px"]), cam)
-                        self._json({"ok": True})
-                    except (KeyError, ValueError) as exc:
-                        self._json({"error": str(exc)}, 400)
+                        return server.command("drag", body["element"], float(body["dx_px"]), float(body["dy_px"]),
+                                              cam) or {"ok": True}
+
+                    self._reply(drag)
                 else:
                     self._json({"error": "not found"}, 404)
 
@@ -471,20 +536,27 @@ class ViewerServer:
         return httpd
 
 
-def require_one_rank(mesh) -> None:
-    """The viewer serves one process's trainer: raise under more than one rank."""
-    if mesh is not None and mesh.world_size > 1:
-        raise ValueError(
-            f"the interactive viewer runs on one rank, not {mesh.world_size}: pass --skip-interface True "
-            "(the headless edit flow) or --train-only True, or --mesh none"
-        )
-
-
 def run_interface(trainer, port: int = 7007):
     """Interactive mode: serve the viewer, training paused until the user
-    clicks "Generate Dataset & Train"."""
-    require_one_rank(getattr(trainer, "mesh", None))
+    clicks "Generate Dataset & Train". On a mesh of more than one rank,
+    rank 0 serves on `port` and every rank, rank 0 too, runs the viewer's
+    commands on its main thread until the channel closes."""
     interface = GenerationInterface(trainer)
-    server = ViewerServer(interface, port=port)
     trainer.training_state = "paused"
-    server.serve_forever()
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is None or mesh.world_size == 1:
+        ViewerServer(interface, port=port).serve_forever()
+        return
+    channel = CommandChannel(mesh, functools.partial(run_command, interface), ends_word=("generate",))
+    trainer.control = functools.partial(channel.follow, trainer)
+    httpd = None
+    if mesh.is_main:
+        httpd = ViewerServer(interface, port=port, channel=channel).start_background()
+        print(f"[viewer] rank 0 of {mesh.world_size} serves; the other ranks follow its commands", flush=True)
+    try:
+        channel.serve()
+    finally:
+        trainer.control = None
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()

@@ -17,10 +17,13 @@ running each of its chunks together. `world_size`, `share`, `all_mean_`
 and `assemble` mean the whole world, so the NeRF paths are the same on
 every shape.
 
-The collectives used are `all_reduce` (SUM), `broadcast`, `barrier` and
-`all_gather_object`, which NCCL and gloo both support on CUDA tensors.
-Gathers are assembled as a zero-filled buffer that each rank fills with its
-part, then summed: adding zeros is exact.
+The collectives used are `all_reduce` (SUM), `broadcast`, `barrier`,
+`all_gather_object` and `broadcast_object_list`, which NCCL and gloo both
+support on CUDA tensors. Gathers are assembled as a zero-filled buffer that
+each rank fills with its part, then summed: adding zeros is exact. Objects
+that only the host reads (the viewer's commands, `interface/channel.py`)
+travel over a gloo group of every rank (`host_group`), so that they never
+wait on a card's stream.
 
 A multi-card run starts in one of two ways. Under a launcher
 (`torchrun --nproc-per-node 4 -m signerf_tpu_torch.train ...`), each
@@ -133,6 +136,8 @@ class DataMesh:
     # This rank's tensor group (ranks T * g to T * g + T - 1), a
     # `dist.new_group`; None when T is 1.
     tensor_group: Any = dataclasses.field(default=None, repr=False, compare=False)
+    timeout_s: float = DEFAULT_TIMEOUT_S  # how long a collective may wait
+    _host_group: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def is_main(self) -> bool:
@@ -207,13 +212,42 @@ class DataMesh:
         self.broadcast_(out)
         return out
 
-    def gather_objects(self, obj: Any) -> List[Any]:
+    def gather_objects(self, obj: Any, group: Any = None) -> List[Any]:
         """Every rank's `obj`, in rank order, on every rank."""
         import torch.distributed as dist
 
         out: List[Any] = [None] * self.world_size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=group)
         return out
+
+    def broadcast_flag(self, flag: bool, group: Any = None) -> bool:
+        """Rank 0's `flag` on every rank: one broadcast of one integer held
+        on the host (so over gloo: `host_group()` on an NCCL mesh)."""
+        import torch.distributed as dist
+
+        box = torch.tensor([int(bool(flag)) if self.is_main else 0])
+        dist.broadcast(box, src=0, group=group)
+        return bool(box.item())
+
+    def broadcast_object(self, obj: Any, group: Any = None) -> Any:
+        """Rank 0's `obj` (picklable) on every rank; the others pass None."""
+        import torch.distributed as dist
+
+        box = [obj if self.is_main else None]
+        dist.broadcast_object_list(box, src=0, group=group)
+        return box[0]
+
+    def host_group(self) -> Any:
+        """A group of every rank for objects on the host: the default group
+        on gloo, else a gloo group made at the first call (which every rank
+        must make at the same point), with the mesh's timeout."""
+        if self.backend == "gloo":
+            return None
+        if self._host_group is None:
+            import torch.distributed as dist
+
+            self._host_group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=self.timeout_s))
+        return self._host_group
 
     def barrier(self) -> None:
         import torch.distributed as dist
@@ -295,7 +329,7 @@ def init_mesh(
             if g == rank // tensor:
                 group = made
     return DataMesh(rank=rank, world_size=world_size, device=device, backend=backend, tensor=tensor,
-                    tensor_group=group)
+                    tensor_group=group, timeout_s=timeout_s)
 
 
 def launched() -> bool:
@@ -313,10 +347,11 @@ def init_from_env(device_type: str, backend: Optional[str] = None, timeout_s: fl
 
 
 def rendezvous(directory: Path) -> str:
-    """A fresh `file://` rendezvous under `directory`."""
+    """A fresh `file://` rendezvous under `directory`. The path goes in
+    unquoted: torch's file rendezvous reads the URL's path as it stands."""
     directory = Path(directory).resolve()
     directory.mkdir(parents=True, exist_ok=True)
-    return (directory / f".rendezvous-{os.getpid()}-{time.time_ns()}").as_uri()
+    return f"file://{directory / f'.rendezvous-{os.getpid()}-{time.time_ns()}'}"
 
 
 def _spawned(rank: int, world_size: int, init_method: str, device_type: str, backend: Optional[str],

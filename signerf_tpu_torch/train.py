@@ -3,9 +3,10 @@
 Port of `signerf_tpu/train.py` for the `signerf` and `signerf_nerfacto`
 methods: plain training (`--train-only True`); the edit flow in the
 built-in web viewer (the default: it serves on port 7007 with training
-paused, and its "Generate Dataset & Train" runs the flow); or the edit flow
-headless (`--skip-interface True`: generate the edited dataset, hot-swap
-it, refine). f32 convolutions (the LPIPS loss of `signerf`) run without
+paused, and its "Generate Dataset & Train" runs the flow; on a mesh rank 0
+serves and the other ranks follow, `interface/app.run_interface`); or the
+edit flow headless (`--skip-interface True`: generate the edited dataset,
+hot-swap it, refine). f32 convolutions (the LPIPS loss of `signerf`) run without
 TF32 on the card.
 
 Flags, as in the JAX CLI:
@@ -41,9 +42,10 @@ Flags, as in the JAX CLI:
                        rendezvous under --output-dir); under one, e.g.
                          torchrun --nproc-per-node 4 -m signerf_tpu_torch.train
                            signerf --data D --train-only True
-                       each process joins the launcher's group. More than
-                       one rank needs --train-only True or
-                       --skip-interface True (the viewer runs on one).
+                       each process joins the launcher's group. The
+                       viewer on more than one rank: rank 0 serves on port
+                       7007 and every rank runs its commands in one order
+                       (its /preview and /generate on the mesh).
   --device DEV         torch device (default cuda); `cuda` without a card raises
   --a.b.c VALUE        any SIGNeRFTrainerConfig field, e.g.
                        --max-num-iterations 300 --pipeline.model.use-camera-opt True
@@ -103,8 +105,6 @@ def _run(mesh, config, device, train_only: bool) -> int:
                    f"over {mesh.backend}", flush=True)
     from signerf_tpu_torch.interface import app
 
-    if not (train_only or config.skip_interface):
-        app.require_one_rank(mesh)
     full_f32_convolutions()
     trainer = SIGNeRFTrainer(config, device, mesh=mesh)
     trainer.setup()

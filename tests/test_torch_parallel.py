@@ -6,8 +6,9 @@ tiny `signerf_nerfacto` and `signerf` models on two ranks against JAX's
 CPU devices) and against one rank on the concatenated pixel indices; the
 global batch's division and its refusals; the DP eval render against one
 rank's (bit for bit) and JAX's meshed render; the generator's dealt chunks
-against one rank's dataset; the train CLI on two ranks (self-spawned, and
-the headless edit flow); and no JAX in any rank.
+against one rank's dataset; the train CLI on two ranks (self-spawned, the
+viewer served by rank 0 and followed by rank 1, and the headless edit
+flow); and no JAX in any rank.
 
 Ranks are spawned processes (two gloo ranks on the CPU, one thread each, a
 `file://` rendezvous under the test's tmp_path, every join under a
@@ -422,6 +423,23 @@ def test_no_jax_in_the_ranks(suite):
         assert rank["modules"] == [] and rank["backend"] == "gloo" and rank["world_size"] == RANKS
 
 
+def test_rendezvous_in_a_directory_a_uri_would_quote(tmp_path):
+    """A run's output directory may hold spaces or parentheses: the file
+    rendezvous under it still forms a group (a quoted URI names a file that
+    does not exist), and leaves no file behind."""
+    from signerf_tpu_torch.parallel.mesh import init_mesh, rendezvous
+
+    where = tmp_path / "out (run 1)"
+    init = rendezvous(where)
+    mesh = init_mesh(0, 1, init, torch.device("cpu"), timeout_s=30)
+    try:
+        assert mesh.broadcast_object({"word": 1}) == {"word": 1}
+    finally:
+        mesh.close()
+    Path(init.removeprefix("file://")).unlink(missing_ok=True)  # as `spawn` and `run` do
+    assert list(where.iterdir()) == []
+
+
 def test_a_failing_rank_fails_the_spawn(tmp_path):
     """One rank raising ends the other, which waits for it at a barrier,
     and the spawner raises, long before the group's timeout."""
@@ -475,19 +493,22 @@ def test_train_cli_spawns_its_ranks(tmp_path, monkeypatch, spec):
 
 
 def test_train_cli_refuses_the_viewer_on_two_ranks(tmp_path):
-    """Without --train-only or --skip-interface, a rank of two refuses the
-    viewer before it sets anything up; one rank, or none, serves it."""
-    from signerf_tpu_torch import train as train_cli
-    from signerf_tpu_torch.interface import app
+    """Without --train-only or --skip-interface, `train._run` on two ranks
+    reaches `run_interface` on both: rank 0 serves (a client there reads
+    /state, then closes the viewer), rank 1 serves nothing and follows rank
+    0's control words until the close. (Before the viewer ran on a mesh,
+    this refused it.)"""
+    from tests import torch_interface_ranks_helpers as ih
 
-    _, device, config, train_only = train_cli.parse(["signerf_nerfacto", "--data", str(tmp_path), "--device",
-                                                     "cpu", "--mesh", "data=2"])
-    with pytest.raises(ValueError, match="--skip-interface True"):
-        train_cli._run(FakeMesh(2), config, device, train_only)
-    with pytest.raises(ValueError, match="--train-only True"):
-        app.run_interface(type("Trainer", (), {"mesh": FakeMesh(2)})())
-    app.require_one_rank(FakeMesh(1))
-    app.require_one_rank(None)
+    data = write_tiny_dataset(tmp_path / "data")
+    argv = ["signerf_nerfacto", "--data", str(data), "--device", "cpu", "--mesh", "data=2", "--output-dir",
+            str(tmp_path / "out"), *_model_flags("pipeline.model."), *CLI_EDIT]
+    hp.spawn(ih.cli_viewer, (argv, str(tmp_path)), RANKS, tmp_path)
+    r0, r1 = (torch.load(tmp_path / f"cli_rank{r}.pt", weights_only=False) for r in range(RANKS))
+    assert r0["reached"] == r1["reached"] == 1 and r0["rc"] == r1["rc"] == 0
+    assert len(r0["served"]) == 1 and r1["served"] == [] and r0["words"] == r1["words"] >= 1
+    assert r0["client"] == {"state": {"training_state": "paused", "step": 0, "metrics": {}}, "world": RANKS}
+    assert r0["modules"] == r1["modules"] == []
 
 
 def test_headless_cli_on_two_ranks_lands_the_edit(tmp_path):

@@ -53,8 +53,8 @@ def xla_routes() -> None:
 
 def spawn(fn, args, world_size: int, tmp: Path, **kw) -> None:
     """`fn(mesh, *args)` on `world_size` gloo ranks on the CPU, one thread each."""
-    mesh_lib.spawn(_one_thread, (fn, args), world_size, tmp, device_type="cpu", join_timeout_s=JOIN_TIMEOUT_S,
-                   timeout_s=JOIN_TIMEOUT_S, **kw)
+    kw = {"join_timeout_s": JOIN_TIMEOUT_S, "timeout_s": JOIN_TIMEOUT_S, **kw}
+    mesh_lib.spawn(_one_thread, (fn, args), world_size, tmp, device_type="cpu", **kw)
 
 
 def _one_thread(mesh, fn, args):
@@ -205,25 +205,33 @@ class FakeDiffuser(Diffuser):
         super().__init__(config, custom_fn=fake_edit, device=device)
 
 
-def train_cli(mesh: mesh_lib.DataMesh, argv, out: str) -> int:
+def train_cli_trainer(mesh: mesh_lib.DataMesh, argv, trainers: list) -> int:
     """The train CLI's work on this rank (`train.parse` and `train._run`),
-    with `FakeDiffuser` as the pipeline's diffuser; then this rank's final
-    parameters and imported modules to `out`/cli_rank{r}.pt."""
+    with `FakeDiffuser` as the pipeline's diffuser; its trainer appended to
+    `trainers`. Returns the exit code."""
     from signerf_tpu_torch import pipeline as tpipe
     from signerf_tpu_torch import train as train_cli_mod
     from signerf_tpu_torch.engine import trainer as ttrainer
 
-    tpipe.Diffuser = FakeDiffuser
-    trainers = []
-    real_setup = ttrainer.SIGNeRFTrainer.setup
+    real_setup, real_diffuser = ttrainer.SIGNeRFTrainer.setup, tpipe.Diffuser
 
     def setup(self, *a, **k):
         trainers.append(self)
         return real_setup(self, *a, **k)
 
-    ttrainer.SIGNeRFTrainer.setup = setup
-    _, _, config, train_only = train_cli_mod.parse(argv)
-    rc = train_cli_mod._run(mesh, config, torch.device("cpu"), train_only)
+    tpipe.Diffuser, ttrainer.SIGNeRFTrainer.setup = FakeDiffuser, setup
+    try:
+        _, _, config, train_only = train_cli_mod.parse(argv)
+        return train_cli_mod._run(mesh, config, torch.device("cpu"), train_only)
+    finally:
+        tpipe.Diffuser, ttrainer.SIGNeRFTrainer.setup = real_diffuser, real_setup
+
+
+def train_cli(mesh: mesh_lib.DataMesh, argv, out: str) -> int:
+    """`train_cli_trainer`, then this rank's final parameters and imported
+    modules to `out`/cli_rank{r}.pt."""
+    trainers = []
+    rc = train_cli_trainer(mesh, argv, trainers)
     (trainer,) = trainers
     torch.save({"params": trainer.pipeline.model.state_dict(), "step": trainer.step,
                 "modules": forbidden_modules()}, Path(out) / f"cli_rank{mesh.rank}.pt")
