@@ -139,7 +139,7 @@ def main() -> dict:
         out["inpaint_4step_kernel_breakdown"] = {
             "span_ms": round(bd["span_ms"], 4), "busy_ms": round(bd["busy_ms"], 4),
             "idle_share": round(bd["idle_share"], 4),
-            "groups_ms": {k: round(v, 4) for k, v in bd["groups_ms"].items()}}
+            "groups_ms": {k: round(v, 4) for k, v in bd["groups_ms"].items()}, "spans": bd["spans"]}
         print(f"  4-step inpaint under the profiler: span {bd['span_ms']:.1f} ms, device busy {bd['busy_ms']:.1f} ms, "
               f"idle {bd['idle_share']:.1%}; " + "; ".join(f"{k} {v:.2f}" for k, v in bd["groups_ms"].items()),
               flush=True)

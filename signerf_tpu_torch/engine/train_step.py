@@ -28,6 +28,7 @@ from signerf_tpu_torch.data.pixel_samplers import (
     sample_pixels,
     sample_pixels_masked,
 )
+from signerf_tpu_torch.utils import tracing
 
 if TYPE_CHECKING:
     from signerf_tpu_torch.parallel.mesh import DataMesh
@@ -118,11 +119,13 @@ def make_train_step(
                 f"the generator is on {generator.device}, the images on {images_u8.device}: "
                 "pixels are sampled where the images are"
             )
-        idx = _sample_indices(generator, settings, num_images, height, width, mask_indices)
-        rb = cameras.generate_rays_at(idx)
-        target = gather_pixels(images_u8, idx).float() / 255.0
+        with tracing.span("data.sample", stream=True):
+            idx = _sample_indices(generator, settings, num_images, height, width, mask_indices)
+            rb = cameras.generate_rays_at(idx)
+            target = gather_pixels(images_u8, idx).float() / 255.0
         anneal = model.anneal(step)
-        optimizer.zero_grad()
+        with tracing.span("engine.optimizer", stream=True):
+            optimizer.zero_grad()
         total = mse = 0.0
         ld_sum: Dict[str, torch.Tensor] = {}
         size = settings.num_rays // micro
@@ -130,32 +133,37 @@ def make_train_step(
             part = slice(i * size, (i + 1) * size)
             rb_i = rb.map(lambda x: x[part])
             batch = {"image": target[part], "indices": idx[part]}
-            outputs = model(rb_i, generator, train=True, anneal=anneal)
-            tot, ld = loss_fn(model, outputs, batch)
-            tot.backward()
+            with tracing.span("models.forward", stream=True):
+                outputs = model(rb_i, generator, train=True, anneal=anneal)
+                with tracing.span("models.loss"):
+                    tot, ld = loss_fn(model, outputs, batch)
+            with tracing.span("engine.backward", stream=True):
+                tot.backward()
             total = total + tot.detach()
             for k, v in ld.items():
                 ld_sum[k] = ld_sum.get(k, 0.0) + v.detach()
             mse = mse + ((outputs["rgb"].detach() - target[part]) ** 2).mean()
-        if micro > 1:
-            inv = 1.0 / micro
-            with torch.no_grad():
-                for p in model.parameters():
-                    if p.grad is not None:
-                        p.grad.mul_(inv)
-            total, mse = total * inv, mse * inv
-            ld_sum = {k: v * inv for k, v in ld_sum.items()}
-        # Proposal throttling: every step during warmup, then every
-        # `proposal_update_every` steps. Off-schedule grads are zeroed, and
-        # Adam still steps on them, as in the JAX package.
-        if gated and not (step < mcfg.proposal_warmup or step % mcfg.proposal_update_every == 0):
-            with torch.no_grad():
-                for p in proposal_params:
-                    if p.grad is not None:
-                        p.grad.mul_(0.0)
-        if mesh is not None:
-            total, mse, ld_sum = _all_mean_step(mesh, model, total, mse, ld_sum)
-        optimizer.step()
+        with tracing.span("engine.optimizer", stream=True):
+            if micro > 1:
+                inv = 1.0 / micro
+                with torch.no_grad():
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p.grad.mul_(inv)
+                total, mse = total * inv, mse * inv
+                ld_sum = {k: v * inv for k, v in ld_sum.items()}
+            # Proposal throttling: every step during warmup, then every
+            # `proposal_update_every` steps. Off-schedule grads are zeroed, and
+            # Adam still steps on them, as in the JAX package.
+            if gated and not (step < mcfg.proposal_warmup or step % mcfg.proposal_update_every == 0):
+                with torch.no_grad():
+                    for p in proposal_params:
+                        if p.grad is not None:
+                            p.grad.mul_(0.0)
+            if mesh is not None:
+                with tracing.span("parallel.all_mean"):
+                    total, mse, ld_sum = _all_mean_step(mesh, model, total, mse, ld_sum)
+            optimizer.step()
         metrics = dict(ld_sum)
         metrics["total_loss"] = total
         metrics["psnr"] = -10.0 * torch.log10(torch.clamp_min(mse, 1e-12))
@@ -163,7 +171,8 @@ def make_train_step(
 
     def train_fn(step: int, images_u8, mask_indices, generator):
         for i in range(steps_per_call):
-            metrics = single_step(step + i, images_u8, mask_indices, generator)
+            with tracing.span("engine.step"):
+                metrics = single_step(step + i, images_u8, mask_indices, generator)
         return metrics
 
     return train_fn
@@ -216,14 +225,16 @@ def make_eval_render(
         parts = {k: [] for k in EVAL_OUTPUTS}
         with torch.inference_mode():
             for c in mine:
-                chunk = bundle.map(lambda x: x[c * chunk_size : (c + 1) * chunk_size])
-                out = model(chunk, appearance_mode=appearance_mode)
-                for k in EVAL_OUTPUTS:
-                    parts[k].append(out[k])
-            if mesh is None:
-                return {k: torch.cat(v)[:n] for k, v in parts.items()}
-            local = torch.cat([torch.cat(parts[k]).float() for k in EVAL_OUTPUTS], dim=-1)
-            frame = mesh.assemble(local, num_chunks * chunk_size, mine.start * chunk_size)[:n]
+                with tracing.span("render.chunk"):
+                    chunk = bundle.map(lambda x: x[c * chunk_size : (c + 1) * chunk_size])
+                    out = model(chunk, appearance_mode=appearance_mode)
+                    for k in EVAL_OUTPUTS:
+                        parts[k].append(out[k])
+            with tracing.span("render.assemble"):
+                if mesh is None:
+                    return {k: torch.cat(v)[:n] for k, v in parts.items()}
+                local = torch.cat([torch.cat(parts[k]).float() for k in EVAL_OUTPUTS], dim=-1)
+                frame = mesh.assemble(local, num_chunks * chunk_size, mine.start * chunk_size)[:n]
         widths = [parts[k][0].shape[-1] for k in EVAL_OUTPUTS]
         return {k: v.to(parts[k][0].dtype) for k, v in zip(EVAL_OUTPUTS, frame.split(widths, dim=-1))}
 

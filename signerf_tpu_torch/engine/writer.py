@@ -1,9 +1,10 @@
-"""Metrics writer, train rays/s tracker and profiler hook.
+"""Metrics writer and train rays/s tracker.
 
 Port of `signerf_tpu/engine/writer.py`: the JSONL event log and config dump
 (wandb when installed and asked for); `GLOBAL_BUFFER`, the latest scalars
 and the train rays/s EMA, which the viewer's `/state` shows and its render
-throttle reads; a `torch.profiler` trace captured on demand.
+throttle reads. The JAX module's profiler hook has no counterpart: the
+port's spans (`utils/tracing.py`) record under `torch.profiler`.
 """
 
 from __future__ import annotations
@@ -73,29 +74,3 @@ class RaysPerSecTracker:
         self._last = now
         return self.value or 0.0
 
-
-class Profiler:
-    """`torch.profiler` over the host and, when there is one, the card:
-    `start()`, then `stop()` writes a Chrome trace under <log_dir>/profile
-    and returns its path."""
-
-    def __init__(self, log_dir: Path):
-        self.trace_dir = Path(log_dir) / "profile"
-        self._prof = None
-
-    def start(self) -> None:
-        import torch
-
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        self.trace_dir.mkdir(parents=True, exist_ok=True)
-        self._prof = torch.profiler.profile(activities=activities)
-        self._prof.start()
-
-    def stop(self) -> Path:
-        self._prof.stop()
-        path = self.trace_dir / f"trace_{time.strftime('%Y%m%d_%H%M%S')}.json"
-        self._prof.export_chrome_trace(str(path))
-        self._prof = None
-        return path

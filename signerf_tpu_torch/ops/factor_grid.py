@@ -47,10 +47,16 @@ from typing import Sequence, Tuple
 
 import torch
 
+from signerf_tpu_torch.utils import tracing
+
 Lines = Sequence[Sequence[torch.Tensor]]  # [level][axis] -> [R_l, F]
 DenseWeights = Tuple[torch.Tensor, torch.Tensor]  # (kernel [in, out], bias [out])
 
 _BF16 = torch.bfloat16
+
+# Bytes of packed tables `pack_tables` has written in this process (every
+# kernel call packs its field's tables anew); `utils/tracing` reads it.
+table_pack_bytes = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +200,10 @@ def density_mlp_reference(
 def pack_tables(lines: Lines) -> torch.Tensor:
     """The [level][axis] line tables as one flat contiguous bf16 buffer, in
     level-major, then axis, then row order: the layout the kernel reads."""
-    return torch.cat([t.reshape(-1) for axes in lines for t in axes]).to(_BF16)
+    global table_pack_bytes
+    packed = torch.cat([t.reshape(-1) for axes in lines for t in axes]).to(_BF16)
+    table_pack_bytes += packed.numel() * packed.element_size()
+    return packed
 
 
 def _kernel(name: str, device: torch.device):
@@ -232,13 +241,14 @@ class _FusedDensityMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, x01, k0, b0, k1, b1, *lines):
-        ctx.cfg = cfg
-        ctx.save_for_backward(x01, k0, b0, k1, *lines)
-        fwd = _kernel("density_mlp", x01.device)
-        return fwd(
-            cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)),
-            k0.to(_BF16), b0.to(_BF16), k1.to(_BF16), b1.to(_BF16), x01.detach(),
-        )
+        with tracing.span("ops.k1"):
+            ctx.cfg = cfg
+            ctx.save_for_backward(x01, k0, b0, k1, *lines)
+            fwd = _kernel("density_mlp", x01.device)
+            return fwd(
+                cfg.resolutions, cfg.features_per_level, pack_tables(_nested(cfg, lines)),
+                k0.to(_BF16), b0.to(_BF16), k1.to(_BF16), b1.to(_BF16), x01.detach(),
+            )
 
     @staticmethod
     def backward(ctx, g):

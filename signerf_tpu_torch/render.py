@@ -47,6 +47,7 @@ from signerf_tpu_torch.engine.checkpoints import latest_checkpoint, surgical_res
 from signerf_tpu_torch.engine.train_step import make_eval_render
 from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
 from signerf_tpu_torch.parallel import mesh as mesh_lib
+from signerf_tpu_torch.utils import tracing
 from signerf_tpu_torch.utils.images import save_array_png
 
 if TYPE_CHECKING:
@@ -103,8 +104,10 @@ def render_cameras(
     render = make_eval_render(model, chunk_size=chunk_size, mesh=mesh)
     h, w = cams.height, cams.width
     for i in range(len(cams)):
-        out = render(cams.generate_rays(camera_index=i, aabb=aabb).reshape((h * w,)))
-        yield {k: v.reshape(h, w, -1) for k, v in out.items()}
+        with tracing.span("render.frame"):
+            out = render(cams.generate_rays(camera_index=i, aabb=aabb).reshape((h * w,)))
+            frame = {k: v.reshape(h, w, -1) for k, v in out.items()}
+        yield frame
 
 
 def depth_image(depth: np.ndarray) -> np.ndarray:

@@ -27,6 +27,8 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from signerf_tpu_torch.utils import tracing
+
 # [(group, (substring, ...)), ...]: a kernel whose lower-cased name contains
 # one of a group's substrings is the first such group's; the rest is "other".
 Groups = Sequence[Tuple[str, Sequence[str]]]
@@ -124,9 +126,12 @@ def kernel_breakdown(fn: Callable[[], object], groups: Groups, iters: int = 1, w
     Returns, per call: `span_ms` (CUDA events around the profiled calls, so
     it carries the profiler's own host cost), `groups_ms` (device ms of each
     group's kernels, then "other"), `kernels_ms` (device ms by kernel name),
-    `busy_ms` (their sum) and the device's `busy_share` and `idle_share` of
-    the span. Device time is summed over the trace's CUDA events, not over
-    `key_averages()`, whose operator rows carry their kernels' time again.
+    `busy_ms` (their sum), the device's `busy_share` and `idle_share` of
+    the span, and `spans`, the program's spans (`utils/tracing.summary()`)
+    recorded in the profiled calls, each with its `device_ms`: the kernels
+    launched inside it (`span_device_ms`). Device time is summed over the
+    trace's CUDA events, not over `key_averages()`, whose operator rows
+    carry their kernels' time again.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -135,6 +140,7 @@ def kernel_breakdown(fn: Callable[[], object], groups: Groups, iters: int = 1, w
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    tracing.reset()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -158,8 +164,37 @@ def kernel_breakdown(fn: Callable[[], object], groups: Groups, iters: int = 1, w
     if not busy > 0:
         raise RuntimeError("the profiler saw no device time")
     share = busy / span_ms if span_ms > 0 else float("nan")
+    recorded = tracing.summary()["spans"]
+    device = span_device_ms(prof.events(), recorded)
+    spans = {name: {**{k: None if v is None else v / iters for k, v in s.items()}, "device_ms": device[name] / iters}
+             for name, s in recorded.items()}
     return {"span_ms": _positive(span_ms), "groups_ms": grouped, "kernels_ms": kernels, "busy_ms": busy,
-            "busy_share": share, "idle_share": 1.0 - share, "iters": iters}
+            "busy_share": share, "idle_share": 1.0 - share, "iters": iters, "spans": spans}
+
+
+def span_device_ms(events, names) -> Dict[str, float]:
+    """Device ms of the kernels launched inside each named span of a trace.
+
+    A kernel is a span's when the host operation that launched it (the one
+    the profiler links it to) starts inside one of the span's ranges, on
+    any thread: autograd's backward thread launches the backward's kernels
+    while the thread that called ``backward()`` waits inside its span. A
+    kernel counts for every span around it. Unlike a span's CUDA events,
+    this leaves out the time the stream waits for the host.
+    """
+    from torch.autograd import DeviceType
+
+    ranges: Dict[str, List[Tuple[float, float]]] = {name: [] for name in names}
+    launches: List[Tuple[float, float]] = []  # (host start, device us)
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            continue
+        if e.name in ranges:
+            ranges[e.name].append((e.time_range.start, e.time_range.end))
+        if e.kernels:
+            launches.append((e.time_range.start, sum(k.duration for k in e.kernels)))
+    return {name: sum(us for t, us in launches if any(a <= t <= b for a, b in spans)) / 1e3
+            for name, spans in ranges.items()}
 
 
 class Stages:

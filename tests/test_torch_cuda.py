@@ -1167,6 +1167,91 @@ def test_microbench_times_a_known_sleep(cuda):
     assert abs(bd["busy_ms"] - length_ms) <= 0.2 * length_ms and bd["idle_share"] < 0.2, bd
 
 
+def test_spans_time_the_stream_and_put_no_range_on_the_card(cuda):
+    """`utils/tracing`: a stream span's events time the stream between its
+    ends (a known sleep); a span is a host range of the trace and puts no
+    range of its own on the card's timeline, which a trace would count as
+    device time; a span on autograd's backward thread records (the
+    profiler's flag is on there) and starts a unit of its own."""
+    import threading
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from signerf_tpu_torch.utils import tracing
+
+    cycles = 50_000_000
+    torch.cuda._sleep(cycles)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    length_ms = (time.perf_counter() - t0) * 1e3
+    seen = {}
+
+    class Twice(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            seen["thread"] = threading.get_ident()
+            with tracing.span("backward.inside"):
+                return g * 2
+
+    x = torch.ones(1024, device="cuda", requires_grad=True)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tracing.span("step"):
+            with tracing.span("sleep", stream=True):
+                torch.cuda._sleep(cycles)
+            Twice.apply(x).sum().backward()
+        torch.cuda.synchronize()
+    records = {r.name: r for r in tracing._records}
+    s = tracing.summary()
+    tracing.reset()
+    assert abs(s["spans"]["sleep"]["stream_ms"] - length_ms) <= 0.2 * length_ms, (s, length_ms)
+    assert s["spans"]["step"]["stream_ms"] is None and s["units"] == 2
+    host = {e.name for e in prof.events() if e.device_type != DeviceType.CUDA}
+    card = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    assert {"step", "sleep", "backward.inside"} <= host and not card & {"step", "sleep", "backward.inside"}
+    assert seen["thread"] != threading.get_ident()
+    assert records["backward.inside"].unit == records["backward.inside"].id and records["backward.inside"].parent is None
+
+
+def test_kernel_breakdown_gives_a_span_its_kernels_not_its_idle_stream(cuda):
+    """`microbench.kernel_breakdown`'s `device_ms` a span: the kernels
+    launched inside it, on the step's thread and on autograd's backward
+    thread; its CUDA events' `stream_ms` also holds the stream's wait for
+    the host (a host sleep inside the span)."""
+    import time
+
+    from signerf_tpu_torch.utils import tracing
+    from signerf_tpu_torch.utils.microbench import kernel_breakdown
+
+    a = torch.randn(2048, 2048, device="cuda", requires_grad=True)
+
+    def step():
+        with tracing.span("step"):
+            with tracing.span("work", stream=True):
+                y = (a @ a).square().sum()
+                time.sleep(0.05)
+            with tracing.span("backward", stream=True):
+                y.backward()
+            with tracing.span("idle", stream=True):
+                time.sleep(0.01)
+        a.grad = None
+
+    bd = kernel_breakdown(step, [], iters=2)
+    sp = bd["spans"]
+    assert sp["step"]["device_ms"] == pytest.approx(bd["busy_ms"], rel=1e-6), bd
+    assert sp["work"]["device_ms"] + sp["backward"]["device_ms"] == pytest.approx(bd["busy_ms"], rel=1e-6), bd
+    assert sp["idle"]["device_ms"] == 0 and sp["backward"]["device_ms"] > sp["work"]["device_ms"] > 0, bd
+    assert sp["work"]["stream_ms"] >= 45 > 10 * sp["work"]["device_ms"], bd
+
+
 def parallel_helpers():
     """tests/torch_parallel_helpers.py, imported by its own name from this
     directory (another installed package may be called `tests`); spawned

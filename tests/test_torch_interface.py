@@ -8,7 +8,7 @@ on the same (converted) weights within 0.02 on RGB, the render tests'
 bound. Then the whole HTTP surface of the port's server, `/generate` until
 the refinement completes with the edit landed; that no viewer render
 overlaps an optimizer step or the dataset exchange (the trainer's
-`train_lock`); the writer's GLOBAL_BUFFER and profiler; and that the
+`train_lock`); the writer's GLOBAL_BUFFER; and that the
 interface imports nothing of JAX.
 """
 
@@ -654,11 +654,6 @@ def test_writer_publishes_to_the_global_buffer(tmp_path, monkeypatch):
     time.sleep(0.01)
     rate = tracker.tick(1000)
     assert rate > 0 and writer.GLOBAL_BUFFER["train_rays_per_sec"] == rate
-    prof = writer.Profiler(tmp_path / "log")
-    prof.start()
-    torch.ones(8, 8).matmul(torch.ones(8, 8))
-    path = prof.stop()
-    assert path.parent == tmp_path / "log" / "profile" and "traceEvents" in json.loads(path.read_text())
 
 
 def test_encode_png_is_save_array_pngs_file(tmp_path):
