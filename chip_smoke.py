@@ -53,8 +53,11 @@ the result line):
   6. the render CLI at the full width of `signerf_nerfacto` on a synthetic
      512x512 scene (--arc 2 --device cuda, seeded random weights): K1's
      launches must be 3 x chunks; the PNGs must equal a direct render's
-     output; outputs finite, accumulation in [0, 1]; rays/s; then one chunk
-     again with the plain twin in place of the kernel;
+     output; outputs finite, accumulation in [0, 1]; rays/s; then one
+     replayed chunk against the model called eagerly with the plain twin in
+     place of the kernel; a replayed frame's K1 kernels in a profile equal
+     to its counted launches, 3 x chunks, and its packed tables to the eager
+     chunks'; the memory a second chunk size's graph reserves;
   7. the train CLI (`signerf_nerfacto --train-only True --device cuda`) for
      300 steps at full width on the same scene: finite, falling loss; K1 and
      K2's tables half launched 3 x steps, K2's coords half never; warm
@@ -274,6 +277,7 @@ from __future__ import annotations
 import ctypes
 import itertools
 import json
+import re
 import shutil
 import struct
 import subprocess
@@ -1178,25 +1182,74 @@ def phase_render(torch, card: str, data: Path, tmp: Path) -> int:
         flush=True,
     )
 
-    # One chunk with the plain twin in place of the kernel.
+    # One replayed chunk against the model called eagerly with the plain twin
+    # in place of the kernel (the key exists: the frames above were cut at
+    # CHUNK, so `render` replays).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from signerf_tpu_torch.engine import chunk_graph
+    from signerf_tpu_torch.ops import factor_grid
+
     bundle = cams.generate_rays(camera_index=0, aabb=aabb).reshape((h * w,))
     chunk = bundle.map(lambda x: x[:CHUNK])
     render = make_eval_render(model, chunk_size=CHUNK)
-    kern = render(chunk)
+    replays, captures = chunk_graph.graph_replays, chunk_graph.graph_captures
+    kern = {k: v.clone() for k, v in render(chunk).items()}
+    if (chunk_graph.graph_replays - replays, chunk_graph.graph_captures - captures) != (1, 0):
+        fail(f"the chunk was not one replay: {chunk_graph.graph_replays - replays} replays, "
+             f"{chunk_graph.graph_captures - captures} captures")
     launch_kernel = ffc.density_mlp_cuda
     ffc.density_mlp_cuda = ffc.density_mlp_plain
     try:
-        plain = render(chunk)
+        with torch.inference_mode():
+            plain = model(chunk)
     finally:
         ffc.density_mlp_cuda = launch_kernel
     d_rgb = float((kern["rgb"] - plain["rgb"]).abs().max())
     d_acc = float((kern["accumulation"] - plain["accumulation"]).abs().max())
     print(
-        f"phase 6 one chunk, kernel vs plain twin: max |d rgb| {d_rgb:.3g}, "
+        f"phase 6 one replayed chunk vs the eager plain twin: max |d rgb| {d_rgb:.3g}, "
         f"max |d accumulation| {d_acc:.3g} (tolerance {CHUNK_TOL})"
     )
     if d_rgb > CHUNK_TOL or d_acc > CHUNK_TOL:
-        fail("kernel and plain renders of one chunk disagree")
+        fail("the replayed kernel and the plain eager renders of one chunk disagree")
+
+    # A replayed frame: the counters' growth against the K1 kernels the card
+    # ran (the profile) and the tables an eager chunk packs.
+    pack0 = factor_grid.table_pack_bytes
+    with torch.inference_mode():
+        model(chunk)
+    eager_pack = factor_grid.table_pack_bytes - pack0
+    frame_chunks = -(-(w * h) // CHUNK)
+    k1, pack0, replays = ffc.launches, factor_grid.table_pack_bytes, chunk_graph.graph_replays
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render(bundle)
+        torch.cuda.synchronize()
+    k1, pack, replays = ffc.launches - k1, factor_grid.table_pack_bytes - pack0, chunk_graph.graph_replays - replays
+    k1_name = re.compile(r"(?<![A-Za-z0-9_])density_kernel(?![A-Za-z0-9_])")  # "void density_kernel<8, ...>(...)"
+    ran = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and k1_name.search(e.name))
+    if not (replays == frame_chunks and ran == k1 == 3 * frame_chunks and pack == eager_pack * frame_chunks):
+        fail(f"a replayed frame of {frame_chunks} chunks: {replays} replays, K1 counted {k1} and run {ran} "
+             f"(the profile), tables packed {pack} bytes against {eager_pack} an eager chunk")
+
+    # The graph's memory pool: a second chunk size captures a second graph,
+    # whose pool stays reserved once the allocator's free blocks are released.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    make_eval_render(model, chunk_size=CHUNK // 2)(chunk)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool_mb = (torch.cuda.memory_reserved() - reserved0) / 1e6
+    print(
+        f"phase 6 a replayed frame of {frame_chunks} chunks: K1 {ran} kernels in the profile = {k1} counted, "
+        f"tables {pack / 1e6:.6f} MB packed (= {frame_chunks} x an eager chunk's); a capture at "
+        f"{CHUNK // 2} rays reserves {pool_mb:.1f} MB more, {torch.cuda.memory_reserved() / 1e6:.1f} MB reserved "
+        f"in all, {torch.cuda.max_memory_allocated() / 1e6:.1f} MB peak allocated",
+        flush=True,
+    )
     return launches
 
 

@@ -28,6 +28,7 @@ from signerf_tpu_torch.data.pixel_samplers import (
     sample_pixels,
     sample_pixels_masked,
 )
+from signerf_tpu_torch.engine import chunk_graph
 from signerf_tpu_torch.utils import tracing
 
 if TYPE_CHECKING:
@@ -205,7 +206,10 @@ def make_eval_render(
     The flat bundle is padded to a chunk multiple by repeating its last ray
     (the reference's static-shape rule, so every chunk has the same shape)
     and rendered chunk by chunk under `torch.inference_mode()`, with the
-    deterministic eval sampling. Outputs stay on the bundle's device.
+    deterministic eval sampling, into buffers of the frame's size. Outputs
+    stay on the bundle's device. On a CUDA device each chunk replays the
+    model's CUDA graph of one chunk (`engine/chunk_graph.py`); elsewhere it
+    calls the model.
 
     With `mesh`, every rank calls `render` on the same bundle: the frame is
     padded to a multiple of chunk_size x W (JAX's quantum), rank r renders a
@@ -222,20 +226,22 @@ def make_eval_render(
             lambda x: torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
         )
         mine = range(num_chunks) if mesh is None else range(num_chunks)[mesh.share(num_chunks)]
-        parts = {k: [] for k in EVAL_OUTPUTS}
+        parts: Dict[str, torch.Tensor] = {}
         with torch.inference_mode():
-            for c in mine:
-                with tracing.span("render.chunk"):
-                    chunk = bundle.map(lambda x: x[c * chunk_size : (c + 1) * chunk_size])
-                    out = model(chunk, appearance_mode=appearance_mode)
-                    for k in EVAL_OUTPUTS:
-                        parts[k].append(out[k])
+            with chunk_graph.chunk_forward(model, bundle, chunk_size, appearance_mode, EVAL_OUTPUTS) as forward:
+                for i, c in enumerate(mine):
+                    with tracing.span("render.chunk"):
+                        out = forward(bundle.map(lambda x: x[c * chunk_size : (c + 1) * chunk_size]))
+                        if not parts:
+                            parts = {k: v.new_empty((len(mine) * chunk_size, *v.shape[1:])) for k, v in out.items()}
+                        for k, v in out.items():
+                            parts[k][i * chunk_size : (i + 1) * chunk_size] = v
             with tracing.span("render.assemble"):
                 if mesh is None:
-                    return {k: torch.cat(v)[:n] for k, v in parts.items()}
-                local = torch.cat([torch.cat(parts[k]).float() for k in EVAL_OUTPUTS], dim=-1)
+                    return {k: v[:n] for k, v in parts.items()}
+                local = torch.cat([parts[k].float() for k in EVAL_OUTPUTS], dim=-1)
                 frame = mesh.assemble(local, num_chunks * chunk_size, mine.start * chunk_size)[:n]
-        widths = [parts[k][0].shape[-1] for k in EVAL_OUTPUTS]
-        return {k: v.to(parts[k][0].dtype) for k, v in zip(EVAL_OUTPUTS, frame.split(widths, dim=-1))}
+        widths = [parts[k].shape[-1] for k in EVAL_OUTPUTS]
+        return {k: v.to(parts[k].dtype) for k, v in zip(EVAL_OUTPUTS, frame.split(widths, dim=-1))}
 
     return render

@@ -55,7 +55,8 @@ DenseWeights = Tuple[torch.Tensor, torch.Tensor]  # (kernel [in, out], bias [out
 _BF16 = torch.bfloat16
 
 # Bytes of packed tables `pack_tables` has written in this process (every
-# kernel call packs its field's tables anew); `utils/tracing` reads it.
+# kernel call packs its field's tables anew; a CUDA graph's replays add what
+# its capture recorded, `tracing.count`); `utils/tracing` reads it.
 table_pack_bytes = 0
 
 
@@ -202,7 +203,7 @@ def pack_tables(lines: Lines) -> torch.Tensor:
     level-major, then axis, then row order: the layout the kernel reads."""
     global table_pack_bytes
     packed = torch.cat([t.reshape(-1) for axes in lines for t in axes]).to(_BF16)
-    table_pack_bytes += packed.numel() * packed.element_size()
+    table_pack_bytes += tracing.count("factor_grid.table_pack_bytes", packed.numel() * packed.element_size())
     return packed
 
 

@@ -33,6 +33,7 @@ import math
 import torch
 
 from signerf_tpu_torch.ops.cuda_build import library
+from signerf_tpu_torch.utils import tracing
 
 HEAD_DIM = 64
 
@@ -81,7 +82,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_forward failed with CUDA error {rc}")
-    launches += 1
+    launches += tracing.count("flash_attention.launches")
     return out
 
 

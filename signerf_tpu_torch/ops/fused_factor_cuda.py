@@ -74,6 +74,7 @@ import torch
 
 from signerf_tpu_torch.ops.cuda_build import library
 from signerf_tpu_torch.ops.factor_grid import dense_bf16, mlp2_reference
+from signerf_tpu_torch.utils import tracing
 
 # (features_per_level, hidden, out, levels) K1 and K2 are instantiated for:
 # the proposal fields and the base field of `signerf_nerfacto`.
@@ -85,7 +86,8 @@ ENCODE_SUPPORTED = {(16, 8)}
 DENSE_SUPPORTED = {(16, 8), (8, 5)}
 
 # Launches in this process; only the wrappers below add to them, once per
-# launch. `chip_smoke.py` resets and reads them.
+# launch, through `tracing.count` (a CUDA graph's capture launches nothing:
+# its replays add what it recorded). `chip_smoke.py` resets and reads them.
 launches = 0  # K1
 bwd_table_launches = 0  # K2, line grads and dW/db
 bwd_coords_launches = 0  # K2, coordinate grads
@@ -182,7 +184,7 @@ def density_mlp_cuda(
     _launch("fused_factor_density", "fused_factor_density_forward", x01.device,
             x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, hidden, out_dim,
             w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr())
-    launches += 1
+    launches += tracing.count("fused_factor_cuda.launches")
     return out
 
 
@@ -234,12 +236,12 @@ def density_mlp_bwd_cuda(
         )
         _launch("fused_factor_density_bwd", "fused_factor_density_backward", device,
                 *common, g_tables.data_ptr(), *(t.data_ptr() for t in g_ws), None, 0)
-        bwd_table_launches += 1
+        bwd_table_launches += tracing.count("fused_factor_cuda.bwd_table_launches")
     if coords_half:
         g_coords = torch.empty((n, 3), **f32)
         _launch("fused_factor_density_bwd", "fused_factor_density_backward", device,
                 *common, None, None, None, None, None, g_coords.data_ptr(), 1)
-        bwd_coords_launches += 1
+        bwd_coords_launches += tracing.count("fused_factor_cuda.bwd_coords_launches")
     return g_tables, g_ws, g_coords
 
 
@@ -297,7 +299,7 @@ def encode_cuda(
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     _launch("fused_factor_encode", "fused_factor_encode_forward", x01.device,
             x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, out.data_ptr())
-    encode_launches += 1
+    encode_launches += tracing.count("fused_factor_cuda.encode_launches")
     return out
 
 
@@ -325,12 +327,12 @@ def encode_bwd_cuda(
         g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=device)
         _launch("fused_factor_encode", "fused_factor_encode_backward", device,
                 *common, g_tables.data_ptr(), None, 0)
-        encode_bwd_table_launches += 1
+        encode_bwd_table_launches += tracing.count("fused_factor_cuda.encode_bwd_table_launches")
     if coords_half:  # the kernel writes every row
         g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
         _launch("fused_factor_encode", "fused_factor_encode_backward", device,
                 *common, None, g_coords.data_ptr(), 1)
-        encode_bwd_coords_launches += 1
+        encode_bwd_coords_launches += tracing.count("fused_factor_cuda.encode_bwd_coords_launches")
     return g_tables, g_coords
 
 
@@ -345,7 +347,7 @@ def grad_dot_cuda(
     _launch("fused_factor_grad_dot", "fused_factor_grad_dot_forward", x01.device,
             x01.data_ptr(), g.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat,
             out.data_ptr())
-    grad_dot_launches += 1
+    grad_dot_launches += tracing.count("fused_factor_cuda.grad_dot_launches")
     return out
 
 
@@ -378,12 +380,12 @@ def grad_dot_bwd_cuda(
         g_g = torch.empty_like(g)
         _launch("fused_factor_grad_dot", "fused_factor_grad_dot_backward", device,
                 *common, g_tables.data_ptr(), g_g.data_ptr(), None, 0)
-        grad_dot_bwd_table_launches += 1
+        grad_dot_bwd_table_launches += tracing.count("fused_factor_cuda.grad_dot_bwd_table_launches")
     if coords_half:
         g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
         _launch("fused_factor_grad_dot", "fused_factor_grad_dot_backward", device,
                 *common, None, None, g_coords.data_ptr(), 1)
-        grad_dot_bwd_coords_launches += 1
+        grad_dot_bwd_coords_launches += tracing.count("fused_factor_cuda.grad_dot_bwd_coords_launches")
     return g_tables, g_g, g_coords
 
 
@@ -397,7 +399,7 @@ def grad_cuda(
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     _launch("fused_factor_grad", "fused_factor_grad_forward", x01.device,
             x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, out.data_ptr())
-    grad_launches += 1
+    grad_launches += tracing.count("fused_factor_cuda.grad_launches")
     return out
 
 
@@ -423,11 +425,11 @@ def grad_bwd_cuda(
     if tables_half:
         g_tables = torch.zeros(tables.numel(), dtype=torch.float32, device=device)
         _launch("fused_factor_grad", "fused_factor_grad_backward", device, *common, g_tables.data_ptr(), None, 0)
-        grad_bwd_table_launches += 1
+        grad_bwd_table_launches += tracing.count("fused_factor_cuda.grad_bwd_table_launches")
     if coords_half:
         g_coords = torch.empty((n, 3), dtype=torch.float32, device=device)
         _launch("fused_factor_grad", "fused_factor_grad_backward", device, *common, None, g_coords.data_ptr(), 1)
-        grad_bwd_coords_launches += 1
+        grad_bwd_coords_launches += tracing.count("fused_factor_cuda.grad_bwd_coords_launches")
     return g_tables, g_coords
 
 
@@ -442,7 +444,7 @@ def dense_encode_cuda(
     res = (ctypes.c_int * len(resolutions))(*resolutions)
     _launch("fused_factor_encode", "factor_dense_encode_forward", x01.device,
             x01.data_ptr(), n, tables.data_ptr(), res, len(resolutions), feat, out.data_ptr())
-    dense_encode_launches += 1
+    dense_encode_launches += tracing.count("fused_factor_cuda.dense_encode_launches")
     return out
 
 

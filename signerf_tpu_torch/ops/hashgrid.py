@@ -22,6 +22,7 @@ Semantics, as the JAX function has them:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -58,13 +59,32 @@ def init_hashgrid_table(
     return u * (2.0 * scale) - scale
 
 
+@functools.cache
+def _level_constants(resolutions: Tuple[int, ...], table_size: int, dtype: torch.dtype, device: torch.device):
+    """(res [L] in `dtype`, res [L, 1, 1] int64, strides res + 1 [L, 1],
+    dense [L, 1], corner offsets [8, 3] int64, level starts [L, 1]) on
+    `device`, made once: a call after the first copies nothing from the
+    host, so a CUDA graph can capture the encode (`engine/chunk_graph.py`).
+    Kept for the process's life: a captured graph reads them at their
+    addresses (a handful of configurations make the keys).
+    Made outside inference mode, since training saves them for backward."""
+    with torch.inference_mode(False):
+        as_int = torch.tensor(resolutions, dtype=torch.int64, device=device)
+        return (
+            as_int.to(dtype),
+            as_int[:, None, None],
+            (as_int + 1)[:, None],
+            torch.tensor([(r + 1) ** 3 <= table_size for r in resolutions], device=device)[:, None],
+            torch.tensor(_OFFSETS, dtype=torch.int64, device=device),
+            (torch.arange(len(resolutions), device=device) * table_size)[:, None],
+        )
+
+
 def _corner_index(coords: torch.Tensor, resolutions: Sequence[int], table_size: int) -> torch.Tensor:
     """Table indices [L, N] (int64, within each level's table) of one corner
     per level, from its int64 coordinates [L, N, 3] already clamped to
     [0, res]."""
-    dev = coords.device
-    strides = torch.tensor([r + 1 for r in resolutions], dtype=torch.int64, device=dev)[:, None]
-    dense = torch.tensor([(r + 1) ** 3 <= table_size for r in resolutions], device=dev)[:, None]
+    _, _, strides, dense, _, _ = _level_constants(tuple(resolutions), table_size, torch.float32, coords.device)
     x, y, z = coords.unbind(-1)
     idx_dense = x + y * strides + z * strides * strides
     hashed = (x * _PRIMES[0]) ^ (y * _PRIMES[1]) ^ (z * _PRIMES[2])
@@ -84,20 +104,18 @@ def hashgrid_encode(
     pos = positions.reshape(-1, 3)
     pos = torch.minimum(torch.maximum(pos, pos.new_zeros(())), pos.new_ones(()))
     n = pos.shape[0]
-    dev = pos.device
+    res, max_coord, _, _, offsets, level_start = _level_constants(tuple(resolutions), table_size, pos.dtype,
+                                                                  pos.device)
 
-    res = torch.tensor(resolutions, dtype=pos.dtype, device=dev)
     scaled = pos[None, :, :] * res[:, None, None]  # [L, N, 3]
     floor = torch.floor(scaled)
     frac = scaled - floor
     base = floor.to(torch.int64)
-    max_coord = torch.tensor(resolutions, dtype=torch.int64, device=dev)[:, None, None]
-    level_start = (torch.arange(num_levels, device=dev) * table_size)[:, None]
     flat = table.reshape(num_levels * table_size, feat)
 
     feats = None
-    for off in _OFFSETS:
-        corner = torch.minimum(base + torch.tensor(off, dtype=torch.int64, device=dev), max_coord)
+    for off, offset in zip(_OFFSETS, offsets):
+        corner = torch.minimum(base + offset, max_coord)
         idx = _corner_index(corner, resolutions, table_size) + level_start  # [L, N]
         wx, wy, wz = (frac[..., a] if o else 1.0 - frac[..., a] for a, o in enumerate(off))
         w = wx * wy * wz  # [L, N]

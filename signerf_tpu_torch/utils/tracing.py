@@ -29,14 +29,22 @@ the whole process, set-up included.
 
 The counters stay module globals beside their code, each added to once per
 event it counts: `fused_factor_cuda`'s launches of K1 to K10,
-`flash_attention.launches` (K7) and `factor_grid.table_pack_bytes`.
+`flash_attention.launches` (K7), `factor_grid.table_pack_bytes`, and the eval
+render's chunks, graph replays and graph captures (`engine/chunk_graph.py`,
+named `render.*`). A site adds `count(name)`: while its thread captures a
+CUDA graph (`capturing`), which launches nothing, the events go to that
+graph's own tally instead, and each replay of the graph, which launches
+them, adds the tally (`add`). Other threads count as they go.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
 import time
-from typing import Dict, List, Optional
+from types import ModuleType
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -45,6 +53,7 @@ CAP = 1 << 20  # records kept until `reset()`; later ones are counted as dropped
 _profiling = torch._C._autograd._profiler_enabled  # true only on threads the profiler records
 _lock = threading.Lock()
 _local = threading.local()  # .stack: this thread's open records (None for a dropped one)
+_capture = threading.local()  # .tally: the counts of the graph this thread captures, if any
 _records: List["_Record"] = []
 _dropped = 0
 
@@ -53,15 +62,54 @@ class _Record:
     __slots__ = ("id", "name", "parent", "unit", "thread", "start_ns", "end_ns", "events", "counters")
 
 
-def counters() -> Dict[str, int]:
-    """The port's counters now, by module and name."""
+@functools.cache
+def _counters() -> Tuple[Tuple[str, ModuleType, str], ...]:
+    """(name, module, attribute) of each of the port's counters."""
+    from signerf_tpu_torch.engine import chunk_graph
     from signerf_tpu_torch.ops import factor_grid, flash_attention
     from signerf_tpu_torch.ops import fused_factor_cuda as ffc
 
-    out = {f"fused_factor_cuda.{name}": getattr(ffc, name) for name in ffc.COUNTERS}
-    out["flash_attention.launches"] = flash_attention.launches
-    out["factor_grid.table_pack_bytes"] = factor_grid.table_pack_bytes
-    return out
+    return (*((f"fused_factor_cuda.{name}", ffc, name) for name in ffc.COUNTERS),
+            ("flash_attention.launches", flash_attention, "launches"),
+            ("factor_grid.table_pack_bytes", factor_grid, "table_pack_bytes"),
+            *((f"render.{name}", chunk_graph, name) for name in chunk_graph.COUNTERS))
+
+
+def counters() -> Dict[str, int]:
+    """The port's counters now, by module and name."""
+    return {name: getattr(module, attr) for name, module, attr in _counters()}
+
+
+def count(name: str, n: int = 1) -> int:
+    """What counter `name`'s site adds for `n` events: `n`, or 0 while this
+    thread captures a CUDA graph (`capturing`), whose tally takes them."""
+    tally = getattr(_capture, "tally", None)
+    if tally is None:
+        return n
+    tally[name] = tally.get(name, 0) + n
+    return 0
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Within, this thread's counts go to the yielded tally, by counter
+    name, and not to the counters: the events a CUDA graph's capture records
+    (`engine/chunk_graph.py`), which every replay adds (`add`)."""
+    if getattr(_capture, "tally", None) is not None:
+        raise RuntimeError("this thread is capturing a graph already")
+    _capture.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def add(counts: Dict[str, int]) -> None:
+    """Add `counts` to the counters of their names: what a replayed CUDA
+    graph launches, its capture's tally."""
+    for name, module, attr in _counters():
+        if name in counts:
+            setattr(module, attr, getattr(module, attr) + counts[name])
 
 
 def _open(name: str, stream: bool) -> Optional[_Record]:

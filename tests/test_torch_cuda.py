@@ -12,8 +12,11 @@ on the card, the web viewer's `/render` through K1, a linear proposal
 field through K3 and K4, `FactorGridEncoding`'s planes and
 `encode_with_grad` through K3, K4, K8 and K9, one data-parallel step at
 two or more ranks (K1 and K2 on every rank), one tensor-parallel SDXL
-block at two ranks (K7 on each rank's heads) and the kernels built once by
-ranks that start together.
+block at two ranks (K7 on each rank's heads), the kernels built once by
+ranks that start together, and the eval render's chunk graph
+(`engine/chunk_graph.py`) against the eager chunks: bit for bit at both
+backends and with normals, after in-place weight updates, captured anew
+after a move or another chunk size, with the eager chunks' counts.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 module imports torch and the port only, so it also runs where JAX is not
@@ -21,6 +24,8 @@ installed; the repository's conftest imports JAX, so run it there with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+
+import re
 
 import pytest
 import torch
@@ -1326,3 +1331,171 @@ def test_ranks_build_the_kernels_once(cuda, tmp_path):
     recs = [torch.load(tmp_path / f"build_rank{r}.pt", weights_only=False) for r in range(ranks)]
     assert sum(r["nvcc_runs"] for r in recs) == len(cuda_build.SOURCES), recs
     assert all(r["libraries"] == sorted(cuda_build.SOURCES) for r in recs)
+
+
+# ---------------------------------------------------------------------------
+# The eval render's chunk as one CUDA graph (`engine/chunk_graph.py`)
+
+GRAPH_CHUNK = 4096
+
+
+def graph_model(name, device):
+    """A model at full width: "factor" and "hash" `signerf_nerfacto`'s
+    nerfacto, "signerf" and "signerf-hash" with gradient and predicted
+    normals (K3 and K5 on the base field; autograd through the hash encode)."""
+    import dataclasses
+
+    from signerf_tpu_torch.method_configs import signerf_method
+    from signerf_tpu_torch.models.nerfacto import NerfactoModel, NerfactoModelConfig
+    from signerf_tpu_torch.models.signerf import SIGNeRFModel
+
+    backend = "hash" if name.endswith("hash") else "factor"
+    if name.startswith("signerf"):
+        model = SIGNeRFModel(dataclasses.replace(signerf_method().pipeline.model, encoding_backend=backend), 3)
+    else:
+        model = NerfactoModel(NerfactoModelConfig(encoding_backend=backend), num_train_images=3)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to(device).eval()
+
+
+def graph_rays(n, device, seed=1):
+    from signerf_tpu_torch.cameras.cameras import RayBundle
+
+    g = torch.Generator().manual_seed(seed)
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=g) * 0.3 + torch.tensor([0.0, 0.0, -1.0]), dim=-1)
+    o = torch.tensor([0.0, 0.0, 2.0]) + 0.1 * torch.randn(n, 3, generator=g)
+    return RayBundle(
+        origins=o.to(device), directions=d.to(device), pixel_area=torch.ones(n, 1, device=device),
+        camera_indices=torch.randint(0, 3, (n, 1), generator=g, dtype=torch.int32).to(device),
+        nears=torch.full((n, 1), 0.5, device=device), fars=torch.full((n, 1), 4.0, device=device),
+    )
+
+
+def eager_frame(model, bundle, chunk=GRAPH_CHUNK):
+    """`make_eval_render`'s padding and chunk order, each chunk a plain
+    model call, concatenated."""
+    from signerf_tpu_torch.engine.train_step import EVAL_OUTPUTS
+
+    n = bundle.origins.shape[0]
+    pad = -n % chunk
+    padded = bundle.map(lambda x: torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]))
+    with torch.inference_mode():
+        outs = [model(padded.map(lambda x: x[c : c + chunk])) for c in range(0, n + pad, chunk)]
+    return {k: torch.cat([o[k] for o in outs])[:n] for k in EVAL_OUTPUTS}
+
+
+def assert_frames_equal(got, want):
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), (k, float((got[k] - want[k]).abs().max()))
+
+
+def kernel_counts():
+    """The counters a replay must add to as the eager chunks do."""
+    from signerf_tpu_torch.utils import tracing
+
+    return {k: v for k, v in tracing.counters().items() if not k.startswith("render.")}
+
+
+@pytest.mark.parametrize("name,n", [("factor", 3 * GRAPH_CHUNK), ("factor", 3 * GRAPH_CHUNK - 1000),
+                                    ("hash", 3 * GRAPH_CHUNK - 1000), ("signerf", 2 * GRAPH_CHUNK + 7),
+                                    ("signerf-hash", 2 * GRAPH_CHUNK + 7)])
+def test_eval_render_replays_equal_the_eager_chunks_bit_for_bit(cuda, name, n):
+    """The first frame captures (its first chunk is the warm-up) and the
+    second replays every chunk; both equal the eager chunks bit for bit,
+    padded frames too."""
+    from signerf_tpu_torch.engine import chunk_graph
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+
+    model = graph_model(name, cuda)
+    bundle = graph_rays(n, cuda)
+    want = eager_frame(model, bundle)
+    captures, replays = chunk_graph.graph_captures, chunk_graph.graph_replays
+    first = make_eval_render(model, chunk_size=GRAPH_CHUNK)(bundle)
+    second = make_eval_render(model, chunk_size=GRAPH_CHUNK)(bundle)
+    torch.cuda.synchronize()
+    chunks = -(-n // GRAPH_CHUNK)
+    assert chunk_graph.graph_captures == captures + 1
+    assert chunk_graph.graph_replays == replays + 2 * chunks - 1
+    assert_frames_equal(first, want)
+    assert_frames_equal(second, want)
+
+
+def test_eval_render_replays_follow_in_place_weight_updates(cuda):
+    """After an Adam-like in-place update (`_foreach_add_`) the graph reads
+    the new weights at their addresses: no capture, and the replayed frame
+    equals a fresh eager frame."""
+    from signerf_tpu_torch.engine import chunk_graph
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+
+    model = graph_model("factor", cuda)
+    bundle = graph_rays(2 * GRAPH_CHUNK - 100, cuda)
+    render = make_eval_render(model, chunk_size=GRAPH_CHUNK)
+    before = render(bundle)["rgb"].clone()
+    captures = chunk_graph.graph_captures
+    g = torch.Generator(device=cuda).manual_seed(3)
+    with torch.no_grad():
+        params = list(model.parameters())
+        torch._foreach_add_(params, [0.05 * torch.randn(p.shape, generator=g, device=cuda) for p in params])
+    got = render(bundle)
+    torch.cuda.synchronize()
+    assert chunk_graph.graph_captures == captures
+    assert not torch.equal(got["rgb"], before)
+    assert_frames_equal(got, eager_frame(model, bundle))
+
+
+def test_eval_render_captures_anew_after_a_move_or_another_chunk_size(cuda):
+    from signerf_tpu_torch.engine import chunk_graph
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+
+    model = graph_model("factor", cuda)
+    bundle = graph_rays(2 * GRAPH_CHUNK, cuda)
+    start = chunk_graph.graph_captures
+    make_eval_render(model, chunk_size=GRAPH_CHUNK)(bundle)
+    make_eval_render(model, chunk_size=GRAPH_CHUNK)(bundle)
+    assert chunk_graph.graph_captures == start + 1
+    make_eval_render(model, chunk_size=GRAPH_CHUNK // 2)(bundle)
+    assert chunk_graph.graph_captures == start + 2
+    assert len(chunk_graph._models[model].by_key) == 2
+    model.cpu().to(cuda)  # new addresses for every weight
+    got = make_eval_render(model, chunk_size=GRAPH_CHUNK)(bundle)
+    assert chunk_graph.graph_captures == start + 3
+    assert len(chunk_graph._models[model].by_key) == 1  # the graphs of the old addresses are gone
+    assert_frames_equal(got, eager_frame(model, bundle))
+
+
+K1_NAME = re.compile(r"(?<![A-Za-z0-9_])density_kernel(?![A-Za-z0-9_])")  # as the profiler names K1
+
+
+def test_eval_render_counts_as_the_eager_chunks(cuda):
+    """A frame adds to K1's launch counter and to `table_pack_bytes` what
+    the eager chunks add, the capturing frame and a replayed one alike, and
+    the replayed frame's profile holds as many K1 kernels as the counter
+    grew: 3 a chunk. The render counters count its chunks and replays."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from signerf_tpu_torch.engine.train_step import make_eval_render
+    from signerf_tpu_torch.utils import tracing
+
+    model = graph_model("factor", cuda)
+    n = 3 * GRAPH_CHUNK - 5
+    bundle = graph_rays(n, cuda)
+    before = kernel_counts()
+    eager_frame(model, bundle)
+    eager = {k: v - before[k] for k, v in kernel_counts().items() if v != before[k]}
+    assert eager["fused_factor_cuda.launches"] == 3 * 3 and eager["factor_grid.table_pack_bytes"] > 0
+    for frame in ("capture", "replay"):
+        before, counts = kernel_counts(), tracing.counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            make_eval_render(model, chunk_size=GRAPH_CHUNK)(bundle)
+            torch.cuda.synchronize()
+        grown = {k: v - before[k] for k, v in kernel_counts().items() if v != before[k]}
+        assert grown == eager, frame
+        render = {k: v - counts[k] for k, v in tracing.counters().items() if k.startswith("render.")}
+        assert render == ({"render.chunks": 3, "render.graph_replays": 2, "render.graph_captures": 1}
+                          if frame == "capture" else
+                          {"render.chunks": 3, "render.graph_replays": 3, "render.graph_captures": 0}), frame
+        k1 = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and K1_NAME.search(e.name)]
+        assert len(k1) == grown["fused_factor_cuda.launches"], (frame, k1)

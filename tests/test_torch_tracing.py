@@ -172,7 +172,8 @@ def test_counters_carry_the_launch_counters(monkeypatch):
     monkeypatch.setattr(flash_attention, "launches", 3)
     c = tracing.counters()
     assert set(c) == {f"fused_factor_cuda.{n}" for n in ffc.COUNTERS} | {
-        "flash_attention.launches", "factor_grid.table_pack_bytes"}
+        "flash_attention.launches", "factor_grid.table_pack_bytes", "render.chunks", "render.graph_replays",
+        "render.graph_captures"}
     assert c["fused_factor_cuda.launches"] == 7 and c["fused_factor_cuda.grad_dot_bwd_table_launches"] == 5
     assert c["flash_attention.launches"] == 3
 
